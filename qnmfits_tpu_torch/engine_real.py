@@ -1,0 +1,296 @@
+"""The factored t0 sweep and its regularised Hermitian solve (port of the
+main-path part of qnmfits_tpu/engine_real.py).
+
+The JAX module carries every complex value as a (re, im) pair of real
+arrays because the TPU has no complex dtype.  The H100 has native FP64
+and complex128, so the port works in complex128 and keeps the split form
+only where it fixes the rounding of a formula (the closed-form Grams).
+The precision guards carry over unchanged: the dead-column threshold
+(1e3 eps)^2, identity rows for dead columns, the 500 J eps floor, and the
+chunk-span budget that the caller applies (``batched._safe_chunk``).
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from .ops import chol_cuda
+from .ops.chol import complex_cholesky_solve_unrolled
+from .ops.windows import trapz_weights, window_geq
+
+__all__ = ["sweep_t0_factored_real", "sweep_t0_modesets_factored_real"]
+
+
+def _equilibrated(G, b):
+    """Equilibrate, mask numerically dead columns, floor.
+
+    G (..., J, J), b (..., J) complex.  Columns whose Gram diagonal
+    underflows (modes invisible in the window) become identity rows with
+    zero right-hand side, and a machine-epsilon floor bounds the
+    equilibrated condition number (engine_real.py:52-94).  Returns the
+    unit-diagonal system (A, b') and the diagonal unscaling Di.
+    """
+    J = G.shape[-1]
+    eps = torch.finfo(G.real.dtype).eps
+    diag = torch.diagonal(G, dim1=-2, dim2=-1).real
+    dead = diag <= diag.amax(dim=-1, keepdim=True) * (1e3 * eps) ** 2
+    kk = dead[..., :, None] | dead[..., None, :]
+    eye = torch.eye(J, dtype=G.dtype, device=G.device)
+    G = torch.where(kk, eye, G)
+    b = torch.where(dead, torch.zeros((), dtype=b.dtype, device=b.device), b)
+    d = torch.sqrt(torch.clamp(torch.diagonal(G, dim1=-2, dim2=-1).real,
+                               min=torch.finfo(G.real.dtype).tiny))
+    Di = 1.0 / d
+    A = G * Di[..., :, None] * Di[..., None, :]
+    A = A + (500.0 * J * eps) * eye
+    return A, b * Di, Di
+
+
+def _regularised_solve_plain(G, b):
+    """The plain PyTorch version of the CUDA solve kernel: equilibrated,
+    dead-column masked, floored complex Cholesky solve, any device."""
+    A, bs, Di = _equilibrated(G, b)
+    return complex_cholesky_solve_unrolled(A, bs) * Di
+
+
+def _regularised_solve(G, b):
+    """Batched equilibrated Hermitian solve (engine_real.py:109): G
+    (B, J, J), b (B, J) complex128 -> x (B, J).  CUDA tensors run the
+    hand-written kernel, CPU tensors its plain version."""
+    if G.is_cuda:
+        return chol_cuda.regularised_solve(G, b)
+    if G.device.type == "cpu":
+        return _regularised_solve_plain(G, b)
+    raise ValueError(f"no solve for device {G.device}")
+
+
+def _fitted_step(times):
+    """The least-drift uniform step (t[-1] - t[0]) / (K - 1)."""
+    return (times[-1] - times[0]) / (times.shape[0] - 1)
+
+
+def _analytic_grams(times, wr, wi, t0c, a, m):
+    """Closed-form window Grams on a uniform time grid (geq windows),
+    engine_real.py:516.  wr/wi (S, J); a (Bc,) first in-window index and
+    m (Bc,) sample count.  Returns Gt, Gtau complex (S, Bc, J, J)."""
+    K = times.shape[0]
+    s_b = torch.clamp(times[torch.clamp(a, 0, K - 1)] - t0c[0], min=0.0)
+    return _geom_grams_core(_fitted_step(times), K, wr, wi, s_b, m)
+
+
+def _geom_grams_core(dlt, K, wr, wi, s_b, m):
+    """Pairwise-mode closed-form Grams for windows of m[b] samples whose
+    first sample sits s_b[b] after the basis reference (nu from the
+    conj(phi_j) phi_l inner product).  wr/wi (S, J); returns Gt, Gtau
+    complex (S, Bc, J, J)."""
+    nu_re = (wi[:, :, None] + wi[:, None, :])[:, None]     # (S, 1, J, J)
+    nu_im = (wr[:, :, None] - wr[:, None, :])[:, None]
+    return _geom_series_eval(dlt, K, nu_re, nu_im, s_b[:, None, None],
+                             m[:, None, None])
+
+
+def _geom_series_eval(dlt, K, nu_re, nu_im, s, m):
+    """Closed-form windowed exponential sums (engine_real.py:600).
+
+    With z = e^{nu dlt}: Gt = e^{nu s} (z^m - 1)/(z - 1), the sum of m
+    consecutive samples of e^{nu t} starting at offset s, and Gtau the
+    trapezoid-weighted sum dlt (Gt - (first + last term)/2).  z^m - 1 is
+    built in expm1 form by bit decomposition of m (u(z^2p) = u^2 + 2u,
+    u(z^(p+q)) = u_p u_q + u_p + u_q), so no absolute-1 cancellation; the
+    leading factor is a direct exp (it needs relative precision at tiny
+    magnitudes).  Split (re, im) arithmetic as in the reference.  Returns
+    Gt, Gtau complex of the broadcast shape.
+    """
+    nbits = max(1, int(math.ceil(math.log2(K + 1))))
+    ex = torch.exp(nu_re * dlt)
+    den_re = torch.expm1(nu_re * dlt) - 2.0 * ex * torch.sin(nu_im * dlt * 0.5) ** 2
+    den_im = ex * torch.sin(nu_im * dlt)
+
+    e0 = torch.exp(nu_re * s)
+    F_re = e0 * torch.cos(nu_im * s)
+    F_im = e0 * torch.sin(nu_im * s)
+
+    shape = torch.broadcast_shapes(nu_re.shape, nu_im.shape, s.shape, m.shape)
+    usq_re = den_re.expand(shape)                             # u(z^(2^i))
+    usq_im = den_im.expand(shape)
+    um_re = torch.zeros(shape, dtype=nu_re.dtype, device=nu_re.device)
+    um_im = torch.zeros_like(um_re)
+    zero = torch.zeros((), dtype=nu_re.dtype, device=nu_re.device)
+    for i in range(nbits):
+        # where, not a multiply by the bit: a level above m's top bit can
+        # overflow for growing modes, and 0 * inf would poison um.
+        bit = ((m >> i) & 1) > 0
+        cm_re = um_re * usq_re - um_im * usq_im + usq_re
+        cm_im = um_re * usq_im + um_im * usq_re + usq_im
+        um_re = um_re + torch.where(bit, cm_re, zero)
+        um_im = um_im + torch.where(bit, cm_im, zero)
+        if i < nbits - 1:
+            usq_re, usq_im = (usq_re * usq_re - usq_im * usq_im + 2.0 * usq_re,
+                              2.0 * usq_re * usq_im + 2.0 * usq_im)
+
+    # S_m = u(z^m)/u(z); nu == 0 has the exact limit S_m = m.
+    den2 = den_re * den_re + den_im * den_im
+    safe = den2 > 0
+    one = torch.ones((), dtype=nu_re.dtype, device=nu_re.device)
+    dsr = torch.where(safe, den_re, one)
+    dsi = torch.where(safe, den_im, zero)
+    d2s = dsr * dsr + dsi * dsi
+    S_re = (um_re * dsr + um_im * dsi) / d2s
+    S_im = (um_im * dsr - um_re * dsi) / d2s
+    mf = m.to(nu_re.dtype).expand(shape)
+    S_re = torch.where(safe, S_re, mf)
+    S_im = torch.where(safe, S_im, zero)
+
+    Gt_re = F_re * S_re - F_im * S_im
+    Gt_im = F_re * S_im + F_im * S_re
+
+    # Last term F z^(m-1) = F (u(z^m) + 1)/z.
+    zm_re, zm_im = um_re + 1.0, um_im
+    z_re, z_im = den_re + 1.0, den_im
+    z2 = z_re * z_re + z_im * z_im
+    zb_re = (zm_re * z_re + zm_im * z_im) / z2
+    zb_im = (zm_im * z_re - zm_re * z_im) / z2
+    tb_re = F_re * zb_re - F_im * zb_im
+    tb_im = F_re * zb_im + F_im * zb_re
+    nonempty = (m > 0).to(nu_re.dtype)
+    Gtau_re = dlt * (Gt_re - 0.5 * (F_re + tb_re)) * nonempty
+    Gtau_im = dlt * (Gt_im - 0.5 * (F_im + tb_im)) * nonempty
+    return torch.complex(Gt_re, Gt_im), torch.complex(Gtau_re, Gtau_im)
+
+
+def _as_real(Z):
+    """(K, ...) complex -> (K, 2 * prod(...)) real view, so a real window
+    matrix multiplies it in one real matmul."""
+    return torch.view_as_real(Z.contiguous()).reshape(Z.shape[0], -1)
+
+
+def _as_complex(X, *shape):
+    """Columns of interleaved (re, im) pairs -> complex of ``shape``."""
+    return torch.view_as_complex(X.contiguous().reshape(*shape, 2))
+
+
+def _chunk_sweep_factored(times, data, omegas, mus, t0c, Tc, col_masks,
+                          analytic, solve):
+    """One chunk of start times for every mode set, factored form
+    (engine_real.py:717-843).
+
+    times (K,), data (I, K), omegas (S, J), mus (S, I, J), t0c/Tc (Bc,),
+    col_masks (S, J) bool.  Every window of the chunk is fitted in the
+    basis phi0 = exp(-i w (t - tref)), tref = t0c[0]; the amplitudes are
+    rephased to each t0 at the end.  The window matrix W is built once
+    and shared by all sets.  Returns C (S, Bc, J) and mm (S, Bc).
+    """
+    K = times.shape[0]
+    S, J = omegas.shape
+    I = data.shape[0]
+    Bc = t0c.shape[0]
+    tref = t0c[0]
+    wr, wi = omegas.real, omegas.imag
+
+    # Rows before tref lie outside every window of the chunk: clamp.
+    dt0 = torch.clamp(times - tref, min=0.0)[None, :, None]     # (1, K, 1)
+    E = torch.exp(wi[:, None, :] * dt0)
+    ph = wr[:, None, :] * dt0
+    phi0 = torch.complex(E * torch.cos(ph), -E * torch.sin(ph))  # (S, K, J)
+    phic = phi0.conj()
+
+    # Data projections conj(phi0_j) d_i per sample, (K, S, I, J).
+    R = (phic[:, :, None, :] * data.T[None, :, :, None]).permute(1, 0, 2, 3)
+    S2 = (data.real ** 2 + data.imag ** 2).sum(dim=0)[:, None]   # (K, 1)
+    W = window_geq(times[None, :], t0c[:, None], Tc[:, None])    # (Bc, K)
+    nR = 2 * S * I * J
+
+    if analytic:
+        a_w = (times[None, :] < t0c[:, None]).sum(dim=1)
+        m_w = (W > 0.5).sum(dim=1)
+        Gt, Gtau = _analytic_grams(times, wr, wi, t0c, a_w, m_w)
+        # On a uniform grid the trapezoid weights are dlt * W minus dlt/2
+        # at the two edge samples: two row gathers replace a matmul.
+        X = torch.cat([_as_real(R), S2], dim=1)                  # (K, nR+1)
+        WX = W @ X
+        e_w = torch.clamp(a_w + m_w - 1, 0, K - 1)
+        a_w = torch.clamp(a_w, 0, K - 1)
+        dlt = _fitted_step(times)
+        nonempty = (m_w > 0).to(W.dtype)[:, None]
+        TX = (dlt * WX - 0.5 * dlt * (X[a_w] + X[e_w])) * nonempty
+    else:
+        # Pairwise products conj(phi0_j) phi0_l, (K, S, J, J).
+        A = (phic[:, :, :, None] * phi0[:, :, None, :]).permute(1, 0, 2, 3)
+        X = torch.cat([_as_real(R), _as_real(A), S2], dim=1)
+        WX = W @ X
+        TX = trapz_weights(times, W) @ X
+        Gt = _as_complex(WX[:, nR:-1], Bc, S, J, J).permute(1, 0, 2, 3)
+        Gtau = _as_complex(TX[:, nR:-1], Bc, S, J, J).permute(1, 0, 2, 3)
+
+    pd = _as_complex(WX[:, :nR], Bc, S, I, J)
+    pdt = _as_complex(TX[:, :nR], Bc, S, I, J)
+    dnorm = TX[:, -1]                                            # (Bc,)
+
+    # Mixing: M = mu^H mu per set; G = M * Gt elementwise.
+    M = torch.einsum("sij,sil->sjl", mus.conj(), mus)[:, None]
+    G = M * Gt
+    G2 = M * Gtau
+    rhs = torch.einsum("sij,bsij->sbj", mus.conj(), pd)
+    rt = torch.einsum("sij,bsij->sbj", mus.conj(), pdt)
+
+    keep = col_masks[:, None, :]                                 # (S, 1, J)
+    kk = keep[..., :, None] & keep[..., None, :]
+    eye = torch.eye(J, dtype=G.dtype, device=G.device)
+    G = torch.where(kk, G, eye)
+    rhs = torch.where(keep, rhs, torch.zeros((), dtype=rhs.dtype,
+                                             device=rhs.device))
+
+    C0 = solve(G.reshape(S * Bc, J, J), rhs.reshape(S * Bc, J))
+    C0 = C0.reshape(S, Bc, J)
+
+    # Mismatch (phase-invariant, in the phi0 basis).
+    num = (C0.conj() * rt).real.sum(dim=-1)
+    GC = torch.einsum("sbjl,sbl->sbj", G2, C0)
+    model_norm = (C0.conj() * GC).real.sum(dim=-1)
+    mm = 1.0 - num / torch.sqrt(model_norm * dnorm)
+
+    # Amplitudes w.r.t. each t0: C = C0 exp(-i w delta), |.| <= 1.
+    delta = (t0c - tref)[None, :, None]
+    g = torch.exp(wi[:, None, :] * delta)
+    rot = torch.complex(g * torch.cos(wr[:, None, :] * delta),
+                        -g * torch.sin(wr[:, None, :] * delta))
+    return C0 * rot, mm
+
+
+def sweep_t0_modesets_factored_real(times, data, omegas, mus, t0s, Ts,
+                                    col_masks, chunk: int = 64,
+                                    analytic: bool = False, solve=None):
+    """t0 x mode-set sweep on the factored kernel (engine_real.py:874).
+
+    times (K,), data (I, K), omegas (S, J), mus (S, I, J), t0s/Ts (B,)
+    with t0s sorted ascending, col_masks (S, J) bool.  The mode-set axis
+    is a leading batch dimension (the JAX vmap) and the chunks run in a
+    Python loop (the JAX lax.map).  ``solve`` is the batched Hermitian
+    solve, by default ``_regularised_solve``.  Returns C (S, B, J)
+    complex and mm (S, B).
+    """
+    solve = _regularised_solve if solve is None else solve
+    Cs, mms = [], []
+    for lo in range(0, t0s.shape[0], chunk):
+        C, mm = _chunk_sweep_factored(
+            times, data, omegas, mus, t0s[lo:lo + chunk], Ts[lo:lo + chunk],
+            col_masks, analytic, solve)
+        Cs.append(C)
+        mms.append(mm)
+    return torch.cat(Cs, dim=1), torch.cat(mms, dim=1)
+
+
+def sweep_t0_factored_real(times, data, omega, mu, t0s, Ts, col_mask=None,
+                           chunk: int = 64, analytic: bool = False,
+                           solve=None):
+    """Factored t0 sweep of one mode set (engine_real.py:846): omega (J,),
+    mu (I, J), col_mask (J,) or None.  Returns C (B, J) and mm (B,)."""
+    if col_mask is None:
+        col_mask = torch.ones(omega.shape, dtype=torch.bool,
+                              device=omega.device)
+    C, mm = sweep_t0_modesets_factored_real(
+        times, data, omega[None], mu[None], t0s, Ts, col_mask[None],
+        chunk=chunk, analytic=analytic, solve=solve)
+    return C[0], mm[0]

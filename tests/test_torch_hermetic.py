@@ -1,0 +1,86 @@
+"""The port and chip_smoke.py stand alone: they import neither jax nor
+qnmfits_tpu, run on the CPU only when asked, and write nothing into the
+repository outside build/ and __pycache__/."""
+
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+# Directories left out of the listing: caches, builds, and the JAX
+# package's table directory, where its own tests write spline sidecars.
+_SKIP_DIRS = {".git", "build", "__pycache__", "chiprun_out"}
+_SKIP_PATHS = {os.path.join("qnmfits_tpu", "data")}
+
+_SCRIPT = r"""
+import sys
+for name in ("jax", "jaxlib", "qnmfits_tpu"):
+    sys.modules[name] = None          # any import of them now fails
+sys.path.insert(0, {repo!r})
+import qnmfits_tpu_torch
+from qnmfits_tpu_torch import (batched, engine, engine_real, fitting,
+                               ref_impl, testing)
+from qnmfits_tpu_torch.ops import chol, chol_cuda, windows
+from qnmfits_tpu_torch.spectrum import tables
+import chip_smoke
+
+problem = chip_smoke.build_problem(**chip_smoke.SMALL)
+out = chip_smoke.run_main_path(problem, "cpu")
+assert out["mm"].shape == (4, 64) and out["launches"] == 0
+loaded = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib", "qnmfits_tpu")
+                and sys.modules[m] is not None)
+assert not loaded, loaded
+print("HERMETIC-OK")
+"""
+
+
+def _listing():
+    found = set()
+    for root, dirs, files in os.walk(REPO):
+        rel = os.path.relpath(root, REPO)
+        dirs[:] = [d for d in dirs if d not in _SKIP_DIRS
+                   and os.path.normpath(os.path.join(rel, d))
+                   not in _SKIP_PATHS]
+        found.update(os.path.normpath(os.path.join(rel, f)) for f in files)
+    return found
+
+
+def test_port_and_smoke_run_without_jax():
+    before = _listing()
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    r = subprocess.run([sys.executable, "-c", _SCRIPT.format(repo=REPO)],
+                       capture_output=True, text=True, timeout=300,
+                       cwd=REPO, env=env)
+    assert r.returncode == 0, r.stdout[-3000:] + r.stderr[-3000:]
+    assert "HERMETIC-OK" in r.stdout
+    assert "oracle" in r.stdout            # the phase ran its checks
+    new = _listing() - before
+    assert not new, f"files written into the repository: {sorted(new)}"
+
+
+def test_entry_point_without_cuda_raises(monkeypatch):
+    import numpy as np
+    from qnmfits_tpu_torch import mismatch_t0_mode_sets, resolve_device
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        resolve_device()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        mismatch_t0_mode_sets(np.arange(0.0, 10.0, 0.1),
+                              np.zeros(100, complex), [[(2, 2, 0, 1)]],
+                              0.952, 0.692, np.array([0.0, 1.0]))
+    assert resolve_device("cpu").type == "cpu"
+
+
+def test_chip_smoke_without_cuda_fails_and_prints_no_result():
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    r = subprocess.run([sys.executable, os.path.join(REPO, "chip_smoke.py")],
+                       capture_output=True, text=True, timeout=120, cwd=REPO,
+                       env=env)
+    assert r.returncode != 0
+    assert '"ok"' not in r.stdout
