@@ -8,19 +8,22 @@ flushed line each with elapsed seconds:
 
 1. the card's name and power limit (nvidia-smi);
 2. the build of the solve kernel (csrc/chol_solve.cu, sm_90a) from this
-   checkout into build/qnmfits_tpu_torch/;
+   checkout into build/qnmfits_tpu_torch/, and ptxas's registers and
+   spills for each system size (no spill allowed);
 3. the kernel against its plain PyTorch version on the card, for every
-   system size n = 2..16 on random batches with dead columns and padding;
+   system size n = 2..16 on random batches with dead columns and padding,
+   at B = 8208 and at batches that leave partial slabs (B = 1, 15, 17,
+   1000), and at B = 131072 for n = 8;
 4. the main path at the bench's full width (bench.py: K=2001 samples,
    spherical modes (2,2) and (3,2), the 16 mode sets padded to J=8,
    8192 start times on [-5, 46.2], T=100, seed 11) through the public
-   ``mismatch_t0_mode_sets``, with and without window dedup: finite
-   values of the right shape, the kernel path against the plain-solve
-   path, and a stratified check against the NumPy oracle (ref_impl);
-5. the kernel on the very systems the main path gave it, launch by
-   launch: its backward error, and its device time per launch and per
-   sweep beside its bound, its plain version's and torch.linalg's; and
-   the sweep's fits/s;
+   ``mismatch_t0_mode_sets``, with and without window dedup: exactly one
+   kernel launch per sweep, finite values of the right shape, the kernel
+   path against the plain-solve path, and a stratified check against the
+   NumPy oracle (ref_impl);
+5. the kernel on the very systems each sweep gave it (8208 with dedup,
+   131072 without): its backward error, and its device time beside its
+   bound, its plain version's and torch.linalg's; and the sweep's fits/s;
 6. a JSON line describing each kernel, and last the JSON ok line.
 
 Any failure raises and exits non-zero before the last line.
@@ -113,9 +116,9 @@ def run_main_path(problem, device):
         if mm.shape != (S, B) or not np.all(np.isfinite(mm)):
             raise RuntimeError(f"main path (dedup={dedup}) gave shape "
                                f"{mm.shape} or non-finite mismatches")
-        if device != "cpu" and n_launch == 0:
-            raise RuntimeError(f"main path (dedup={dedup}) never launched "
-                               "the CUDA solve kernel")
+        if device != "cpu" and n_launch != 1:
+            raise RuntimeError(f"main path (dedup={dedup}) launched the CUDA "
+                               f"solve kernel {n_launch} times, not once")
         out[dedup] = dict(mm=mm, launches=n_launch)
     log(f"main path: mm {out[True]['mm'].shape}, kernel launches "
         f"{out[True]['launches']} with dedup, {out[False]['launches']} "
@@ -131,19 +134,21 @@ def run_main_path(problem, device):
         return float(np.max(d[:, ~pre])), float(np.max(d[:, pre],
                                                         initial=0.0))
 
-    captured = []
-
-    def plain(G, b):
-        captured.append((G, b))
-        return engine_real._regularised_solve_plain(G, b)
-
-    checks = {}
+    checks, systems = {}, {}
     for dedup in (True, False):
+        captured = []
+
+        def plain(G, b):
+            captured.append((G, b))
+            return engine_real._regularised_solve_plain(G, b)
+
         mm_plain = sweep(problem, device, dedup, solve=plain)
         checks[f"kernel vs plain solve (dedup={dedup})"] = diff(
             out[dedup]["mm"], mm_plain)
-        if dedup:
-            main_systems = list(captured)
+        if len(captured) != 1:
+            raise RuntimeError(f"the sweep (dedup={dedup}) called its solve "
+                               f"{len(captured)} times, not once")
+        systems[dedup] = captured[0]
     checks["dedup vs per-t0"] = diff(out[True]["mm"], out[False]["mm"])
     for name, (d_in, d_pre) in checks.items():
         log(f"{name}: max |d mm| t0 >= 0: {d_in:.3e} (bound "
@@ -175,7 +180,7 @@ def run_main_path(problem, device):
         raise RuntimeError("main path disagrees with the NumPy oracle")
     return dict(launches=out[True]["launches"],
                 launches_nodedup=out[False]["launches"],
-                mm=out[True]["mm"], systems=main_systems,
+                mm=out[True]["mm"], systems=systems,
                 oracle_in=dev_in, oracle_pre=dev_pre)
 
 
@@ -242,18 +247,40 @@ def backward_err(G, b, x):
     return float((r.abs().amax(-1) / den).max())
 
 
+# Phase 3's batches: the main path's 8208 (513 windows x 16 sets), and
+# batches that leave partial slabs and teams, at every n; 131072 (8192
+# start times x 16 sets, the sweep without dedup) at the bench's n = 8.
+CHECK_BATCHES = (8208, 1, 15, 17, 1000)
+CHECK_LARGE = (131072, 8)
+
+
+def check_build():
+    """Phase 2: ptxas's registers and spills per system size.  Returns
+    (registers by n, the largest spill in bytes); raises on a spill."""
+    from qnmfits_tpu_torch.ops import chol_cuda
+    report = chol_cuda.ptxas_report()
+    spill = max(max(r["spill_stores"], r["spill_loads"])
+                for r in report.values())
+    regs = {n: r["registers"] for n, r in report.items()}
+    log(f"ptxas: registers by n {regs}; largest spill {spill} bytes")
+    if spill:
+        raise RuntimeError(f"ptxas reports spills: {report}")
+    return regs, spill
+
+
 def check_kernel_sizes(device):
-    """Phase 3: kernel vs plain on random systems, n = 2..16, in batches
-    of 8208 (the main path's 513 distinct windows x 16 sets).  Returns
-    {n: max |x_kernel - x_plain|}."""
+    """Phase 3: kernel vs plain on random systems with dead columns and
+    padding, n = 2..16 at each of CHECK_BATCHES, and CHECK_LARGE.
+    Returns {n: max |x_kernel - x_plain|}."""
     import torch
     from qnmfits_tpu_torch import engine_real
     from qnmfits_tpu_torch.ops import chol_cuda
     from qnmfits_tpu_torch.testing import random_hermitian_systems
 
+    cases = [(B, n) for n in range(2, 17) for B in CHECK_BATCHES]
     worst, max_abs = 0.0, {}
-    for n in range(2, 17):
-        G, b = random_hermitian_systems(8208, n, seed=n, n_pad=n // 4)
+    for B, n in cases + [CHECK_LARGE]:
+        G, b = random_hermitian_systems(B, n, seed=n + B, n_pad=n // 4)
         G = torch.as_tensor(G, dtype=torch.complex128, device=device)
         b = torch.as_tensor(b, dtype=torch.complex128, device=device)
         x = chol_cuda.regularised_solve(G, b)
@@ -261,27 +288,46 @@ def check_kernel_sizes(device):
         torch.cuda.synchronize()
         err = rel_err(x, ref)
         worst = max(worst, err)
-        max_abs[n] = float((x - ref).abs().max())
+        max_abs[n] = max(max_abs.get(n, 0.0), float((x - ref).abs().max()))
         if not err <= KERNEL_RTOL:
-            raise RuntimeError(f"kernel vs plain at n={n}: relative error "
-                               f"{err:.3e} > {KERNEL_RTOL:.0e}")
-    log(f"kernel vs plain, n = 2..16 at B = 8208 (dead columns, padding): "
-        f"max relative error {worst:.3e} (bound {KERNEL_RTOL:.0e})")
+            raise RuntimeError(f"kernel vs plain at n={n}, B={B}: relative "
+                               f"error {err:.3e} > {KERNEL_RTOL:.0e}")
+    log(f"kernel vs plain, n = 2..16 at B = {CHECK_BATCHES} and B = "
+        f"{CHECK_LARGE[0]} at n = {CHECK_LARGE[1]} (dead columns, "
+        f"padding): max relative error {worst:.3e} (bound "
+        f"{KERNEL_RTOL:.0e})")
     return max_abs
 
 
-def measure(problem, main, max_abs, device, gpu):
-    """Phase 5: sweep throughput, and the kernel on the very systems the
-    main path (dedup on) gave it, launch by launch: its backward error
-    (gated; the pre-ringdown Grams are too ill-conditioned for a forward
-    comparison with the plain solve, which is reported), and the device
-    time of each launch beside its bound, the plain solve's and
-    torch.linalg's on the same batch.  Returns the kernel's JSON record,
-    whose times are totals over the sweep's launches."""
+def time_solves(G, b):
+    """Device times (ms) of the kernel, its plain version and
+    torch.linalg.cholesky_ex + cholesky_solve (on the equilibrated system
+    only) on one batch, and the kernel's backward error beside the plain
+    solve's, and its relative difference from it."""
     import torch
     from qnmfits_tpu_torch import engine_real
     from qnmfits_tpu_torch.ops import chol_cuda
+    x = chol_cuda.regularised_solve(G, b)
+    ref = engine_real._regularised_solve_plain(G, b)
+    torch.cuda.synchronize()
+    A, bs, _ = engine_real._equilibrated(G, b)
+    return dict(
+        batch=b.shape[0], backward_err=backward_err(G, b, x),
+        backward_err_plain=backward_err(G, b, ref), rel_diff=rel_err(x, ref),
+        ms=device_ms(lambda: chol_cuda.regularised_solve(G, b)),
+        plain_ms=device_ms(
+            lambda: engine_real._regularised_solve_plain(G, b), reps=5),
+        library_ms=device_ms(lambda: torch.cholesky_solve(
+            bs[..., None], torch.linalg.cholesky_ex(A)[0])))
 
+
+def measure(problem, main, max_abs, build, device, gpu):
+    """Phase 5: sweep throughput, and the kernel on the very systems each
+    main-path sweep gave it in its one launch (8208 with dedup, 131072
+    without): its backward error (gated; the pre-ringdown Grams are too
+    ill-conditioned for a forward comparison with the plain solve, which
+    is reported), and its device time beside its bound, the plain
+    solve's and torch.linalg's.  Returns the kernel's JSON record."""
     n_fits = len(problem["mode_sets"]) * len(problem["t0s"])
     rates = {}
     for dedup in (True, False):
@@ -294,63 +340,48 @@ def measure(problem, main, max_abs, device, gpu):
     log(f"throughput on {gpu}: {rates[True]:.1f} fits/s with dedup, "
         f"{rates[False]:.1f} fits/s without ({n_fits} fits, best of 3)")
 
-    systems = main["systems"]
-    if len(systems) != main["launches"]:
-        raise RuntimeError(f"captured {len(systems)} solves, the main path "
-                           f"launched the kernel {main['launches']} times")
-    n = systems[0][1].shape[-1]
-    bwd = bwd_plain = fwd = 0.0
-    per_launch = []
-    for G, b in systems:
-        x = chol_cuda.regularised_solve(G, b)
-        ref = engine_real._regularised_solve_plain(G, b)
-        torch.cuda.synchronize()
-        bwd = max(bwd, backward_err(G, b, x))
-        bwd_plain = max(bwd_plain, backward_err(G, b, ref))
-        fwd = max(fwd, rel_err(x, ref))
-        A, bs, _ = engine_real._equilibrated(G, b)
-        b_ms, b_by = bound_ms(b.shape[0], n)
-        per_launch.append(dict(
-            batch=b.shape[0],
-            ms=device_ms(lambda: chol_cuda.regularised_solve(G, b)),
-            plain_ms=device_ms(
-                lambda: engine_real._regularised_solve_plain(G, b), reps=5),
-            library_ms=device_ms(lambda: torch.cholesky_solve(
-                bs[..., None], torch.linalg.cholesky_ex(A)[0])),
-            bound_ms=b_ms, bound_by=b_by))
-    log(f"kernel on the main path's {len(systems)} launches "
-        f"({sum(r['batch'] for r in per_launch)} systems, n={n}): backward "
-        f"error {bwd:.3e} (bound {KERNEL_BWD_TOL:.0e}; plain solve "
-        f"{bwd_plain:.3e}); relative difference from the plain solve "
-        f"{fwd:.3e} (reported: ill-conditioned pre-ringdown Grams)")
-    if not bwd <= KERNEL_BWD_TOL:
-        raise RuntimeError("kernel solution fails the backward-error check")
-    for r in per_launch:
-        log(f"solve kernel on {gpu}, launch of B={r['batch']} n={n}: "
-            f"{r['ms']:.4f} ms, bound {r['bound_ms']:.3e} ms "
-            f"({r['bound_by']}); plain {r['plain_ms']:.4f} ms; "
+    res = {}
+    for dedup in (True, False):
+        G, b = main["systems"][dedup]
+        n = b.shape[-1]
+        r = res[dedup] = time_solves(G, b)
+        r["bound_ms"], r["bound_by"] = bound_ms(r["batch"], n)
+        r["bound_share"] = r["bound_ms"] / r["ms"]
+        log(f"kernel on the main path's systems (dedup={dedup}, one launch "
+            f"of B={r['batch']}, n={n}): backward error "
+            f"{r['backward_err']:.3e} (bound {KERNEL_BWD_TOL:.0e}; plain "
+            f"solve {r['backward_err_plain']:.3e}); relative difference "
+            f"from the plain solve {r['rel_diff']:.3e} (reported: "
+            f"ill-conditioned pre-ringdown Grams)")
+        log(f"solve kernel on {gpu}, dedup={dedup}: {r['ms']:.4f} ms, bound "
+            f"{r['bound_ms']:.3e} ms ({r['bound_by']}), share of the bound "
+            f"{r['bound_share']:.3f}; plain {r['plain_ms']:.4f} ms; "
             f"torch.linalg.cholesky_ex + torch.cholesky_solve "
             f"{r['library_ms']:.4f} ms (device time)")
-    total = {k: sum(r[k] for r in per_launch)
-             for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
-    b_by = max(per_launch, key=lambda r: r["bound_ms"])["bound_by"]
-    log(f"solve kernel per sweep with dedup on {gpu}: {main['launches']} "
-        f"launches ({main['launches_nodedup']} without dedup), "
-        f"{total['ms']:.4f} ms, bound {total['bound_ms']:.3e} ms; plain "
-        f"{total['plain_ms']:.4f} ms; torch.linalg "
-        f"{total['library_ms']:.4f} ms")
+        if not r["backward_err"] <= KERNEL_BWD_TOL:
+            raise RuntimeError(f"kernel solution (dedup={dedup}) fails the "
+                               "backward-error check")
+    on, off = res[True], res[False]
+    regs, spill = build
     return dict(name="chol_solve", route="cuda",
                 source="qnmfits_tpu_torch/csrc/chol_solve.cu",
                 replaces="qnmfits_tpu/ops/chol_pallas.py:184",
                 launches=main["launches"], max_abs_err=max_abs[n],
-                ms=total["ms"], plain_ms=total["plain_ms"],
-                bound_ms=total["bound_ms"], bound_by=b_by,
-                library_ms=total["library_ms"],
+                ms=on["ms"], plain_ms=on["plain_ms"],
+                bound_ms=on["bound_ms"], bound_by=on["bound_by"],
+                library_ms=on["library_ms"],
                 library="torch.linalg.cholesky_ex + torch.cholesky_solve",
-                per_launch=per_launch, n=n, backward_err=bwd,
+                bound_share=on["bound_share"], batch=on["batch"],
+                ms_nodedup=off["ms"], plain_ms_nodedup=off["plain_ms"],
+                bound_ms_nodedup=off["bound_ms"],
+                library_ms_nodedup=off["library_ms"],
+                bound_share_nodedup=off["bound_share"],
+                batch_nodedup=off["batch"],
+                launches_nodedup=main["launches_nodedup"], n=n,
+                backward_err=max(on["backward_err"], off["backward_err"]),
+                registers=regs, spill_bytes_max=spill,
                 fits_per_s_dedup=rates[True],
-                fits_per_s_nodedup=rates[False],
-                launches_nodedup=main["launches_nodedup"])
+                fits_per_s_nodedup=rates[False])
 
 
 def main():
@@ -376,6 +407,7 @@ def main():
     lib = chol_cuda.build()
     log(f"built {os.path.relpath(lib, ROOT)} in "
         f"{time.perf_counter() - t:.2f} s (sm_90a)")
+    build = check_build()
 
     device = "cuda"
     max_abs = check_kernel_sizes(device)
@@ -385,7 +417,7 @@ def main():
         f"K={len(problem['times'])}, S={len(problem['mode_sets'])}, "
         f"B={len(problem['t0s'])}")
     main_path = run_main_path(problem, device)
-    record = measure(problem, main_path, max_abs, device, gpu)
+    record = measure(problem, main_path, max_abs, build, device, gpu)
     print(json.dumps({"kernels": [record]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -20,6 +20,15 @@ import torch
 RDTYPE = torch.float64
 CDTYPE = torch.complex128
 
+# On the CPU, torch's float64 exp, expm1, sin and cos call MKL's vector
+# math library, which sets itself up on its first call.  When several
+# threads make that first call at once, one of them has been seen to
+# return exp to only ~3e-9 relative, enough to move a sweep's mismatch by
+# 2.4e-10.  One single-element call here makes the set-up on one thread.
+for _fn in (torch.exp, torch.expm1, torch.sin, torch.cos):
+    _fn(torch.zeros(1, dtype=RDTYPE))
+del _fn
+
 
 def resolve_device(device="cuda") -> torch.device:
     """The torch device for an entry point; raises when CUDA is asked

@@ -171,16 +171,17 @@ def _as_complex(X, *shape):
     return torch.view_as_complex(X.contiguous().reshape(*shape, 2))
 
 
-def _chunk_sweep_factored(times, data, omegas, mus, t0c, Tc, col_masks,
-                          analytic, solve):
-    """One chunk of start times for every mode set, factored form
-    (engine_real.py:717-843).
+def _chunk_systems(times, data, omegas, mus, t0c, Tc, col_masks, analytic):
+    """The systems of one chunk of start times for every mode set, factored
+    form (engine_real.py:717-825, up to the solve).
 
     times (K,), data (I, K), omegas (S, J), mus (S, I, J), t0c/Tc (Bc,),
     col_masks (S, J) bool.  Every window of the chunk is fitted in the
-    basis phi0 = exp(-i w (t - tref)), tref = t0c[0]; the amplitudes are
-    rephased to each t0 at the end.  The window matrix W is built once
-    and shared by all sets.  Returns C (S, Bc, J) and mm (S, Bc).
+    basis phi0 = exp(-i w (t - tref)), tref = t0c[0]; the window matrix W is
+    built once and shared by all sets.  Returns G, G2 (S, Bc, J, J), rhs,
+    rt (S, Bc, J) and dnorm (Bc,): the masked Gram and right-hand side of
+    the solve, and the trapezoid Gram, projections and data norm of the
+    mismatch.
     """
     K = times.shape[0]
     S, J = omegas.shape
@@ -241,18 +242,22 @@ def _chunk_sweep_factored(times, data, omegas, mus, t0c, Tc, col_masks,
     G = torch.where(kk, G, eye)
     rhs = torch.where(keep, rhs, torch.zeros((), dtype=rhs.dtype,
                                              device=rhs.device))
+    return G, G2, rhs, rt, dnorm
 
-    C0 = solve(G.reshape(S * Bc, J, J), rhs.reshape(S * Bc, J))
-    C0 = C0.reshape(S, Bc, J)
 
-    # Mismatch (phase-invariant, in the phi0 basis).
+def _mismatch_rephase(C0, G2, rt, dnorm, omegas, t0s, trefs):
+    """The epilogue after the solve (engine_real.py:826-842), over any run
+    of start times: C0 (S, B, J) fitted in each t0's chunk basis
+    referenced to trefs (B,).  Returns C (S, B, J), the amplitudes w.r.t.
+    each t0, and the phase-invariant mismatch mm (S, B)."""
     num = (C0.conj() * rt).real.sum(dim=-1)
     GC = torch.einsum("sbjl,sbl->sbj", G2, C0)
     model_norm = (C0.conj() * GC).real.sum(dim=-1)
     mm = 1.0 - num / torch.sqrt(model_norm * dnorm)
 
-    # Amplitudes w.r.t. each t0: C = C0 exp(-i w delta), |.| <= 1.
-    delta = (t0c - tref)[None, :, None]
+    # C = C0 exp(-i w delta), |.| <= 1.
+    wr, wi = omegas.real, omegas.imag
+    delta = (t0s - trefs)[None, :, None]
     g = torch.exp(wi[:, None, :] * delta)
     rot = torch.complex(g * torch.cos(wr[:, None, :] * delta),
                         -g * torch.sin(wr[:, None, :] * delta))
@@ -266,20 +271,28 @@ def sweep_t0_modesets_factored_real(times, data, omegas, mus, t0s, Ts,
 
     times (K,), data (I, K), omegas (S, J), mus (S, I, J), t0s/Ts (B,)
     with t0s sorted ascending, col_masks (S, J) bool.  The mode-set axis
-    is a leading batch dimension (the JAX vmap) and the chunks run in a
-    Python loop (the JAX lax.map).  ``solve`` is the batched Hermitian
-    solve, by default ``_regularised_solve``.  Returns C (S, B, J)
+    is a leading batch dimension (the JAX vmap).  Each chunk of start
+    times builds its systems in its own basis (the JAX lax.map; the
+    chunks bound the basis anchor's span, see ``batched._safe_chunk``);
+    then ``solve``, the batched Hermitian solve (by default
+    ``_regularised_solve``), runs once on all S * B systems of the sweep,
+    and the mismatch and rephasing once over (S, B).  Returns C (S, B, J)
     complex and mm (S, B).
     """
     solve = _regularised_solve if solve is None else solve
-    Cs, mms = [], []
+    parts, trefs = [], []
     for lo in range(0, t0s.shape[0], chunk):
-        C, mm = _chunk_sweep_factored(
-            times, data, omegas, mus, t0s[lo:lo + chunk], Ts[lo:lo + chunk],
-            col_masks, analytic, solve)
-        Cs.append(C)
-        mms.append(mm)
-    return torch.cat(Cs, dim=1), torch.cat(mms, dim=1)
+        t0c = t0s[lo:lo + chunk]
+        parts.append(_chunk_systems(times, data, omegas, mus, t0c,
+                                    Ts[lo:lo + chunk], col_masks, analytic))
+        trefs.append(t0c[:1].expand(t0c.shape[0]))
+    G, G2, rhs, rt = (torch.cat([p[i] for p in parts], dim=1)
+                      for i in range(4))
+    dnorm = torch.cat([p[4] for p in parts])
+    S, B, J = rhs.shape
+    C0 = solve(G.reshape(S * B, J, J), rhs.reshape(S * B, J))
+    return _mismatch_rephase(C0.reshape(S, B, J), G2, rt, dnorm, omegas,
+                             t0s, torch.cat(trefs))
 
 
 def sweep_t0_factored_real(times, data, omega, mu, t0s, Ts, col_mask=None,

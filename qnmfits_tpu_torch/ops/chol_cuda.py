@@ -12,7 +12,8 @@ The source is compiled at first use with ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface under ``build/qnmfits_tpu_torch/``
 (named by a hash of the source and flags, so an edit rebuilds) and bound
 with ctypes: the library includes no PyTorch header, which keeps the build
-to seconds.  A failed build or launch raises; nothing falls back.
+to seconds.  A failed build or launch, or an input that is not 16-byte
+aligned (the kernel's bulk copies need it), raises; nothing falls back.
 """
 
 from __future__ import annotations
@@ -21,16 +22,18 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
 
 import torch
 
-__all__ = ["build", "regularised_solve", "launches"]
+__all__ = ["build", "ptxas_report", "regularised_solve", "launches"]
 
 SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "chol_solve.cu"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "qnmfits_tpu_torch"
+BUILD_LOG = BUILD_DIR / "chol_solve_build.log"
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 MIN_N, MAX_N = 2, 16
@@ -51,7 +54,7 @@ def _nvcc() -> str:
 def build() -> Path:
     """Compile the kernel library if this source has not been built yet;
     returns its path.  ptxas's register and spill report is kept in
-    ``build/qnmfits_tpu_torch/chol_solve_build.log``."""
+    ``BUILD_LOG`` (``build/qnmfits_tpu_torch/chol_solve_build.log``)."""
     tag = hashlib.sha256(SOURCE.read_bytes()
                          + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     out = BUILD_DIR / f"libchol_solve_{tag}.so"
@@ -61,7 +64,7 @@ def build() -> Path:
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
     cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
     res = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
-    (BUILD_DIR / "chol_solve_build.log").write_text(
+    BUILD_LOG.write_text(
         " ".join(cmd) + "\n" + res.stdout + res.stderr)
     if res.returncode != 0:
         tmp.unlink(missing_ok=True)
@@ -69,6 +72,30 @@ def build() -> Path:
                            f"(exit {res.returncode}):\n{res.stderr[-4000:]}")
     os.replace(tmp, out)
     return out
+
+
+def ptxas_report() -> dict:
+    """ptxas's report of the last build, per system size: {n: dict(
+    registers=, spill_stores=, spill_loads=)} in bytes for the spills.
+    Raises when the log is not that of the library ``build()`` returns."""
+    lib = build()
+    text = BUILD_LOG.read_text()
+    if lib.stem not in text.splitlines()[0]:
+        raise RuntimeError(f"{BUILD_LOG} is not the build log of {lib.name}")
+    report = {}
+    # ptxas prints, per kernel: "Compiling entry function '<mangled>'",
+    # then "N bytes spill stores, M bytes spill loads" and "Used R
+    # registers"; the template argument n is mangled as ILi<n>E.
+    for block in text.split("Compiling entry function")[1:]:
+        n = int(re.search(r"regularised_solve_kernelILi(\d+)E", block)[1])
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                          block)
+        regs = re.search(r"Used (\d+) registers", block)
+        report[n] = dict(registers=int(regs[1]), spill_stores=int(spill[1]),
+                         spill_loads=int(spill[2]))
+    if sorted(report) != list(range(MIN_N, MAX_N + 1)):
+        raise RuntimeError(f"{BUILD_LOG} reports sizes {sorted(report)}")
+    return report
 
 
 @functools.lru_cache(maxsize=None)
@@ -98,6 +125,12 @@ def regularised_solve(G: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"system size n={n} outside [{MIN_N}, {MAX_N}]")
     G = G.contiguous()
     b = b.contiguous()
+    for name, t in (("G", G), ("b", b)):
+        if t.data_ptr() % 16:
+            raise ValueError(
+                f"regularised_solve: {name} starts at address "
+                f"{t.data_ptr():#x}, which is not 16-byte aligned; the "
+                "kernel's bulk copies need 16-byte aligned tensors")
     x = torch.empty_like(b)
     if G.shape[0] == 0:
         return x
