@@ -24,7 +24,22 @@ flushed line each with elapsed seconds:
 5. the kernel on the very systems each sweep gave it (8208 with dedup,
    131072 without): its backward error, and its device time beside its
    bound, its plain version's and torch.linalg's; and the sweep's fits/s;
-6. a JSON line describing each kernel, and last the JSON ok line.
+6. the rest of the static-spectrum surface at the same width, each path
+   through its public entry point with the kernels' launch counts set to
+   0 just before it and read just after: the mode-set sweep with 'closest'
+   windows; a remnant axis of 8 spins around chif = 0.692, with dedup
+   (one launch) and without (one launch per group of the join budget);
+   bucket=True; mismatch_t0_array 'fast' and 'batched' on the deepest
+   set; ringdown_fit and multimode_ringdown_fit at t0 = 0, 10, 20 (SVD,
+   no hand kernel); the (Mf, chif) and free-frequency grids at res = 50;
+   sweeps of one-mode, 17-mode and 40-mode sets (the team kernel's n = 1,
+   the warp kernel's 17 and 40).  Each is held against the same call
+   through the plain solve and against the NumPy oracle, and reports its
+   launches, the kernels' device time on its own systems and its wall
+   time; then the warp kernel on the 17- and 40-mode systems beside its
+   bound, its plain version and torch.linalg;
+7. a JSON line of the paths, a JSON line describing each kernel, and
+   last the JSON ok line.
 
 Any failure raises and exits non-zero before the last line.
 """
@@ -44,9 +59,9 @@ MF, CHIF = 0.952, 0.692
 SPH = [(2, 2), (3, 2)]
 # bench.py's problem; SMALL is the same shape of problem cut to CPU size.
 FULL = dict(t_range=(-50.0, 150.05), n_t0=8192, t0_range=(-5.0, 46.2),
-            T=100.0, sets=tuple(range(16)))
+            T=100.0, sets=tuple(range(16)), res=50, spins=8)
 SMALL = dict(t_range=(-10.0, 30.05), n_t0=64, t0_range=(-2.0, 10.0),
-             T=20.0, sets=(1, 3, 9, 13))
+             T=20.0, sets=(1, 3, 9, 13), res=6, spins=3)
 STRATA = (-5.0, -1.0, 0.5, 2.5, 10.0, 25.0, 40.0)     # bench.py:160-179
 
 MAIN_TOL = 1e-11      # kernel path vs plain-solve path, |mismatch| abs
@@ -71,9 +86,10 @@ def log(msg):
     print(f"[{time.perf_counter() - T_START:8.2f} s] {msg}", flush=True)
 
 
-def build_problem(t_range, n_t0, t0_range, T, sets):
+def build_problem(t_range, n_t0, t0_range, T, sets, res=6, spins=3):
     """The bench problem: a synthetic (2,2,n<8) ringdown with mixing
-    into (2,2) and (3,2), sampled at 0.1 M."""
+    into (2,2) and (3,2), sampled at 0.1 M; with the grid resolution and
+    the number of remnant spins of phase 6."""
     from qnmfits_tpu_torch.testing import (bench_mode_sets,
                                            synthetic_multimode)
     times = np.arange(*t_range, 0.1)
@@ -83,7 +99,8 @@ def build_problem(t_range, n_t0, t0_range, T, sets):
     all_sets = bench_mode_sets()
     return dict(times=times, data=syn["data_dict"],
                 mode_sets=[all_sets[i] for i in sets],
-                t0s=np.linspace(*t0_range, n_t0), T=T)
+                t0s=np.linspace(*t0_range, n_t0), T=T, res=res,
+                spins=np.linspace(CHIF - 0.03, CHIF + 0.03, spins))
 
 
 def sweep(problem, device, dedup, solve=None):
@@ -99,20 +116,61 @@ def sweep(problem, device, dedup, solve=None):
     return batched.batch_mismatch_t0_modesets(*args, solve=solve, **kw)
 
 
+def oracle_diff(problem, mm, mode_sets, chif=CHIF, t0_method="geq",
+                sets_axis=None):
+    """max |mm - oracle| over the mode sets x the t0 STRATA, for t0 >= 0
+    and for t0 < 0: mm (S, B) against ref_impl.multimode_ringdown_fit.
+    ``sets_axis`` picks which sets to check (all by default)."""
+    from qnmfits_tpu_torch import ref_impl
+    t0s = problem["t0s"]
+    dev_in, dev_pre = 0.0, 0.0
+    for si in (range(len(mode_sets)) if sets_axis is None else sets_axis):
+        for t0_val in STRATA:
+            if not t0s[0] <= t0_val <= t0s[-1]:
+                continue
+            i = int(round((t0_val - t0s[0]) / (t0s[-1] - t0s[0])
+                          * (len(t0s) - 1)))
+            ref = ref_impl.multimode_ringdown_fit(
+                problem["times"], problem["data"], mode_sets[si], MF, chif,
+                t0=float(t0s[i]), T=problem["T"], spherical_modes=SPH,
+                t0_method=t0_method)
+            d = abs(float(mm[si, i]) - ref["mismatch"])
+            if t0_val >= 0.0:
+                dev_in = max(dev_in, d)
+            else:
+                dev_pre = max(dev_pre, d)
+    return dev_in, dev_pre
+
+
+class PlainSolve:
+    """The plain-solve route: the kernels' plain PyTorch version, keeping
+    the systems of every call (the same systems the kernel route
+    solves)."""
+
+    def __init__(self):
+        self.systems = []
+
+    def __call__(self, G, b):
+        from qnmfits_tpu_torch import engine_real
+        self.systems.append((G, b))
+        return engine_real._regularised_solve_plain(G, b)
+
+
 def run_main_path(problem, device):
     """Phase 4: drive the public sweep with and without dedup, count the
     kernel's launches in each, and check the results against the plain
     solve and the NumPy oracle.  Returns a dict of what it found; raises
     on any failure."""
-    from qnmfits_tpu_torch import engine_real, ref_impl
     from qnmfits_tpu_torch.ops import chol_cuda
 
     S, B = len(problem["mode_sets"]), len(problem["t0s"])
     out = {}
     for dedup in (True, False):
-        chol_cuda.launches = 0
+        chol_cuda.launches = chol_cuda.wide_launches = 0
         mm = sweep(problem, device, dedup)
         n_launch = chol_cuda.launches
+        if chol_cuda.wide_launches:
+            raise RuntimeError("the main path launched the warp kernel")
         if mm.shape != (S, B) or not np.all(np.isfinite(mm)):
             raise RuntimeError(f"main path (dedup={dedup}) gave shape "
                                f"{mm.shape} or non-finite mismatches")
@@ -136,19 +194,14 @@ def run_main_path(problem, device):
 
     checks, systems = {}, {}
     for dedup in (True, False):
-        captured = []
-
-        def plain(G, b):
-            captured.append((G, b))
-            return engine_real._regularised_solve_plain(G, b)
-
+        plain = PlainSolve()
         mm_plain = sweep(problem, device, dedup, solve=plain)
         checks[f"kernel vs plain solve (dedup={dedup})"] = diff(
             out[dedup]["mm"], mm_plain)
-        if len(captured) != 1:
+        if len(plain.systems) != 1:
             raise RuntimeError(f"the sweep (dedup={dedup}) called its solve "
-                               f"{len(captured)} times, not once")
-        systems[dedup] = captured[0]
+                               f"{len(plain.systems)} times, not once")
+        systems[dedup] = plain.systems[0]
     checks["dedup vs per-t0"] = diff(out[True]["mm"], out[False]["mm"])
     for name, (d_in, d_pre) in checks.items():
         log(f"{name}: max |d mm| t0 >= 0: {d_in:.3e} (bound "
@@ -157,22 +210,8 @@ def run_main_path(problem, device):
             raise RuntimeError(f"{name} disagree beyond {MAIN_TOL:.0e} "
                                f"(t0 >= 0) or {PRE_TOL:.0e} (t0 < 0)")
 
-    t0s = problem["t0s"]
-    dev_in, dev_pre = 0.0, 0.0
-    for si, ms in enumerate(problem["mode_sets"]):
-        for t0_val in STRATA:
-            if not t0s[0] <= t0_val <= t0s[-1]:
-                continue
-            i = int(round((t0_val - t0s[0]) / (t0s[-1] - t0s[0])
-                          * (len(t0s) - 1)))
-            ref = ref_impl.multimode_ringdown_fit(
-                problem["times"], problem["data"], ms, MF, CHIF,
-                t0=float(t0s[i]), T=problem["T"], spherical_modes=SPH)
-            d = abs(float(out[True]["mm"][si, i]) - ref["mismatch"])
-            if t0_val >= 0.0:
-                dev_in = max(dev_in, d)
-            else:
-                dev_pre = max(dev_pre, d)
+    dev_in, dev_pre = oracle_diff(problem, out[True]["mm"],
+                                  problem["mode_sets"])
     log(f"oracle (NumPy lstsq), {S} sets x strata {STRATA}: max |d mm| "
         f"t0 >= 0: {dev_in:.3e} (bound {ORACLE_TOL:.0e}); t0 < 0: "
         f"{dev_pre:.3e} (reported, conditioning floor)")
@@ -212,26 +251,44 @@ def rel_err(x, ref):
     return float((num / den).max())
 
 
+# Timings for which torch.profiler recorded no device time, even after a
+# retry, and CUDA events stood in (reported in the kernels' JSON).
+EVENT_TIMINGS = []
+
+
 def device_ms(fn, reps=20):
     """Device time of one fn() call: the durations of the kernels it
     launches, summed, from torch.profiler (CUPTI) over reps calls.  The
-    host's launch cost and the gaps between kernels are left out."""
+    host's launch cost and the gaps between kernels are left out.  Where
+    the profiler records no device time twice running (seen once on an
+    H100 with torch 2.11), CUDA events around the reps calls stand in;
+    they include the gaps between a call's kernels."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA)
-    if not us > 0:
-        raise RuntimeError("torch.profiler recorded no device time")
-    return us / 1e3 / reps
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.self_device_time_total for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA)
+        if us > 0:
+            return us / 1e3 / reps
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / reps
+    EVENT_TIMINGS.append(ms)
+    log(f"torch.profiler recorded no device time; CUDA events: {ms:.4f} ms")
+    return ms
 
 
 def backward_err(G, b, x):
@@ -248,21 +305,26 @@ def backward_err(G, b, x):
 
 
 # Phase 3's batches: the main path's 8208 (513 windows x 16 sets), and
-# batches that leave partial slabs and teams, at every n; 131072 (8192
-# start times x 16 sets, the sweep without dedup) at the bench's n = 8.
+# batches that leave partial slabs and teams, at every n of the team
+# kernel; the last four at the warp kernel's sizes around its 32-row lane
+# wrap and its ends (tests/test_torch_cuda.py covers every n); 131072
+# (8192 start times x 16 sets, the sweep without dedup) at the bench's
+# n = 8.
 CHECK_BATCHES = (8208, 1, 15, 17, 1000)
+CHECK_WIDE_N = (17, 31, 32, 33, 40, 64)
 CHECK_LARGE = (131072, 8)
 
 
 def check_build():
-    """Phase 2: ptxas's registers and spills per system size.  Returns
-    (registers by n, the largest spill in bytes); raises on a spill."""
+    """Phase 2: ptxas's registers and spills per kernel (the team kernel
+    per system size, and the warp kernel).  Returns (registers by
+    kernel, the largest spill in bytes); raises on a spill."""
     from qnmfits_tpu_torch.ops import chol_cuda
     report = chol_cuda.ptxas_report()
     spill = max(max(r["spill_stores"], r["spill_loads"])
                 for r in report.values())
     regs = {n: r["registers"] for n, r in report.items()}
-    log(f"ptxas: registers by n {regs}; largest spill {spill} bytes")
+    log(f"ptxas: registers by kernel {regs}; largest spill {spill} bytes")
     if spill:
         raise RuntimeError(f"ptxas reports spills: {report}")
     return regs, spill
@@ -270,14 +332,16 @@ def check_build():
 
 def check_kernel_sizes(device):
     """Phase 3: kernel vs plain on random systems with dead columns and
-    padding, n = 2..16 at each of CHECK_BATCHES, and CHECK_LARGE.
-    Returns {n: max |x_kernel - x_plain|}."""
+    padding, n = 1..16 at each of CHECK_BATCHES, n in CHECK_WIDE_N at
+    each but the first, and CHECK_LARGE.  Returns {n: max |x_kernel -
+    x_plain|}."""
     import torch
     from qnmfits_tpu_torch import engine_real
     from qnmfits_tpu_torch.ops import chol_cuda
     from qnmfits_tpu_torch.testing import random_hermitian_systems
 
-    cases = [(B, n) for n in range(2, 17) for B in CHECK_BATCHES]
+    cases = ([(B, n) for n in range(1, 17) for B in CHECK_BATCHES]
+             + [(B, n) for n in CHECK_WIDE_N for B in CHECK_BATCHES[1:]])
     worst, max_abs = 0.0, {}
     for B, n in cases + [CHECK_LARGE]:
         G, b = random_hermitian_systems(B, n, seed=n + B, n_pad=n // 4)
@@ -292,10 +356,11 @@ def check_kernel_sizes(device):
         if not err <= KERNEL_RTOL:
             raise RuntimeError(f"kernel vs plain at n={n}, B={B}: relative "
                                f"error {err:.3e} > {KERNEL_RTOL:.0e}")
-    log(f"kernel vs plain, n = 2..16 at B = {CHECK_BATCHES} and B = "
-        f"{CHECK_LARGE[0]} at n = {CHECK_LARGE[1]} (dead columns, "
-        f"padding): max relative error {worst:.3e} (bound "
-        f"{KERNEL_RTOL:.0e})")
+    log(f"kernel vs plain, n = 1..16 at B = {CHECK_BATCHES}, n = "
+        f"{CHECK_WIDE_N} at B = {CHECK_BATCHES[1:]} and B = "
+        f"{CHECK_LARGE[0]} at n = "
+        f"{CHECK_LARGE[1]} (dead columns, padding): max relative error "
+        f"{worst:.3e} (bound {KERNEL_RTOL:.0e})")
     return max_abs
 
 
@@ -384,6 +449,377 @@ def measure(problem, main, max_abs, build, device, gpu):
                 fits_per_s_nodedup=rates[False])
 
 
+# ---------------------------------------------------------------------------
+# Phase 6: the rest of the static-spectrum surface
+# ---------------------------------------------------------------------------
+
+DEEPEST = 7                      # the bench's deepest set, (2,2,n<8)
+SINGLE_T0S = (0.0, 10.0, 20.0)   # start times of the single fits
+# The (Mf, chif) grid fits the bench's (2,2,n<4) set at t0 = 10.  With the
+# deepest set the off-remnant Grams pass kappa ~ 1e8, where the Gram path
+# and the oracle's SVD part (the JAX package's known delta, ROADMAP C.3).
+GRID_SET = 3
+GRID_T0 = 10.0                   # start time of the two grids
+M_CHI_BOX = ((0.90, 1.00), (0.60, 0.78))     # (Mf, chif) around the remnant
+OMEGA_BOX = ((0.2, 0.8), (-0.5, 0.05))       # free w; Im w > 0 grows
+
+
+def _m2(l, count, sign=1):
+    return [(l, 2, n, sign) for n in range(count)]
+
+
+# Sets of the sizes the bench never makes: one mode each (the team
+# kernel's n = 1), and 17 and 40 m = 2 modes, prograde and mirror
+# overtones of l = 2..6 (the warp kernel).
+ONE_MODE_SETS = [[(2, 2, 0, 1)], [(2, 2, 1, 1)], [(2, 2, 0, -1)],
+                 [(3, 2, 0, 1)]]
+SET_17 = _m2(2, 5) + _m2(2, 4, -1) + _m2(3, 4) + _m2(3, 2, -1) + _m2(4, 2)
+SET_40 = (_m2(2, 8) + _m2(2, 6, -1) + _m2(3, 6) + _m2(3, 4, -1) + _m2(4, 5)
+          + _m2(4, 3, -1) + _m2(5, 4) + _m2(5, 2, -1) + _m2(6, 2))
+
+
+def drive(fn):
+    """fn() with the kernels' launch counts set to 0 just before it and
+    read just after.  Returns (result, launches of both kernels, launches
+    of the warp kernel, wall seconds); results are NumPy arrays, so the
+    device has finished."""
+    from qnmfits_tpu_torch.ops import chol_cuda
+    chol_cuda.launches = chol_cuda.wide_launches = 0
+    t = time.perf_counter()
+    out = fn()
+    wall = time.perf_counter() - t
+    return out, chol_cuda.launches, chol_cuda.wide_launches, wall
+
+
+def _diff(a, b, pre):
+    """max |a - b| over t0 >= 0 and over t0 < 0 (pre marks t0 < 0 along
+    the last axis; None when every fit starts in the ringdown)."""
+    d = np.abs(np.asarray(a, float) - np.asarray(b, float))
+    if pre is None:
+        return float(d.max()), 0.0
+    return (float(np.max(d[..., ~pre], initial=0.0)),
+            float(np.max(d[..., pre], initial=0.0)))
+
+
+def remnant_groups(problem):
+    """The join groups a remnant sweep without dedup must make, computed
+    from the spectrum and the budget: (R*S sets, chunk sizes) ->
+    engine_real.join_groups."""
+    from qnmfits_tpu_torch import batched, engine_real
+    sets = [list(batched._canon(ms)) for ms in problem["mode_sets"]]
+    eval_all, _ = batched._modesets_spectrum_fn(
+        tuple(tuple(ms) for ms in sets), tuple(SPH))
+    spins = problem["spins"]
+    omegas, _ = eval_all(spins, np.full(len(spins), MF))
+    t0s = problem["t0s"]
+    ck = batched._safe_chunk(t0s, float(np.max(np.abs(omegas.imag))), 256)
+    S, J = len(sets), omegas.shape[-1]
+    sizes = [min(ck, len(t0s) - lo) for lo in range(0, len(t0s), ck)]
+    return engine_real.join_groups(sizes, 2 * S * len(spins) * J * J * 16)
+
+
+def path_specs(problem, device):
+    """The paths of phase 6.  Each spec: key, name; ``kernel``, the public
+    entry point's call; ``plain``, the same call one layer down with the
+    solve substituted (None for the SVD single fits); ``pre``, the
+    t0 < 0 mask of its last axis, and ``pre_tol``, the bound there against
+    the plain route (None: the kernel's backward error is gated
+    instead); ``oracle``, mm -> max |d| against the
+    NumPy oracle (t0 >= 0, t0 < 0); ``expect``, the launches (both
+    kernels, warp kernel) the call must make on the card."""
+    from qnmfits_tpu_torch import batched, fitting, ref_impl
+    from qnmfits_tpu_torch.testing import bench_mode_sets
+    times, data, t0s, T = (problem[k] for k in ("times", "data", "t0s", "T"))
+    sets, spins, res = problem["mode_sets"], problem["spins"], problem["res"]
+    deep = bench_mode_sets()[DEEPEST]
+    grid_set = bench_mode_sets()[GRID_SET]
+    pre = t0s < 0
+    kw = dict(T_array=T, spherical_modes=SPH, device=device)
+    specs = []
+
+    def modesets(key, name, mode_sets, expect, chif=CHIF, pre_tol=PRE_TOL,
+                 **extra):
+        def kernel():
+            return fitting.mismatch_t0_mode_sets(
+                times, data, mode_sets, MF, chif, t0s, **kw, **extra)
+
+        def plain(solve):
+            return batched.batch_mismatch_t0_modesets(
+                times, data, mode_sets, MF, chif, t0s, solve=solve, **kw,
+                **extra)
+
+        def check(mm):
+            method = extra.get("t0_method", "geq")
+            if np.ndim(chif) == 0:
+                return oracle_diff(problem, mm, mode_sets, CHIF, method)
+            # Off the remnant's spin, the 8-mode ladder's Grams pass
+            # kappa ~ 1e8, where the Gram path and the oracle's SVD part
+            # (the JAX package's known delta, ROADMAP C.3): that set is
+            # reported, the others gated.
+            gated = [i for i, ms in enumerate(mode_sets) if len(ms) < 8]
+            ungated = [i for i in range(len(mode_sets)) if i not in gated]
+            found, deep_in = [], 0.0
+            for r in (0, len(chif) - 1):
+                found.append(oracle_diff(problem, mm[:, r], mode_sets,
+                                         chif[r], method, gated))
+                deep_in = max(deep_in, oracle_diff(
+                    problem, mm[:, r], mode_sets, chif[r], method,
+                    ungated)[0])
+            if ungated:
+                log(f"{name}: the 8-mode set against the oracle at spins "
+                    f"{chif[0]:.3f} and {chif[-1]:.3f}: {deep_in:.3e} "
+                    "(t0 >= 0; reported)")
+            return tuple(max(f[i] for f in found) for i in range(2))
+
+        specs.append(dict(key=key, name=name, kernel=kernel, plain=plain,
+                          pre=pre, pre_tol=pre_tol, oracle=check,
+                          expect=expect))
+
+    modesets("closest", "mode sets, t0_method='closest' (dedup)", sets,
+             (1, 0), t0_method="closest")
+    modesets("remnant", f"remnant axis R={len(spins)} (dedup)", sets,
+             (1, 0), chif=spins)
+    modesets("remnant_nodedup", f"remnant axis R={len(spins)} (no dedup)",
+             sets, (len(remnant_groups(problem)), 0), chif=spins,
+             dedup=False)
+    J = max(len(ms) for ms in sets)
+    widths = {batched._bucket_width(len(ms), J) for ms in sets}
+    modesets("bucket", "mode sets, bucket=True", sets, (len(widths), 0),
+             bucket=True)
+
+    def oracle_t0(mm):
+        return oracle_diff(problem, np.asarray(mm)[None], [deep])
+
+    for engine, layer in (("fast", batched.batch_mismatch_t0_fast),
+                          ("batched", batched.batch_mismatch_t0)):
+        specs.append(dict(
+            key=f"t0_array_{engine}",
+            name=f"mismatch_t0_array engine='{engine}' (deepest set)",
+            kernel=lambda engine=engine: fitting.mismatch_t0_array(
+                times, data, deep, MF, CHIF, t0s, engine=engine, **kw),
+            plain=lambda solve, layer=layer: layer(
+                times, data, deep, MF, CHIF, t0s, solve=solve, **kw),
+            pre=pre, oracle=oracle_t0, expect=(1, 0)))
+
+    def fits():
+        return np.array(
+            [fitting.ringdown_fit(times, data[(2, 2)], deep, MF, CHIF, t0,
+                                  T=T, device=device)["mismatch"]
+             for t0 in SINGLE_T0S]
+            + [fitting.multimode_ringdown_fit(
+                times, data, deep, MF, CHIF, t0, T=T, spherical_modes=SPH,
+                device=device)["mismatch"] for t0 in SINGLE_T0S])
+
+    def fits_oracle(mm):
+        ref = np.array(
+            [ref_impl.ringdown_fit(times, data[(2, 2)], deep, MF, CHIF, t0,
+                                   T=T)["mismatch"] for t0 in SINGLE_T0S]
+            + [ref_impl.multimode_ringdown_fit(
+                times, data, deep, MF, CHIF, t0, T=T,
+                spherical_modes=SPH)["mismatch"] for t0 in SINGLE_T0S])
+        return _diff(mm, ref, None)
+
+    specs.append(dict(key="single_fits",
+                      name="ringdown_fit + multimode_ringdown_fit (SVD), "
+                      f"t0 = {SINGLE_T0S}", kernel=fits, plain=None,
+                      pre=None, oracle=fits_oracle, expect=(0, 0)))
+
+    step = max(1, res // 7)
+    Mfs, chifs = np.linspace(*M_CHI_BOX[0], res), np.linspace(*M_CHI_BOX[1],
+                                                             res)
+    grid_kw = dict(T=T, res=res, device=device)
+
+    def m_chi_oracle(mm):
+        d = 0.0
+        for i in range(0, res, step):
+            for j in range(0, res, step):
+                ref = ref_impl.multimode_ringdown_fit(
+                    times, data, grid_set, Mfs[i], chifs[j], GRID_T0, T=T,
+                    spherical_modes=SPH)["mismatch"]
+                d = max(d, abs(float(mm[i, j]) - ref))
+        return d, 0.0
+
+    specs.append(dict(
+        key="m_chi_grid",
+        name=f"mismatch_M_chi_grid res={res} ((2,2,n<4), t0={GRID_T0})",
+        kernel=lambda: fitting.mismatch_M_chi_grid(
+            times, data, grid_set, *M_CHI_BOX, GRID_T0, spherical_modes=SPH,
+            **grid_kw),
+        plain=lambda solve: batched.batch_mismatch_M_chi(
+            times, data, grid_set, *M_CHI_BOX, GRID_T0, spherical_modes=SPH,
+            solve=solve, **grid_kw),
+        pre=None, oracle=m_chi_oracle, expect=(1, 0)))
+    omega_args = (times, data[(2, 2)], deep[:2], MF, CHIF, *OMEGA_BOX,
+                  GRID_T0)
+    specs.append(dict(
+        key="omega_grid",
+        name=f"mismatch_omega_grid res={res} ((2,2,n<2) + a free mode, "
+             f"t0={GRID_T0})",
+        kernel=lambda: fitting.mismatch_omega_grid(*omega_args, **grid_kw),
+        plain=lambda solve: batched.batch_mismatch_omega(
+            *omega_args, solve=solve, **grid_kw),
+        pre=None, oracle=lambda mm: _diff(mm, ref_impl.mismatch_omega_grid(
+            *omega_args, T=T, res=res), None),
+        expect=(1, 0)))
+
+    modesets("n1", "one-mode sets (n = 1)", ONE_MODE_SETS, (1, 0))
+    modesets("n17", "17-mode set (n = 17)", [SET_17] + sets[:2], (1, 1))
+    # Forty modes: before the ringdown (t0 < 0) the kernel and the plain
+    # solve, both backward stable, differ by more than PRE_TOL in mismatch
+    # (PERF.md, section 6), so there the kernel's backward error is gated
+    # instead.
+    modesets("n40", "40-mode set (n = 40)", [SET_40], (1, 1), pre_tol=None)
+    return specs
+
+
+def run_paths(problem, device):
+    """Phase 6: drive each path of ``path_specs`` through its public entry
+    point, check its launches, and hold it against the plain-solve route
+    (MAIN_TOL for t0 >= 0; the spec's pre_tol for t0 < 0, or else the
+    kernel's backward error KERNEL_BWD_TOL) and the NumPy oracle
+    (ORACLE_TOL for t0 >= 0).  Returns one record per path, with the
+    systems the plain route solved; raises on any failed gate."""
+    records = []
+    for spec in path_specs(problem, device):
+        mm, n, n_wide, wall = drive(spec["kernel"])
+        mm = np.asarray(mm)
+        name = spec["name"]
+        if not np.all(np.isfinite(mm)):
+            raise RuntimeError(f"{name}: non-finite mismatches")
+        if device != "cpu" and (n, n_wide) != spec["expect"]:
+            raise RuntimeError(f"{name}: {n} kernel launches ({n_wide} of "
+                               f"the warp kernel), expected {spec['expect']}")
+        rec = dict(key=spec["key"], name=name, launches=n,
+                   wide_launches=n_wide, wall_s=wall)
+        msg = f"{name}: mm {mm.shape}, launches {n} (warp {n_wide})"
+        if spec["plain"] is not None:
+            plain = PlainSolve()
+            mm_p = np.asarray(spec["plain"](plain))
+            d_in, d_pre = _diff(mm, mm_p, spec["pre"])
+            rec.update(plain_in=d_in, plain_pre=d_pre, systems=plain.systems)
+            msg += (f"; vs plain solve {d_in:.3e} (t0 >= 0), {d_pre:.3e} "
+                    f"(t0 < 0)")
+            if device != "cpu" and len(plain.systems) != n:
+                raise RuntimeError(f"{name}: the plain route solved "
+                                   f"{len(plain.systems)} times, the "
+                                   f"kernel route launched {n}")
+            pre_tol = spec.get("pre_tol", PRE_TOL)
+            if not (d_in <= MAIN_TOL
+                    and (pre_tol is None or d_pre <= pre_tol)):
+                raise RuntimeError(f"{name}: kernel route and plain route "
+                                   f"disagree beyond {MAIN_TOL:.0e} "
+                                   f"(t0 >= 0) or {pre_tol} (t0 < 0)")
+            if pre_tol is None and device != "cpu":
+                from qnmfits_tpu_torch.ops import chol_cuda
+                bwd = max(backward_err(G, b, chol_cuda.regularised_solve(G, b))
+                          for G, b in plain.systems)
+                rec["backward_err"] = bwd
+                msg += f"; kernel backward error {bwd:.3e}"
+                if not bwd <= KERNEL_BWD_TOL:
+                    raise RuntimeError(f"{name}: kernel backward error "
+                                       f"{bwd:.3e} > {KERNEL_BWD_TOL:.0e}")
+        if spec["oracle"] is not None:
+            o_in, o_pre = spec["oracle"](mm)
+            rec.update(oracle_in=o_in, oracle_pre=o_pre)
+            msg += f"; vs oracle {o_in:.3e} (t0 >= 0), {o_pre:.3e} (t0 < 0)"
+            if not o_in <= ORACLE_TOL:
+                raise RuntimeError(f"{name}: disagrees with the NumPy "
+                                   f"oracle beyond {ORACLE_TOL:.0e}")
+        log(f"{msg}; wall {wall:.3f} s")
+        records.append(rec)
+    return records
+
+
+def check_closest_keys(problem, device):
+    """The 'closest' dedup groups of the bench's start times against the
+    windows the device computes: within a group every start time's
+    (k0, k1), the argmins of ops.windows.window_closest's own scores on
+    the device, equals its representative's, and distinct groups have
+    distinct (k0, k1)."""
+    import torch
+    from qnmfits_tpu_torch import batched
+    times, t0s, T = problem["times"], problem["t0s"], problem["T"]
+    rep, inverse = batched._window_dedup_closest(times, t0s,
+                                                 np.full_like(t0s, T))
+    tt = torch.as_tensor(times, device=device)
+    t0 = torch.as_tensor(t0s, device=device)[:, None]
+    k0 = torch.argmin((tt - t0) ** 2, dim=-1).cpu().numpy()
+    k1 = torch.argmin((tt - t0 - T) ** 2, dim=-1).cpu().numpy()
+    keys = k0 * (len(times) + 1) + k1
+    if not (np.array_equal(keys[rep][inverse], keys)
+            and len(np.unique(keys[rep])) == len(rep)):
+        raise RuntimeError("the 'closest' dedup keys group start times "
+                           "the device windows differently")
+    log(f"'closest' dedup: {len(rep)} groups of {len(t0s)} start times; "
+        "every group's (k0, k1) on the device equals its key's")
+
+
+def measure_paths(records, max_abs, build, gpu):
+    """Phase 6, on the card: each path's kernel device time on its own
+    systems (the ones its plain route solved, in as many launches as the
+    path made), and the warp kernel on the 17- and 40-mode systems beside
+    its bound, its plain version and torch.linalg, with its backward
+    error gated.  Returns the warp kernel's JSON record."""
+    from qnmfits_tpu_torch.ops import chol_cuda
+    wide = {}
+    for rec in records:
+        systems = rec.pop("systems", None)
+        rec["kernel_ms"] = None
+        if not systems:
+            continue
+        rec["systems"] = sum(b.shape[0] for _, b in systems)
+        rec["n"] = max(b.shape[-1] for _, b in systems)
+        rec["kernel_ms"] = device_ms(
+            lambda: [chol_cuda.regularised_solve(G, b) for G, b in systems],
+            reps=5)
+        rec["bound_ms"] = sum(bound_ms(b.shape[0], b.shape[-1])[0]
+                              for _, b in systems)
+        log(f"{rec['name']}: {rec['launches']} launch(es), "
+            f"{rec['systems']} systems of n <= {rec['n']}, kernel device "
+            f"time {rec['kernel_ms']:.4f} ms on {gpu}, bound "
+            f"{rec['bound_ms']:.3e} ms")
+        if rec["key"] in ("n17", "n40"):
+            wide[rec["n"]] = (rec, systems)
+
+    out = {}
+    for n, (rec, systems) in sorted(wide.items()):
+        G, b = next((G, b) for G, b in systems if b.shape[-1] == n)
+        r = out[n] = time_solves(G, b)
+        r["bound_ms"], r["bound_by"] = bound_ms(r["batch"], n)
+        r["bound_share"] = r["bound_ms"] / r["ms"]
+        r["launches"] = rec["wide_launches"]
+        log(f"warp kernel on the {n}-mode path's systems (B={r['batch']}): "
+            f"{r['ms']:.4f} ms, bound {r['bound_ms']:.3e} ms "
+            f"({r['bound_by']}), share {r['bound_share']:.3f}; plain "
+            f"{r['plain_ms']:.4f} ms; torch.linalg {r['library_ms']:.4f} "
+            f"ms; backward error {r['backward_err']:.3e} (bound "
+            f"{KERNEL_BWD_TOL:.0e}; plain {r['backward_err_plain']:.3e})")
+        if not r["backward_err"] <= KERNEL_BWD_TOL:
+            raise RuntimeError(f"warp kernel solution (n={n}) fails the "
+                               "backward-error check")
+    big, small = out[40], out[17]
+    regs, _ = build
+    return dict(name="chol_solve_wide", route="cuda",
+                source="qnmfits_tpu_torch/csrc/chol_solve.cu",
+                replaces="qnmfits_tpu/ops/chol_pallas.py:184",
+                launches=big["launches"], max_abs_err=max_abs[40],
+                ms=big["ms"], plain_ms=big["plain_ms"],
+                bound_ms=big["bound_ms"], bound_by=big["bound_by"],
+                library_ms=big["library_ms"],
+                library="torch.linalg.cholesky_ex + torch.cholesky_solve",
+                bound_share=big["bound_share"], batch=big["batch"], n=40,
+                launches_n17=small["launches"], ms_n17=small["ms"],
+                plain_ms_n17=small["plain_ms"],
+                bound_ms_n17=small["bound_ms"],
+                library_ms_n17=small["library_ms"],
+                bound_share_n17=small["bound_share"],
+                batch_n17=small["batch"],
+                max_abs_err_wide=max(max_abs[n] for n in CHECK_WIDE_N),
+                backward_err=max(big["backward_err"],
+                                 small["backward_err"]),
+                registers=regs["wide"], event_timings=len(EVENT_TIMINGS))
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -418,7 +854,15 @@ def main():
         f"B={len(problem['t0s'])}")
     main_path = run_main_path(problem, device)
     record = measure(problem, main_path, max_abs, build, device, gpu)
-    print(json.dumps({"kernels": [record]}), flush=True)
+    paths = run_paths(problem, device)
+    by_key = {p["key"]: p for p in paths}
+    if by_key["remnant_nodedup"]["launches"] < 2:
+        raise RuntimeError("the remnant sweep without dedup made one join "
+                           "group: it does not exercise the budget")
+    check_closest_keys(problem, device)
+    wide = measure_paths(paths, max_abs, build, gpu)
+    print(json.dumps({"paths": paths}), flush=True)
+    print(json.dumps({"kernels": [record, wide]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,10 +1,13 @@
 """qnmfits_tpu_torch: the PyTorch/CUDA port of qnmfits_tpu.
 
 Each module is named after the qnmfits_tpu module it ports, which stays
-the reference the port is tested against.  This slice ports the t0 x
-mode-set sweep (``mismatch_t0_mode_sets``) for a scalar remnant with
-'geq' windows; its batched Hermitian solve runs in a hand-written FP64
-CUDA kernel (``ops/chol_cuda.py``, ``csrc/chol_solve.cu``).
+the reference the port is tested against.  The port covers the
+static-spectrum fitting surface: the single fits (``ringdown_fit``,
+``multimode_ringdown_fit`` and their dynamic forms), ``mismatch_t0_array``,
+``mismatch_t0_mode_sets`` (windows 'geq' or 'closest', a remnant axis,
+width buckets) and the (Mf, chif) and free-frequency grids.  Every batched
+Hermitian solve runs in the hand-written FP64 CUDA kernels
+(``ops/chol_cuda.py``, ``csrc/chol_solve.cu``).
 
 Device and dtype policy:
 
@@ -43,6 +46,25 @@ def resolve_device(device="cuda") -> torch.device:
     return dev
 
 
-from .fitting import mismatch_t0_mode_sets  # noqa: E402
+from .fitting import (  # noqa: E402
+    dynamic_multimode_ringdown_fit,
+    dynamic_ringdown_fit,
+    mismatch,
+    mismatch_M_chi_grid,
+    mismatch_omega_grid,
+    mismatch_t0_array,
+    mismatch_t0_mode_sets,
+    multimode_mismatch,
+    multimode_ringdown_fit,
+    ringdown,
+    ringdown_fit,
+)
 
-__all__ = ["CDTYPE", "RDTYPE", "mismatch_t0_mode_sets", "resolve_device"]
+__all__ = [
+    "CDTYPE", "RDTYPE", "resolve_device",
+    "ringdown", "mismatch", "multimode_mismatch",
+    "ringdown_fit", "dynamic_ringdown_fit",
+    "multimode_ringdown_fit", "dynamic_multimode_ringdown_fit",
+    "mismatch_t0_array", "mismatch_t0_mode_sets",
+    "mismatch_M_chi_grid", "mismatch_omega_grid",
+]

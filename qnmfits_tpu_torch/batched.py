@@ -1,10 +1,15 @@
-"""The t0 x mode-set sweep: host-side preparation, window dedup and the
-public batched entry (port of the main-path part of
+"""Batched ringdown sweeps over start times, mode sets, remnant spins and
+frequency grids (port of the static-spectrum part of
 qnmfits_tpu/batched.py).
 
 Host preparation (spectrum splines, dedup keys, chunk sizing) is NumPy,
-as in the JAX package; the sweep itself runs in torch on the requested
-device (``engine_real.sweep_t0_modesets_factored_real``).
+as in the JAX package; the sweeps run in torch on the requested device.
+Two sweep engines: the factored kernel
+(``engine_real.sweep_t0_modesets_factored_real``; 'geq' windows, start
+times sorted) and the complex window sweep over ``engine.fit_core``
+(any window method, and the spectrum-batched grids).  Both build their
+systems chunk by chunk and solve them in as few calls of the batched
+Hermitian solve as the join budget allows (``engine_real.JOIN_BYTES``).
 """
 
 from __future__ import annotations
@@ -15,14 +20,40 @@ import numpy as np
 import torch
 
 from . import CDTYPE, RDTYPE, resolve_device
-from .engine import SpectrumEvaluator, check_spin
-from .engine_real import sweep_t0_modesets_factored_real
+from .engine import (SpectrumEvaluator, _window, cached_evaluator,
+                     check_spin, fit_systems, solve_fits)
+from .engine_real import (sweep_t0_factored_real,
+                          sweep_t0_modesets_factored_real)
+from .ref_impl import _delta_factor
 
-__all__ = ["batch_mismatch_t0_modesets"]
+__all__ = [
+    "batch_mismatch_t0", "batch_mismatch_t0_fast",
+    "batch_mismatch_t0_modesets", "batch_mismatch_M_chi",
+    "batch_mismatch_omega", "sweep_t0_core", "sweep_t0_modesets",
+]
+
+_CHUNK = 64      # start times (or grid points) a chunk of the complex sweep
+# Most bytes of one (S, chunk, K, J) complex basis of the complex sweep: a
+# wide set axis (a remnant axis folded in) shrinks its chunk of start
+# times instead (the JAX package maps over the sets one at a time).
+_BASIS_BYTES = 1 << 28
 
 
 def _canon(modes):
     return tuple(tuple(int(x) for x in m) for m in modes)
+
+
+def _real(a, dev):
+    return torch.tensor(np.asarray(a, float), dtype=RDTYPE, device=dev)
+
+
+def _cplx(a, dev):
+    return torch.tensor(np.asarray(a, complex), dtype=CDTYPE, device=dev)
+
+
+def _check_t0_method(t0_method):
+    if t0_method not in ("geq", "closest"):
+        raise ValueError("t0_method must be 'geq' or 'closest'")
 
 
 def _prep(times, data, spherical_modes):
@@ -36,6 +67,17 @@ def _prep(times, data, spherical_modes):
         rows = np.asarray(data)[None, :]
         sph = None
     return np.asarray(times, float), rows, sph
+
+
+def _single_row(rows, fn_name):
+    """The free-frequency grid fits one data series (the reference's
+    mismatch_omega_grid takes one waveform array, qnmfits.py:1679): dict
+    data with several spherical modes raises (batched.py:151)."""
+    if rows.shape[0] != 1:
+        raise ValueError(
+            f"{fn_name} fits a single data series; got {rows.shape[0]} "
+            "spherical-mode rows.  Pass one waveform array (or a dict "
+            "with exactly one entry).")
 
 
 _SPAN_EXP_LIMIT = 18.0   # |Im w| * chunk-span accuracy budget
@@ -105,6 +147,46 @@ def _window_dedup(times, t0s, Ts):
     return _ascending_reps(t0v, rep, inverse)
 
 
+def _window_dedup_closest(times, t0s, Ts):
+    """``_window_dedup`` for t0_method='closest' windows [k0, k1), k0/k1
+    the sample indices closest to t0 and t0 + T, first index winning ties
+    (batched.py:495).
+
+    The keys reproduce ``ops.windows.window_closest``'s argmin bit for
+    bit: it scores sample j by fl((fl(t_j - t0) - T)^2), which is not the
+    distance to fl(t0 + T), and a key that groups two windows the device
+    windows differently would scatter a wrong mismatch.  So the device's
+    own expression is evaluated on a 5-sample bracket around
+    searchsorted(t, t0 + T): fl(t_j - t0) is weakly monotone in j and
+    subtracting T keeps that, so the first global argmin of fl(d^2) lies
+    in any bracket holding the sign change; +-2 covers the <= 1-ulp skew
+    between fl(t0 + T) and the device's association.
+    """
+    t = np.asarray(times, float)
+    n = len(t)
+    off = np.arange(-2, 3)
+
+    def device_argmin(t0v, Tv):
+        j = np.clip(np.searchsorted(t, t0v + Tv)[:, None] + off, 0, n - 1)
+        d = (t[j] - t0v[:, None]) - Tv[:, None]
+        return j[np.arange(len(t0v)), np.argmin(d * d, axis=1)]
+
+    t0v = np.asarray(t0s, float)
+    Tv = np.broadcast_to(np.asarray(Ts, float), t0v.shape)
+    keys = device_argmin(t0v, np.zeros_like(t0v)) * (n + 1) \
+        + device_argmin(t0v, Tv)
+    uniq, rep, inverse = np.unique(keys, return_index=True,
+                                   return_inverse=True)
+    if len(uniq) == len(t0v):
+        return None
+    return _ascending_reps(t0v, rep, inverse)
+
+
+def _dedup_for(t0_method, times, t0s, Ts):
+    return (_window_dedup(times, t0s, Ts) if t0_method == "geq"
+            else _window_dedup_closest(times, t0s, Ts))
+
+
 def _ascending_reps(t0v, rep, inverse):
     """Reorder the window groups by representative start time (np.unique
     orders them by key, which a per-t0 T can make non-ascending); the
@@ -142,7 +224,9 @@ def _dedup_scatter(dd, t0s_full, mm, C=None, omegas=None):
 def _modesets_spectrum_fn(sets_key, sph):
     """Padded spectrum of a mode-set list (batched.py:855): returns
     (eval_all, masks) with eval_all(chif, Mf) -> omegas (S, J), mus
-    (S, I, J) complex, zero in the padded slots, and masks (S, J)."""
+    (S, I, J) complex, zero in the padded slots, at a scalar remnant, or
+    (R, S, J) and (R, S, I, J) at (R,) arrays of spins and masses (the
+    JAX vmap over the remnant axis); masks (S, J)."""
     evs = [SpectrumEvaluator(list(ms), list(sph) if sph else None)
            for ms in sets_key]
     J = max(len(ms) for ms in sets_key)
@@ -151,81 +235,343 @@ def _modesets_spectrum_fn(sets_key, sph):
         masks[si, :len(ms)] = True
 
     def eval_all(chif, Mf):
+        lead = np.shape(chif)
         I = 1 if sph is None else len(sph)
-        omegas = np.zeros((len(sets_key), J), complex)
-        mus = np.zeros((len(sets_key), I, J), complex)
+        omegas = np.zeros(lead + (len(sets_key), J), complex)
+        mus = np.zeros(lead + (len(sets_key), I, J), complex)
         for si, (ev, ms) in enumerate(zip(evs, sets_key)):
-            omegas[si, :len(ms)] = ev.omega(chif, Mf)
-            mus[si, :, :len(ms)] = 1.0 if sph is None else ev.mu(chif)
+            n = len(ms)
+            omegas[..., si, :n] = np.moveaxis(ev.omega(chif, Mf), 0, -1)
+            mus[..., si, :, :n] = 1.0 if sph is None else (
+                np.moveaxis(ev.mu(chif), -1, 0) if lead else ev.mu(chif))
         return omegas, mus
 
     return eval_all, masks
 
 
-def batch_mismatch_t0_modesets(times, data, mode_sets, Mf, chif, t0_array,
-                               T_array=100, spherical_modes=None,
-                               return_amplitudes=False, chunk=256,
-                               t0_method="geq", dedup=True, device="cuda",
-                               solve=None):
-    """The t0 x mode-set sweep (batched.py:910) for a scalar remnant and
-    'geq' windows: every (mode set, start time) pair on the factored
-    kernel, with the mode sets as a batch dimension.
+# ---------------------------------------------------------------------------
+# The complex window sweep (fit_core over a batch of windows)
+# ---------------------------------------------------------------------------
 
-    mode_sets is a list of mode lists ((l, m, n, sign) tuples, ragged
-    lengths padded to a common J with identity Gram rows: padded
-    amplitudes are exactly zero).  t0_array must be sorted ascending.
-    dedup=True solves each distinct window once and scatters the results
-    (exact for static spectra, see _window_dedup).  ``device`` is where
-    the sweep runs ("cuda" by default; "cpu" runs the plain PyTorch
-    solve); ``solve`` overrides the batched Hermitian solve
-    (engine_real._regularised_solve by default).
+def sweep_t0_modesets(times, data, omegas, mus, t0s, Ts, col_masks=None,
+                      t0_method="geq", chunk=None, solve=None):
+    """Every (mode set, window) pair on the complex fit core
+    (batched.py:77), any window method, t0s in any order.
 
-    Returns mm (S, B); with return_amplitudes=True also a list of S
-    complex (B, len(mode_sets[s])) amplitude arrays.
+    times (K,), data (I, K), omegas (S, J), mus (S, I, J), t0s/Ts (B,),
+    col_masks (S, J) bool or None: tensors on one device.  Chunks of
+    ``chunk`` start times are built in turn (the JAX lax.map) and solved
+    in as few calls as the join budget allows; by default a chunk is
+    _CHUNK start times, fewer where the sets' basis would pass
+    _BASIS_BYTES.  Returns C (S, B, J) and mm (S, B).
     """
-    if t0_method == "closest":
-        raise NotImplementedError(
-            "t0_method='closest' is not ported to qnmfits_tpu_torch yet")
-    if t0_method != "geq":
-        raise ValueError("t0_method must be 'geq' or 'closest'")
-    if np.ndim(Mf) != 0 or np.ndim(chif) != 0:
-        raise NotImplementedError(
-            "a remnant axis (array Mf/chif) is not ported to "
-            "qnmfits_tpu_torch yet; pass scalars")
-    dev = resolve_device(device)
-    times, rows, sph = _prep(times, data, spherical_modes)
+    S, J = omegas.shape
+    if chunk is None:
+        per_t0 = S * times.shape[0] * J * 16
+        chunk = max(1, min(_CHUNK, _BASIS_BYTES // per_t0))
+    om, mu = omegas[:, None], mus[:, None]
+    mask = None if col_masks is None else col_masks[:, None]
+
+    def systems(lo, hi):
+        t0c = t0s[lo:hi]
+        w = _window(times, t0c[:, None], Ts[lo:hi, None], t0_method)
+        return fit_systems(times, data, om, mu, t0c, w, mask)
+
+    return solve_fits(t0s.shape[0], chunk, 2 * S * J * J * 16, systems,
+                      solve)
+
+
+def sweep_t0_core(times, data, omega, mu, t0s, Ts, t0_method="geq",
+                  col_mask=None, chunk=None, solve=None):
+    """``sweep_t0_modesets`` for one mode set (batched.py:59): omega (J,),
+    mu (I, J), col_mask (J,) or None.  Returns C (B, J) and mm (B,)."""
+    C, mm = sweep_t0_modesets(
+        times, data, omega[None], mu[None], t0s, Ts,
+        None if col_mask is None else col_mask[None], t0_method, chunk,
+        solve)
+    return C[0], mm[0]
+
+
+def _t0_grid(t0_array, T_array, ascending):
+    """Start times and their (broadcast) window lengths; the factored
+    sweeps (``ascending``) need the start times sorted."""
     t0s = np.asarray(t0_array, float)
-    if np.any(np.diff(t0s) < 0):
+    if ascending and np.any(np.diff(t0s) < 0):
         raise ValueError("t0_array must be sorted ascending")
     Ts = np.ascontiguousarray(
         np.broadcast_to(np.asarray(T_array, float), t0s.shape))
-    check_spin(float(chif))
+    return t0s, Ts
 
-    sets = [list(_canon(ms)) for ms in mode_sets]
-    eval_all, masks = _modesets_spectrum_fn(
-        tuple(tuple(ms) for ms in sets), sph)
-    omegas, mus = eval_all(float(chif), float(Mf))
 
-    dd = _window_dedup(times, t0s, Ts) if dedup else None
-    t0s_full = t0s
-    if dd is not None:
-        t0s, Ts = t0s[dd[0]], Ts[dd[0]]
-    ck = _safe_chunk(t0s, float(np.max(np.abs(omegas.imag))), chunk)
+def _static_only(Mf, chif, delta):
+    """The dynamic-spectrum sweeps are not ported; the delta rule is the
+    JAX package's (the reference's dynamic fits take no delta)."""
+    if np.ndim(Mf) == 0 and np.ndim(chif) == 0:
+        return
+    if np.any(np.asarray(delta)):
+        raise ValueError("delta is not supported for dynamic-spectrum "
+                         "fits (time-dependent Mf/chif)")
+    raise NotImplementedError(
+        "time-dependent Mf/chif (dynamic spectra) are not ported to "
+        "qnmfits_tpu_torch yet (ROADMAP A.5)")
 
-    def real(a):
-        return torch.tensor(np.asarray(a, float), dtype=RDTYPE, device=dev)
 
-    def cplx(a):
-        return torch.tensor(np.asarray(a, complex), dtype=CDTYPE, device=dev)
+def _spectrum(modes, sph, Mf, chif, delta):
+    """omega (J,) and mu (I, J) of one mode set at a scalar remnant."""
+    ev = cached_evaluator(_canon(modes), sph)
+    df = np.asarray(_delta_factor(delta, len(modes)))
+    omega = ev.omega(float(chif), float(Mf), df)
+    mu = (np.ones((1, omega.shape[0]), complex) if sph is None
+          else ev.mu(float(chif)))
+    return omega, mu
 
-    C, mm = sweep_t0_modesets_factored_real(
-        real(times), cplx(rows), cplx(omegas), cplx(mus), real(t0s),
-        real(Ts), torch.as_tensor(masks, device=dev), chunk=ck,
-        analytic=_uniform_spacing(times), solve=solve)
+
+def _scatter(dd, t0s_full, mm, C, omegas, return_amplitudes):
     mm = mm.cpu().numpy()
     C = C.cpu().numpy() if return_amplitudes else None
     if dd is not None:
         mm, C = _dedup_scatter(dd, t0s_full, mm, C, omegas)
+    return mm, C
+
+
+def batch_mismatch_t0(times, data, modes, Mf, chif, t0_array,
+                      t0_method="geq", T_array=100, spherical_modes=None,
+                      delta=0.0, return_amplitudes=False, dedup=True,
+                      device="cuda", solve=None):
+    """All start times of one mode set on the complex fit core
+    (batched.py:192; the reference's loop at qnmfits.py:1183-1301), any
+    window method.  dedup=True solves each distinct window once (exact
+    for static spectra).  ``solve`` substitutes the batched Hermitian
+    solve.  Returns mm (B,), with return_amplitudes=True also C (B, J).
+    """
+    _static_only(Mf, chif, delta)
+    _check_t0_method(t0_method)
+    check_spin(chif)
+    dev = resolve_device(device)
+    times, rows, sph = _prep(times, data, spherical_modes)
+    t0s, Ts = _t0_grid(t0_array, T_array, ascending=False)
+    omega, mu = _spectrum(modes, sph, Mf, chif, delta)
+    dd = _dedup_for(t0_method, times, t0s, Ts) if dedup else None
+    t0s_full = t0s
+    if dd is not None:
+        t0s, Ts = t0s[dd[0]], Ts[dd[0]]
+    C, mm = sweep_t0_core(_real(times, dev), _cplx(rows, dev),
+                          _cplx(omega, dev), _cplx(mu, dev), _real(t0s, dev),
+                          _real(Ts, dev), t0_method, solve=solve)
+    mm, C = _scatter(dd, t0s_full, mm, C, omega, return_amplitudes)
+    return (mm, C) if return_amplitudes else mm
+
+
+# ---------------------------------------------------------------------------
+# The factored sweeps ('geq' windows, start times sorted)
+# ---------------------------------------------------------------------------
+
+def batch_mismatch_t0_fast(times, data, modes, Mf, chif, t0_array,
+                           T_array=100, spherical_modes=None, delta=0.0,
+                           return_amplitudes=False, chunk=128, dedup=True,
+                           device="cuda", solve=None):
+    """The start-time sweep of one mode set on the factored kernel
+    (batched.py:600; t0_method='geq', t0_array sorted ascending), the same
+    results as ``batch_mismatch_t0``.  Returns mm (B,), with
+    return_amplitudes=True also C (B, J)."""
+    dev = resolve_device(device)
+    times, rows, sph = _prep(times, data, spherical_modes)
+    t0s, Ts = _t0_grid(t0_array, T_array, ascending=True)
+    omega, mu = _spectrum(modes, sph, Mf, chif, delta)
+    dd = _window_dedup(times, t0s, Ts) if dedup else None
+    t0s_full = t0s
+    if dd is not None:
+        t0s, Ts = t0s[dd[0]], Ts[dd[0]]
+    ck = _safe_chunk(t0s, float(np.max(np.abs(omega.imag))), chunk)
+    C, mm = sweep_t0_factored_real(
+        _real(times, dev), _cplx(rows, dev), _cplx(omega, dev),
+        _cplx(mu, dev), _real(t0s, dev), _real(Ts, dev), chunk=ck,
+        analytic=_uniform_spacing(times), solve=solve)
+    mm, C = _scatter(dd, t0s_full, mm, C, omega, return_amplitudes)
+    return (mm, C) if return_amplitudes else mm
+
+
+def _bucket_width(n, J):
+    """Padded width of an n-mode set under bucket=True: the power of two
+    >= max(n, 4), capped at J."""
+    b = 4
+    while b < n:
+        b *= 2
+    return min(b, J)
+
+
+def batch_mismatch_t0_modesets(times, data, mode_sets, Mf, chif, t0_array,
+                               T_array=100, spherical_modes=None,
+                               return_amplitudes=False, chunk=256,
+                               t0_method="geq", bucket=False, dedup=True,
+                               device="cuda", solve=None):
+    """The t0 x mode-set sweep (batched.py:910): every (mode set, start
+    time) pair, with the mode sets as a batch dimension.
+
+    mode_sets is a list of mode lists ((l, m, n, sign) tuples, ragged
+    lengths padded to a common J with identity Gram rows: padded
+    amplitudes are exactly zero).  t0_method='geq' runs the factored
+    kernel and needs t0_array sorted ascending; 'closest' runs the complex
+    window sweep.  chif and/or Mf may be 1-D arrays, a remnant axis R
+    (broadcast together): the per-spin spectra fold into the set axis, row
+    r * S + s.  bucket=True ('geq' only) groups the sets by padded width
+    (powers of two >= 4, capped at J) and runs one factored sweep per
+    width, each with its own chunk budget.  dedup=True solves each
+    distinct window once and scatters the results (exact for static
+    spectra).  ``device`` is where the sweep runs ("cuda" by default;
+    "cpu" runs the plain PyTorch solve); ``solve`` overrides the batched
+    Hermitian solve (engine_real._regularised_solve by default).
+
+    Returns mm (S, B), or (S, R, B) with a remnant axis; with
+    return_amplitudes=True also a list of S complex (B, len(mode_sets[s]))
+    (or (R, B, len)) amplitude arrays.
+    """
+    _check_t0_method(t0_method)
+    if bucket and t0_method != "geq":
+        raise ValueError("bucket=True requires t0_method='geq' (the "
+                         "width-bucketed factored kernel)")
+    if np.ndim(Mf) > 1 or np.ndim(chif) > 1:
+        raise ValueError("Mf/chif must be scalars or 1-D remnant arrays")
+    dev = resolve_device(device)
+    times, rows, sph = _prep(times, data, spherical_modes)
+    t0s, Ts = _t0_grid(t0_array, T_array, ascending=t0_method == "geq")
+    scalar_remnant = np.ndim(Mf) == 0 and np.ndim(chif) == 0
+    chif_arr, Mf_arr = np.broadcast_arrays(
+        np.atleast_1d(np.asarray(chif, float)),
+        np.atleast_1d(np.asarray(Mf, float)))
+    for c in chif_arr:
+        check_spin(float(c))
+    R = len(chif_arr)
+
+    sets = [list(_canon(ms)) for ms in mode_sets]
+    S = len(sets)
+    eval_all, masks = _modesets_spectrum_fn(
+        tuple(tuple(ms) for ms in sets), sph)
+    if scalar_remnant:
+        omegas, mus = eval_all(float(chif), float(Mf))
+    else:
+        omegas, mus = eval_all(chif_arr, Mf_arr)
+        omegas = omegas.reshape(R * S, omegas.shape[-1])
+        mus = mus.reshape((R * S,) + mus.shape[-2:])
+    masks_run = masks if scalar_remnant else np.tile(masks, (R, 1))
+
+    dd = _dedup_for(t0_method, times, t0s, Ts) if dedup else None
+    t0s_full = t0s
+    if dd is not None:
+        t0s, Ts = t0s[dd[0]], Ts[dd[0]]
+
+    args = (_real(times, dev), _cplx(rows, dev))
+    t0_t, T_t = _real(t0s, dev), _real(Ts, dev)
+    if t0_method == "closest":
+        C, mm = sweep_t0_modesets(*args, _cplx(omegas, dev),
+                                  _cplx(mus, dev), t0_t, T_t,
+                                  torch.as_tensor(masks_run, device=dev),
+                                  t0_method="closest", solve=solve)
+    else:
+        analytic = _uniform_spacing(times)
+
+        def run_group(o, m, mk):
+            ck = _safe_chunk(t0s, float(np.max(np.abs(o.imag))), chunk)
+            return sweep_t0_modesets_factored_real(
+                *args, _cplx(o, dev), _cplx(m, dev), t0_t, T_t,
+                torch.as_tensor(mk, device=dev), chunk=ck,
+                analytic=analytic, solve=solve)
+
+        if bucket:
+            J = omegas.shape[1]
+            widths = np.array([_bucket_width(len(sets[i % S]), J)
+                               for i in range(omegas.shape[0])])
+            C = torch.zeros((omegas.shape[0], len(t0s), J), dtype=CDTYPE,
+                            device=dev)
+            mm = torch.empty((omegas.shape[0], len(t0s)), dtype=RDTYPE,
+                             device=dev)
+            for bw in sorted(set(widths)):
+                idx = np.nonzero(widths == bw)[0]
+                C_b, mm_b = run_group(omegas[idx][:, :bw],
+                                      mus[idx][:, :, :bw],
+                                      masks_run[idx][:, :bw])
+                ti = torch.as_tensor(idx, device=dev)
+                mm[ti] = mm_b
+                C[ti, :, :bw] = C_b
+        else:
+            C, mm = run_group(omegas, mus, masks_run)
+    mm, C = _scatter(dd, t0s_full, mm, C, omegas, return_amplitudes)
+    if scalar_remnant:
+        if not return_amplitudes:
+            return mm
+        return mm, [C[si, :, :len(ms)] for si, ms in enumerate(sets)]
+    B = mm.shape[-1]
+    mm = np.moveaxis(mm.reshape(R, S, B), 0, 1)          # (S, R, B)
     if not return_amplitudes:
         return mm
-    return mm, [C[si, :, :len(ms)] for si, ms in enumerate(sets)]
+    C = C.reshape(R, S, B, -1)
+    return mm, [C[:, si, :, :len(ms)] for si, ms in enumerate(sets)]
+
+
+# ---------------------------------------------------------------------------
+# Spectrum-batched grids (one window, many spectra)
+# ---------------------------------------------------------------------------
+
+def _grid_sweep(times, rows, omegas, mus, t0, T, t0_method, dev, solve):
+    """mm (Q,) of the fits of Q spectra, omegas (Q, J) and mus (Q, I, J),
+    on one window: chunks of _CHUNK grid points (the JAX lax.map),
+    solved in as few calls as the join budget allows."""
+    times_t, rows_t = _real(times, dev), _cplx(rows, dev)
+    om, mu = _cplx(omegas, dev), _cplx(mus, dev)
+    t0_t = torch.tensor(float(t0), dtype=RDTYPE, device=dev)
+    w = _window(times_t, t0_t, float(T), t0_method)
+    J = omegas.shape[-1]
+
+    def systems(lo, hi):
+        return fit_systems(times_t, rows_t, om[lo:hi], mu[lo:hi], t0_t, w)
+
+    _, mm = solve_fits(omegas.shape[0], _CHUNK, 2 * J * J * 16, systems,
+                       solve)
+    return mm.cpu().numpy()
+
+
+def batch_mismatch_M_chi(times, data, modes, Mf_minmax, chif_minmax, t0,
+                         t0_method="geq", T=100, res=50,
+                         spherical_modes=None, delta=0.0, device="cuda",
+                         solve=None):
+    """The (Mf, chif) grid as one batched sweep (batched.py:247):
+    res x res fits, row-major over Mf rows and chif columns like the
+    reference (qnmfits.py:1413)."""
+    check_spin(float(chif_minmax[0]))
+    check_spin(float(chif_minmax[1]))
+    dev = resolve_device(device)
+    times, rows, sph = _prep(times, data, spherical_modes)
+    MM, CC = np.meshgrid(np.linspace(*Mf_minmax, res),
+                         np.linspace(*chif_minmax, res), indexing="ij")
+    ev = cached_evaluator(_canon(modes), sph)
+    df = np.asarray(_delta_factor(delta, len(modes)))
+    omegas = ev.omega(CC.ravel(), MM.ravel(), df).T           # (Q, J)
+    mus = (np.ones((omegas.shape[0], 1, omegas.shape[1]), complex)
+           if sph is None else np.moveaxis(ev.mu(CC.ravel()), -1, 0))
+    mm = _grid_sweep(times, rows, omegas, mus, t0, T, t0_method, dev, solve)
+    return mm.reshape(res, res)
+
+
+def batch_mismatch_omega(times, data, modes, Mf, chif, re_minmax, im_minmax,
+                         t0, t0_method="geq", T=100, res=50, device="cuda",
+                         solve=None):
+    """The free complex-frequency grid as one batched sweep
+    (batched.py:266): fixed QNMs plus one free frequency per grid point,
+    transposed like the reference (qnmfits.py:1825)."""
+    check_spin(chif)
+    dev = resolve_device(device)
+    times, rows, _ = _prep(times, data, None)
+    _single_row(rows, "batch_mismatch_omega")
+    RE, IM = np.meshgrid(np.linspace(*re_minmax, res),
+                         np.linspace(*im_minmax, res), indexing="ij")
+    wf = (RE + 1j * IM).ravel()
+    fixed = (cached_evaluator(_canon(modes)).omega(
+        float(chif) if chif is not None else 0.0,
+        float(Mf) if Mf is not None else 1.0) if len(modes)
+        else np.zeros(0, complex))
+    omegas = np.concatenate(
+        [np.broadcast_to(fixed, (wf.shape[0], fixed.shape[0])), wf[:, None]],
+        axis=1)
+    mus = np.ones((wf.shape[0], 1, omegas.shape[1]), complex)
+    mm = _grid_sweep(times, rows, omegas, mus, t0, T, t0_method, dev, solve)
+    return mm.reshape(res, res).T

@@ -15,11 +15,16 @@
 // batch on the lanes; FP64 is native here, so none of that carries over.
 //
 // Layout: G (batch, n, n) and b, x (batch, n), complex128 row-major with
-// interleaved (re, im), i.e. double2, 16-byte aligned; n = 2..16.
+// interleaved (re, im), i.e. double2, 16-byte aligned; n = 1..64.
 //
-// Design.
+// Two kernels, chosen by n alone: the team kernel below for n = 1..16, and
+// the warp kernel (regularised_solve_wide_kernel, at the end of the file)
+// for n = 17..64, where a register-resident column would spill.
+//
+// Design of the team kernel.
 //   * A team of P threads solves one system, P the next power of two >= n
-//     (2, 4, 8 or 16), inside one warp.  Lane j holds column j of the
+//     (2, 4, 8 or 16; a one-mode system is a team of 2 with one idle
+//     lane), inside one warp.  Lane j holds column j of the
 //     equilibrated lower triangle in registers (at most 16 complex values,
 //     indexed only by compile-time constants).  The Cholesky runs
 //     right-looking: at step k lane k scales its column, and the column
@@ -290,9 +295,9 @@ cudaError_t launch(const void* G, const void* b, void* x, long long batch,
 
 }  // namespace
 
-// Solve `batch` systems of size n (2 <= n <= 16) on `stream` of device
-// `device`.  G, b and x must be 16-byte aligned.  Returns the CUDA error of
-// the launch (0 on success).
+// Solve `batch` systems of size n (1 <= n <= 16) on `stream` of device
+// `device` with the team kernel.  G, b and x must be 16-byte aligned.
+// Returns the CUDA error of the launch (0 on success).
 extern "C" int qnm_regularised_solve(const void* G, const void* b, void* x,
                                      long long batch, int n, int device,
                                      void* stream) {
@@ -301,6 +306,7 @@ extern "C" int qnm_regularised_solve(const void* G, const void* b, void* x,
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (n) {
+    case 1: return launch<1>(G, b, x, batch, device, st);
     case 2: return launch<2>(G, b, x, batch, device, st);
     case 3: return launch<3>(G, b, x, batch, device, st);
     case 4: return launch<4>(G, b, x, batch, device, st);
@@ -318,4 +324,190 @@ extern "C" int qnm_regularised_solve(const void* G, const void* b, void* x,
     case 16: return launch<16>(G, b, x, batch, device, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+namespace {
+
+// ---------------------------------------------------------------------------
+// The warp kernel, n = 17..64: one warp per system.
+//
+// A lane holding a whole column in registers, as the team kernel does,
+// would spill past n = 16, so here the equilibrated lower triangle lives in
+// shared memory: packed, at most 64 * 65 / 2 * 16 B = 33 KB, with b (then
+// y, then z) and the scales beside it, 35 KB at n = 64, under the default
+// 48 KB a block.  A block is one warp and the grid strides over systems.
+// Lane l owns rows l and l + 32.  Each right-looking step k scales column k
+// (the pivot's reciprocal square root and one Newton step for 1 / L[k][k],
+// as in the team kernel), then every lane updates its own rows of the
+// trailing triangle and of the forward substitution; the back substitution
+// runs column by column in the same warp.  The semantics are those of the
+// team kernel and of engine_real._equilibrated line for line.
+//
+// Bound: bytes, as for the team kernel, (n(n+1)/2 + 2n) * 16 B a system
+// (14.4 KB at n = 40, against ~7 FP64 operations a byte).  This is the
+// simple kernel, and latency holds it back: each of the n steps waits on
+// shared-memory round trips and two warp syncs, most lanes idle on short
+// rows, and no copy is in flight while a system is factorised (PERF.md,
+// section 6).
+// ---------------------------------------------------------------------------
+
+constexpr int kWideMaxN = 64;
+constexpr int kWideBlocksPerSm = 32;
+
+__host__ __device__ inline int tri_index(int i, int j) { return i * (i + 1) / 2 + j; }
+
+inline size_t wide_smem_bytes(int n) {
+  return (static_cast<size_t>(n) * (n + 1) / 2 + n) * sizeof(double2)
+         + 2 * static_cast<size_t>(n) * sizeof(double);
+}
+
+__global__ void __launch_bounds__(32)
+regularised_solve_wide_kernel(const double2* __restrict__ G,
+                              const double2* __restrict__ b,
+                              double2* __restrict__ x, long long batch, int n) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  double2* tri = reinterpret_cast<double2*>(smem);      // packed lower triangle
+  double2* rb = tri + tri_index(n, 0);                  // b, then y, then z
+  double* sc = reinterpret_cast<double*>(rb + n);       // D^-1/2
+  double* dinv = sc + n;                                // 1 / L[k][k]
+  const int lane = threadIdx.x;
+  const double eps = DBL_EPSILON;
+  const double dead_ratio = (1e3 * eps) * (1e3 * eps);
+  const double floor_ = 500.0 * n * eps;
+
+  for (long long sys = blockIdx.x; sys < batch; sys += gridDim.x) {
+    const double2* g = G + sys * n * n;
+    // The lower triangle row by row (neighbouring lanes, neighbouring
+    // words), and b.
+    for (int i = 0; i < n; ++i)
+      for (int j = lane; j <= i; j += 32) tri[tri_index(i, j)] = g[i * n + j];
+    for (int i = lane; i < n; i += 32) rb[i] = b[sys * n + i];
+    __syncwarp();
+
+    // Dead-column mask from the diagonal: a warp maximum that propagates
+    // NaN (as torch.amax does; a NaN maximum marks no column dead).
+    double dmax = -INFINITY;
+    for (int i = lane; i < n; i += 32) {
+      const double d = tri[tri_index(i, i)].x;
+      dmax = (d > dmax || d != d) ? d : dmax;
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      const double v = __shfl_xor_sync(kAll, dmax, o);
+      dmax = (v > dmax || v != v) ? v : dmax;
+    }
+    unsigned long long dead_bits = 0;
+    for (int base = 0; base < n; base += 32) {
+      const int i = base + lane;
+      bool dead = false;
+      if (i < n) {
+        const double d = tri[tri_index(i, i)].x;
+        dead = d <= dmax * dead_ratio;
+        const double dd = dead ? 1.0 : d;
+        sc[i] = 1.0 / sqrt(dd < DBL_MIN ? DBL_MIN : dd);
+      }
+      dead_bits |= static_cast<unsigned long long>(__ballot_sync(kAll, dead))
+                   << base;
+    }
+    __syncwarp();
+
+    // Equilibrate and floor; dead rows and columns become identity rows
+    // with a zero right-hand side.
+    for (int i = 0; i < n; ++i) {
+      const bool dead_i = (dead_bits >> i) & 1;
+      const double si = sc[i];
+      for (int j = lane; j <= i; j += 32) {
+        double2 v = tri[tri_index(i, j)];
+        if (dead_i || ((dead_bits >> j) & 1)) v = make_double2(i == j ? 1.0 : 0.0, 0.0);
+        v.x = v.x * si * sc[j];
+        v.y = v.y * si * sc[j];
+        if (i == j) v.x += floor_;
+        tri[tri_index(i, j)] = v;
+      }
+    }
+    for (int i = lane; i < n; i += 32) {
+      const double2 r = rb[i];
+      rb[i] = ((dead_bits >> i) & 1) ? make_double2(0.0, 0.0)
+                                     : make_double2(r.x * sc[i], r.y * sc[i]);
+    }
+
+    // Right-looking Cholesky with the forward substitution L y = b'.
+    for (int k = 0; k < n; ++k) {
+      __syncwarp();
+      const double piv = tri[tri_index(k, k)].x;
+      const double rs = rsqrt(piv);
+      const double lkk = piv * rs;
+      const double inv = fma(rs, fma(-lkk, rs, 1.0), rs);
+      for (int i = k + lane; i < n; i += 32) {
+        double2 v = tri[tri_index(i, k)];
+        tri[tri_index(i, k)] = i == k ? make_double2(lkk, 0.0)
+                                      : make_double2(v.x * rs, v.y * rs);
+      }
+      if (lane == (k & 31)) {
+        rb[k] = make_double2(rb[k].x * inv, rb[k].y * inv);
+        dinv[k] = inv;
+      }
+      __syncwarp();
+      const double2 yk = rb[k];
+      // Rows i > k of this lane: b'[i] -= L[i][k] y[k], and
+      // L[i][j] -= L[i][k] conj(L[j][k]) for k < j <= i.
+      for (int i = lane; i < n; i += 32) {
+        if (i <= k) continue;
+        const double2 c = tri[tri_index(i, k)];
+        rb[i].x -= c.x * yk.x - c.y * yk.y;
+        rb[i].y -= c.x * yk.y + c.y * yk.x;
+        for (int j = k + 1; j <= i; ++j) {
+          const double2 cj = tri[tri_index(j, k)];
+          double2& a = tri[tri_index(i, j)];
+          a.x -= c.x * cj.x + c.y * cj.y;
+          a.y -= c.y * cj.x - c.x * cj.y;
+        }
+      }
+    }
+
+    // Back substitution L^H z = y: z[j] -= conj(L[i][j]) z[i] for j < i.
+    for (int i = n - 1; i >= 0; --i) {
+      __syncwarp();
+      if (lane == (i & 31)) rb[i] = make_double2(rb[i].x * dinv[i], rb[i].y * dinv[i]);
+      __syncwarp();
+      const double2 zi = rb[i];
+      for (int j = lane; j < i; j += 32) {
+        const double2 l = tri[tri_index(i, j)];
+        rb[j].x -= l.x * zi.x + l.y * zi.y;
+        rb[j].y -= l.x * zi.y - l.y * zi.x;
+      }
+    }
+    __syncwarp();
+    for (int i = lane; i < n; i += 32)
+      x[sys * n + i] = make_double2(rb[i].x * sc[i], rb[i].y * sc[i]);
+    __syncwarp();   // the next system's copies overwrite shared memory
+  }
+}
+
+}  // namespace
+
+// Solve `batch` systems of size n (17 <= n <= 64) on `stream` of device
+// `device` with the warp kernel.  G, b and x must be 16-byte aligned.
+// Returns the CUDA error of the launch (0 on success).
+extern "C" int qnm_regularised_solve_wide(const void* G, const void* b,
+                                          void* x, long long batch, int n,
+                                          int device, void* stream) {
+  if (batch <= 0) return 0;
+  if (n < 17 || n > kWideMaxN) return static_cast<int>(cudaErrorInvalidValue);
+  if (device < 0 || device >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  static int sms[kMaxDevices] = {};
+  if (sms[device] == 0) {
+    err = cudaDeviceGetAttribute(&sms[device], cudaDevAttrMultiProcessorCount, device);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const long long cap = static_cast<long long>(sms[device]) * kWideBlocksPerSm;
+  const long long grid = batch < cap ? batch : cap;
+  regularised_solve_wide_kernel<<<static_cast<unsigned>(grid), 32,
+                                  wide_smem_bytes(n),
+                                  static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const double2*>(G), static_cast<const double2*>(b),
+      static_cast<double2*>(x), batch, n);
+  return static_cast<int>(cudaGetLastError());
 }

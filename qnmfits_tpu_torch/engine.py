@@ -1,18 +1,29 @@
-"""Spectrum evaluation for fixed mode sets (port of the spectrum part of
+"""Spectrum evaluation and the complex fit core (port of
 qnmfits_tpu/engine.py).
 
 The JAX main path evaluates the spectrum splines eagerly on the host
 (``batched._on_host``) before the sweep; the port does the same in NumPy.
+``fit_core`` is the Gram-assembly weighted least-squares fit with its
+trapezoid mismatch, batched over leading axes (the JAX vmap); its solve
+is ``ops/solve.gram_cholesky``, the CUDA kernel on the card.
 """
 
 from __future__ import annotations
 
-import numpy as np
+from functools import lru_cache
 
+import numpy as np
+import torch
+
+from .engine_real import join_groups
+from .ops.cmath import damped_phase
+from .ops.solve import gram_cholesky
+from .ops.windows import trapz_weights, window_closest, window_geq
 from .spectrum.tables import (ModeIndexSet, SpectrumTables, default_tables,
                               eval_spline_np)
 
-__all__ = ["SpectrumEvaluator", "check_spin"]
+__all__ = ["SpectrumEvaluator", "cached_evaluator", "check_spin",
+           "fit_core", "fit_systems", "fit_mismatch", "solve_fits"]
 
 
 def _raise_if_bad_spin(c: float, hi: float) -> None:
@@ -30,6 +41,20 @@ def check_spin(chif, tables: SpectrumTables | None = None) -> None:
         return
     t = tables if tables is not None else default_tables()
     _raise_if_bad_spin(float(chif), float(t.chi[-1]))
+
+
+def cached_evaluator(modes, sph=None):
+    """A shared SpectrumEvaluator keyed by canonical (modes, sph) tuples
+    (engine.py:65); instances hold no state after construction."""
+    return _cached_evaluator(tuple(tuple(int(x) for x in m) for m in modes),
+                             None if sph is None
+                             else tuple(tuple(int(x) for x in m)
+                                        for m in sph))
+
+
+@lru_cache(maxsize=256)
+def _cached_evaluator(modes, sph):
+    return SpectrumEvaluator(list(modes), list(sph) if sph else None)
 
 
 class SpectrumEvaluator:
@@ -67,9 +92,10 @@ class SpectrumEvaluator:
         if np.ndim(chif) == 0:
             _raise_if_bad_spin(float(chif), float(self.chi_grid[-1]))
 
-    def omega(self, chif, Mf=1.0):
+    def omega(self, chif, Mf=1.0, delta_factor=None):
         """(J,) frequencies at scalar chif, or (J, Q) at chif (Q,), with
-        mirror symmetry and nonlinear-mode sums applied."""
+        mirror symmetry, nonlinear-mode sums and the (J,) perturbation
+        factor 1 + delta applied (reference qnmfits.py:253-274)."""
         self._check(chif)
         w = eval_spline_np(self.chi_grid, self.omega_coeffs, chif)
         signs, mask = self.signs, self.mask
@@ -77,6 +103,9 @@ class SpectrumEvaluator:
             signs, mask = signs[..., None], mask[..., None]
         w = np.where(signs > 0, w, -np.conj(w))
         w = np.where(mask, w, 0.0).sum(axis=1)
+        if delta_factor is not None:
+            df = np.asarray(delta_factor)
+            w = w * (df if np.ndim(chif) == 0 else df[..., None])
         return w / Mf
 
     def mu(self, chif):
@@ -90,3 +119,98 @@ class SpectrumEvaluator:
             sgn, par, nz = sgn[..., None], par[..., None], nz[..., None]
         mu = np.where(sgn > 0, mu, par * np.conj(mu))
         return np.where(nz, mu, 0.0)
+
+
+# ---------------------------------------------------------------------------
+# Fit core (engine.py:190-259)
+# ---------------------------------------------------------------------------
+
+def _window(times, t0, T, t0_method: str):
+    if t0_method == "geq":
+        return window_geq(times, t0, T)
+    if t0_method == "closest":
+        return window_closest(times, t0, T)
+    raise ValueError("t0_method must be 'geq' or 'closest'")
+
+
+def fit_systems(times, data, omega, mu, t0, w, col_mask=None):
+    """The pieces of ``fit_core`` before and after its solve, batched over
+    leading axes that broadcast together.
+
+    times (K,) real; data (I, K) complex; omega (..., J); mu (..., I, J);
+    t0 (...) real tensor; w (..., K) {0,1} window weights; col_mask
+    (..., J) bool marking real (True) vs padding slots, which get identity
+    Gram rows and a zero right-hand side.  Returns G (..., J, J), rhs
+    (..., J): the masked normal equations; and G_tau, r_tau, data_norm:
+    the trapezoid-weighted Gram, projections and data norm of the
+    mismatch.
+    """
+    tau = trapz_weights(times, w)
+    # Window-clamped phase (w binary): no backward-in-time overflow, even
+    # for a growing free mode; products with w and tau are unchanged.
+    phi = damped_phase(omega[..., None, :],
+                       ((times - t0[..., None]) * w)[..., :, None])
+    phiw = phi * w[..., :, None]                               # (..., K, J)
+    Mmu = mu.mH @ mu                                           # (..., J, J)
+    G = Mmu * (phiw.mH @ phiw)
+    pd = (data * w[..., None, :]).to(phi.dtype) @ phiw.conj()  # (..., I, J)
+    rhs = (mu.conj() * pd).sum(dim=-2)
+    if col_mask is not None:
+        keep = col_mask
+        eye = torch.eye(G.shape[-1], dtype=G.dtype, device=G.device)
+        G = torch.where(keep[..., :, None] & keep[..., None, :], G, eye)
+        rhs = torch.where(keep, rhs, torch.zeros((), dtype=rhs.dtype,
+                                                 device=rhs.device))
+
+    phit = phi * tau[..., :, None]
+    G_tau = Mmu * (phit.mH @ phi)
+    r_tau = (mu.conj() * (data.to(phi.dtype) @ phit.conj())).sum(dim=-2)
+    data_norm = (tau[..., None, :] * (data.real ** 2 + data.imag ** 2)).sum(
+        dim=(-2, -1))
+    batch = rhs.shape[:-1]
+    return (G.expand(*batch, *G.shape[-2:]), rhs,
+            G_tau.expand(*batch, *G_tau.shape[-2:]),
+            r_tau.expand(*batch, r_tau.shape[-1]), data_norm.expand(batch))
+
+
+def fit_mismatch(C, G_tau, r_tau, data_norm):
+    """Sky-averaged trapezoid mismatch of the fitted model (reference
+    qnmfits.py:73-139) from the trapezoid-weighted contractions."""
+    num = (C * r_tau.conj()).sum(dim=-1).real
+    model_norm = (C.conj() * (G_tau @ C[..., None])[..., 0]).sum(dim=-1).real
+    return 1.0 - num / torch.sqrt(model_norm * data_norm)
+
+
+def fit_core(times, data, omega, mu, t0, w, col_mask=None, solve=None):
+    """Weighted multimode least-squares fit and its mismatch
+    (engine.py:198), batched over leading axes of (t0, w), (omega, mu) or
+    both; see ``fit_systems`` for the shapes.  Returns C (..., J) and
+    mm (...)."""
+    G, rhs, G_tau, r_tau, data_norm = fit_systems(times, data, omega, mu,
+                                                  t0, w, col_mask)
+    C = gram_cholesky(G, rhs, solve)
+    return C, fit_mismatch(C, G_tau, r_tau, data_norm)
+
+
+def solve_fits(n, chunk, item_bytes, systems, solve=None):
+    """Fits of n items built chunk by chunk and solved in few calls.
+
+    ``systems(lo, hi)`` returns the ``fit_systems`` tuple of items lo:hi
+    with the item axis last among the batch axes (the JAX lax.map with
+    batch_size=chunk, which never holds every item's (K, J) basis at
+    once).  Consecutive chunks are joined while their G and G_tau stay
+    within ``engine_real.JOIN_BYTES`` (``item_bytes`` a joined item), and
+    each group is solved by one ``gram_cholesky`` call.  Returns C
+    (..., n, J) and mm (..., n).
+    """
+    bounds = [(lo, min(lo + chunk, n)) for lo in range(0, n, chunk)]
+    Cs, mms = [], []
+    for g0, g1 in join_groups([hi - lo for lo, hi in bounds], item_bytes):
+        parts = list(zip(*(systems(lo, hi) for lo, hi in bounds[g0:g1])))
+        # The item axis: -3 of the Grams, -2 of the vectors, -1 of the norm.
+        G, rhs, G_tau, r_tau, dn = (torch.cat(p, dim=axis) for p, axis in
+                                    zip(parts, (-3, -2, -3, -2, -1)))
+        C = gram_cholesky(G, rhs, solve)
+        Cs.append(C)
+        mms.append(fit_mismatch(C, G_tau, r_tau, dn))
+    return torch.cat(Cs, dim=-2), torch.cat(mms, dim=-1)

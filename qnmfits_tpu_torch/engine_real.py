@@ -20,7 +20,13 @@ from .ops import chol_cuda
 from .ops.chol import complex_cholesky_solve_unrolled
 from .ops.windows import trapz_weights, window_geq
 
-__all__ = ["sweep_t0_factored_real", "sweep_t0_modesets_factored_real"]
+__all__ = ["JOIN_BYTES", "join_groups", "sweep_t0_factored_real",
+           "sweep_t0_modesets_factored_real"]
+
+# Most bytes of G and G2 (or G and G_tau) that a sweep joins for one solve
+# call: S * B systems of J^2 complex128 each would otherwise grow without
+# bound with a remnant axis folded into the set axis.
+JOIN_BYTES = 1 << 30
 
 
 def _equilibrated(G, b):
@@ -53,6 +59,23 @@ def _regularised_solve_plain(G, b):
     dead-column masked, floored complex Cholesky solve, any device."""
     A, bs, Di = _equilibrated(G, b)
     return complex_cholesky_solve_unrolled(A, bs) * Di
+
+
+def join_groups(sizes, item_bytes):
+    """Runs of consecutive chunks whose joined systems stay within
+    ``JOIN_BYTES``: ``sizes`` are the chunks' item counts and
+    ``item_bytes`` the bytes one item adds.  A chunk over the budget on
+    its own is a run of one.  Returns [(first, stop)] chunk index ranges
+    that cover every chunk in order."""
+    groups, first, used = [], 0, 0
+    for i, m in enumerate(sizes):
+        if i > first and used + m * item_bytes > JOIN_BYTES:
+            groups.append((first, i))
+            first, used = i, 0
+        used += m * item_bytes
+    if len(sizes):
+        groups.append((first, len(sizes)))
+    return groups
 
 
 def _regularised_solve(G, b):
@@ -273,26 +296,37 @@ def sweep_t0_modesets_factored_real(times, data, omegas, mus, t0s, Ts,
     with t0s sorted ascending, col_masks (S, J) bool.  The mode-set axis
     is a leading batch dimension (the JAX vmap).  Each chunk of start
     times builds its systems in its own basis (the JAX lax.map; the
-    chunks bound the basis anchor's span, see ``batched._safe_chunk``);
-    then ``solve``, the batched Hermitian solve (by default
-    ``_regularised_solve``), runs once on all S * B systems of the sweep,
-    and the mismatch and rephasing once over (S, B).  Returns C (S, B, J)
+    chunks bound the basis anchor's span, see ``batched._safe_chunk``).
+    Consecutive chunks are then joined while their G and G2 stay within
+    ``JOIN_BYTES`` (``join_groups``), and for each such group ``solve``,
+    the batched Hermitian solve (by default ``_regularised_solve``), runs
+    once on all its systems, and the mismatch and rephasing once; a
+    sweep under the budget makes one solve call.  Returns C (S, B, J)
     complex and mm (S, B).
     """
     solve = _regularised_solve if solve is None else solve
-    parts, trefs = [], []
-    for lo in range(0, t0s.shape[0], chunk):
-        t0c = t0s[lo:lo + chunk]
-        parts.append(_chunk_systems(times, data, omegas, mus, t0c,
-                                    Ts[lo:lo + chunk], col_masks, analytic))
-        trefs.append(t0c[:1].expand(t0c.shape[0]))
-    G, G2, rhs, rt = (torch.cat([p[i] for p in parts], dim=1)
-                      for i in range(4))
-    dnorm = torch.cat([p[4] for p in parts])
-    S, B, J = rhs.shape
-    C0 = solve(G.reshape(S * B, J, J), rhs.reshape(S * B, J))
-    return _mismatch_rephase(C0.reshape(S, B, J), G2, rt, dnorm, omegas,
-                             t0s, torch.cat(trefs))
+    S, J = omegas.shape
+    bounds = [(lo, min(lo + chunk, t0s.shape[0]))
+              for lo in range(0, t0s.shape[0], chunk)]
+    Cs, mms = [], []
+    for g0, g1 in join_groups([hi - lo for lo, hi in bounds],
+                              2 * S * J * J * 16):
+        parts, trefs = [], []
+        for lo, hi in bounds[g0:g1]:
+            parts.append(_chunk_systems(times, data, omegas, mus, t0s[lo:hi],
+                                        Ts[lo:hi], col_masks, analytic))
+            trefs.append(t0s[lo:lo + 1].expand(hi - lo))
+        G, G2, rhs, rt = (torch.cat([p[i] for p in parts], dim=1)
+                          for i in range(4))
+        dnorm = torch.cat([p[4] for p in parts])
+        B = rhs.shape[1]
+        C0 = solve(G.reshape(S * B, J, J), rhs.reshape(S * B, J))
+        lo, hi = bounds[g0][0], bounds[g1 - 1][1]
+        C, mm = _mismatch_rephase(C0.reshape(S, B, J), G2, rt, dnorm, omegas,
+                                  t0s[lo:hi], torch.cat(trefs))
+        Cs.append(C)
+        mms.append(mm)
+    return torch.cat(Cs, dim=1), torch.cat(mms, dim=1)
 
 
 def sweep_t0_factored_real(times, data, omega, mu, t0s, Ts, col_mask=None,

@@ -1,30 +1,341 @@
-"""Public fitting entry points (port of qnmfits_tpu/fitting.py; this slice
-ports ``mismatch_t0_mode_sets``)."""
+"""Public fitting entry points (port of the static-spectrum surface of
+qnmfits_tpu/fitting.py): the single fits, their dynamic forms, and the
+start-time, mode-set, (Mf, chif) and free-frequency sweeps.
+
+Every entry point takes ``device=`` ("cuda" by default, raising when
+there is none; "cpu" runs the plain PyTorch path).  The single fits solve
+by SVD least squares (``ops/solve.svd_lstsq``) so their result dicts carry
+'residual', 'rank' and 's' like np.linalg.lstsq; every sweep solves its
+batched normal equations with the CUDA kernel on the card.
+precision='x64' is the only precision: the JAX package's f32 path is a
+TPU workaround.
+"""
 
 from __future__ import annotations
 
-from .batched import batch_mismatch_t0_modesets
+import numpy as np
+import torch
 
-__all__ = ["mismatch_t0_mode_sets"]
+from . import CDTYPE, RDTYPE, resolve_device
+from . import batched, ref_impl
+from .engine import _window, cached_evaluator, check_spin
+from .ops.cmath import damped_phase
+from .ops.solve import svd_lstsq
+from .ref_impl import (  # noqa: F401  (re-exported reference primitives)
+    mask_times,
+    mismatch,
+    multimode_mismatch,
+    ringdown,
+)
+
+__all__ = [
+    "ringdown", "mismatch", "multimode_mismatch",
+    "ringdown_fit", "dynamic_ringdown_fit",
+    "multimode_ringdown_fit", "dynamic_multimode_ringdown_fit",
+    "mismatch_t0_array", "mismatch_t0_mode_sets",
+    "mismatch_M_chi_grid", "mismatch_omega_grid",
+]
+
+
+def _canon_modes(modes):
+    return tuple(tuple(int(x) for x in m) for m in modes)
+
+
+def _check_precision(precision):
+    if precision != "x64":
+        raise NotImplementedError(
+            f"precision={precision!r}: qnmfits_tpu_torch computes in "
+            "float64/complex128 only ('x64'); the JAX package's f32 path is "
+            "a TPU workaround")
+
+
+def _not_ported(what, item):
+    raise NotImplementedError(
+        f"{what} is not ported to qnmfits_tpu_torch yet (ROADMAP {item})")
+
+
+# ---------------------------------------------------------------------------
+# Single fits (fitting.py:57-244; reference qnmfits.py:142-911)
+# ---------------------------------------------------------------------------
+
+def _masked_to_np(arr, sel):
+    return np.asarray(arr)[..., sel]
+
+
+def _run_fit(times, data_rows, modes, Mf, chif, t0, t0_method, T,
+             spherical_modes, delta, precision, dynamic, device):
+    """Shared single-fit driver (fitting.py:97): the windowed design
+    matrix, its SVD least squares and the model, on ``device``.  Returns
+    the reference-style dict pieces as NumPy arrays."""
+    _check_precision(precision)
+    check_spin(chif)
+    dev = resolve_device(device)
+    modes = _canon_modes(modes)
+    sph = (tuple(tuple(lm) for lm in spherical_modes)
+           if spherical_modes is not None else None)
+    ev = cached_evaluator(modes, sph)
+    times_np = np.asarray(times, float)
+    t = torch.tensor(times_np, dtype=RDTYPE, device=dev)
+    data = torch.tensor(np.asarray(data_rows, complex), dtype=CDTYPE,
+                        device=dev)                          # (I, K)
+    w = _window(t, float(t0), float(T), t0_method)
+    dt = (t - float(t0)) * w                                 # window-clamped
+
+    if dynamic:
+        omega = ev.omega(np.asarray(chif, float), np.asarray(Mf, float)).T
+        mu = (np.ones((1,) + omega.shape, complex) if sph is None
+              else np.moveaxis(ev.mu(np.asarray(chif, float)), -1, 1))
+        phi = damped_phase(torch.tensor(omega, dtype=CDTYPE, device=dev),
+                           dt[:, None])                      # (K, J)
+        blocks = torch.tensor(mu, dtype=CDTYPE, device=dev) * phi[None]
+    else:
+        df = np.asarray(ref_impl._delta_factor(delta, len(modes)))
+        omega = ev.omega(chif, Mf, df)                       # (J,)
+        mu = (np.ones((1, omega.shape[0]), complex) if sph is None
+              else ev.mu(chif))                              # (I, J)
+        phi = damped_phase(torch.tensor(omega, dtype=CDTYPE, device=dev)
+                           [None, :], dt[:, None])
+        blocks = torch.tensor(mu, dtype=CDTYPE, device=dev)[:, None, :] \
+            * phi[None]                                      # (I, K, J)
+
+    I, K, J = blocks.shape
+    a = (blocks * w[None, :, None]).reshape(I * K, J)
+    d = (data * w[None, :]).reshape(I * K)
+    C, res, rank, sv = svd_lstsq(a, d)
+    model = (blocks.reshape(I * K, J) @ C).reshape(I, K)
+
+    sel = w.cpu().numpy().astype(bool)
+    return dict(C=C.cpu().numpy(), residual=res.cpu().numpy(),
+                rank=int(rank), s=sv.cpu().numpy(),
+                model=_masked_to_np(model.cpu().numpy(), sel),
+                data=_masked_to_np(np.asarray(data_rows), sel),
+                model_times=times_np[sel], omega=np.asarray(omega),
+                mu=np.asarray(mu), w=w.cpu().numpy())
+
+
+def _tracks(times, Mf, chif):
+    K = len(np.asarray(times))
+    Mf_t = np.full(K, Mf) if np.ndim(Mf) == 0 else np.asarray(Mf)
+    chif_t = np.full(K, chif) if np.ndim(chif) == 0 else np.asarray(chif)
+    return Mf_t, chif_t
+
+
+def ringdown_fit(times, data, modes, Mf, chif, t0, t0_method="geq", T=100,
+                 delta=0.0, precision="x64", device="cuda"):
+    """Least-squares ringdown fit to a single complex series
+    (reference qnmfits.py:142-315)."""
+    r = _run_fit(times, np.asarray(data)[None, :], modes, Mf, chif, t0,
+                 t0_method, T, None, delta, precision, False, device)
+    tm, model, dm = r["model_times"], r["model"][0], r["data"][0]
+    return {
+        "residual": r["residual"], "rank": r["rank"], "s": r["s"],
+        "mismatch": mismatch(tm, model, dm),
+        "C": r["C"], "data": dm, "model": model, "model_times": tm,
+        "t0": t0, "modes": modes,
+        "mode_labels": [str(tuple(m)) for m in modes],
+        "frequencies": r["omega"],
+    }
+
+
+def dynamic_ringdown_fit(times, data, modes, Mf, chif, t0, t0_method="geq",
+                         T=100, precision="x64", device="cuda"):
+    """Single-series fit with time-dependent (Mf(t), chif(t)) given per
+    sample (reference qnmfits.py:318-475)."""
+    Mf_t, chif_t = _tracks(times, Mf, chif)
+    r = _run_fit(times, np.asarray(data)[None, :], modes, Mf_t, chif_t, t0,
+                 t0_method, T, None, 0.0, precision, True, device)
+    tm, model, dm = r["model_times"], r["model"][0], r["data"][0]
+    sel = r["w"].astype(bool)
+    return {
+        "residual": r["residual"],
+        "mismatch": mismatch(tm, model, dm),
+        "C": r["C"], "data": dm, "model": model, "model_times": tm,
+        "t0": t0, "modes": modes,
+        "mode_labels": [str(tuple(m)) for m in modes],
+        "frequencies": r["omega"][sel].T,
+    }
+
+
+def _stack_rows(data_dict, spherical_modes):
+    if spherical_modes is None:
+        spherical_modes = list(data_dict.keys())
+    rows = np.stack([np.asarray(data_dict[lm]) for lm in spherical_modes])
+    return rows, spherical_modes
+
+
+def multimode_ringdown_fit(times, data_dict, modes, Mf, chif, t0,
+                           t0_method="geq", T=100, spherical_modes=None,
+                           precision="x64", device="cuda"):
+    """Joint fit across spherical-harmonic modes with mixing-weighted
+    shared amplitudes (reference qnmfits.py:478-673)."""
+    rows, spherical_modes = _stack_rows(data_dict, spherical_modes)
+    r = _run_fit(times, rows, modes, Mf, chif, t0, t0_method, T,
+                 spherical_modes, 0.0, precision, False, device)
+    tm = r["model_times"]
+    model_dict = {lm: r["model"][i] for i, lm in enumerate(spherical_modes)}
+    data_mask = {lm: r["data"][i] for i, lm in enumerate(spherical_modes)}
+    weighted_C = {lm: r["mu"][i] * r["C"]
+                  for i, lm in enumerate(spherical_modes)}
+    return {
+        "residual": r["residual"],
+        "mismatch": multimode_mismatch(tm, model_dict, data_mask),
+        "C": r["C"], "weighted_C": weighted_C,
+        "data": data_mask, "model": model_dict, "model_times": tm,
+        "t0": t0, "modes": modes,
+        "mode_labels": [str(tuple(m)) for m in modes],
+        "frequencies": r["omega"],
+    }
+
+
+def dynamic_multimode_ringdown_fit(times, data_dict, modes, Mf, chif, t0,
+                                   t0_method="geq", T=100,
+                                   spherical_modes=None, precision="x64",
+                                   device="cuda"):
+    """Multimode fit with a time-dependent spectrum
+    (reference qnmfits.py:676-911)."""
+    rows, spherical_modes = _stack_rows(data_dict, spherical_modes)
+    Mf_t, chif_t = _tracks(times, Mf, chif)
+    r = _run_fit(times, rows, modes, Mf_t, chif_t, t0, t0_method, T,
+                 spherical_modes, 0.0, precision, True, device)
+    tm = r["model_times"]
+    sel = r["w"].astype(bool)
+    model_dict = {lm: r["model"][i] for i, lm in enumerate(spherical_modes)}
+    data_mask = {lm: r["data"][i] for i, lm in enumerate(spherical_modes)}
+    mu_masked = r["mu"][:, sel, :]             # (I, Km, J)
+    weighted_C = {lm: mu_masked[i] * r["C"][None, :]
+                  for i, lm in enumerate(spherical_modes)}
+    freqs = r["omega"][sel]                    # (Km, J)
+    return {
+        "residual": r["residual"],
+        "mismatch": multimode_mismatch(tm, model_dict, data_mask),
+        "C": r["C"], "weighted_C": weighted_C,
+        "data": data_mask, "model": model_dict, "model_times": tm,
+        "t0": t0, "modes": modes,
+        "mode_labels": [str(tuple(m)) for m in modes],
+        "frequencies": np.vstack(len(spherical_modes) * [freqs]),
+    }
+
+
+# ---------------------------------------------------------------------------
+# Sweeps (fitting.py:247-423)
+# ---------------------------------------------------------------------------
+
+def mismatch_t0_array(times, data, modes, Mf, chif, t0_array,
+                      t0_method="geq", T_array=100, spherical_modes=None,
+                      delta=0.0, engine="batched", precision="x64",
+                      mesh=None, dedup=True, device="cuda"):
+    """Mismatch vs ringdown start time (reference qnmfits.py:1183-1301).
+
+    engine: 'batched' (default) -- all start times on the complex fit core,
+    any window method; 'fast' -- the factored kernel ('geq', t0_array
+    sorted ascending); 'loop' -- the reference-style serial NumPy loop
+    (``ref_impl``, on the host).  dedup=True solves each distinct window
+    once (exact for static spectra); 'loop' always runs per t0.
+    Time-dependent Mf/chif, engine='sharded' and ``mesh`` are not ported.
+    """
+    _check_precision(precision)
+    batched._static_only(Mf, chif, delta)
+    if engine == "loop":
+        return ref_impl.mismatch_t0_array(
+            times, data, modes, Mf, chif, t0_array, t0_method, T_array,
+            spherical_modes, delta)
+    if engine == "sharded" or mesh is not None:
+        _not_ported("engine='sharded' (a device mesh)", "A.10")
+    if engine == "fast":
+        if t0_method != "geq":
+            raise ValueError("engine='fast' supports t0_method='geq' only")
+        return batched.batch_mismatch_t0_fast(
+            times, data, modes, Mf, chif, t0_array, T_array=T_array,
+            spherical_modes=spherical_modes, delta=delta, dedup=dedup,
+            device=device)
+    if engine != "batched":
+        raise ValueError(f"unknown engine {engine!r}")
+    return batched.batch_mismatch_t0(
+        times, data, modes, Mf, chif, t0_array, t0_method=t0_method,
+        T_array=T_array, spherical_modes=spherical_modes, delta=delta,
+        dedup=dedup, device=device)
 
 
 def mismatch_t0_mode_sets(times, data, mode_sets, Mf, chif, t0_array,
                           T_array=100, *, t0_method="geq",
                           spherical_modes=None, return_amplitudes=False,
+                          mesh=None, dynamic=False, bucket=False,
                           dedup=True, device="cuda"):
     """Mismatch vs start time for many mode sets in one sweep
     (fitting.py:309): the reference's doubly nested loop over mode sets
     and start times (qnmfits.py:1183-1301 per set).
 
     mode_sets: list of mode lists (ragged lengths are padded with
-    exact-zero amplitude slots); t0_array sorted ascending; scalar Mf and
-    chif; t0_method='geq'.  dedup=True solves each distinct window once
-    (exact for static spectra).  Runs on ``device`` ("cuda" by default,
-    raising when there is none; "cpu" runs the plain PyTorch path).
-    Returns mm (S, B); with return_amplitudes=True also a list of
-    per-set complex (B, len(mode_set)) amplitude arrays.
+    exact-zero amplitude slots).  t0_method='geq' (default; t0_array
+    sorted ascending, the factored kernel) or 'closest' (the complex
+    window sweep).  chif and/or Mf may be 1-D arrays, a remnant axis R
+    folded into the set axis.  bucket=True runs one factored sweep per
+    padded width.  dedup=True solves each distinct window once (exact
+    for static spectra).  Runs on ``device``.  Returns mm (S, B), or
+    (S, R, B) with a remnant axis; with return_amplitudes=True also a
+    list of per-set complex (B, len(mode_set)) (or (R, B, len)) arrays.
+    ``mesh`` and dynamic=True are not ported.
     """
-    return batch_mismatch_t0_modesets(
+    if mesh is not None:
+        _not_ported("mesh= (the sharded mode-set sweep)", "A.10")
+    if dynamic:
+        _not_ported("dynamic=True (time-dependent Mf/chif tracks)", "A.5")
+    return batched.batch_mismatch_t0_modesets(
         times, data, mode_sets, Mf, chif, t0_array, T_array=T_array,
         spherical_modes=spherical_modes, return_amplitudes=return_amplitudes,
-        t0_method=t0_method, dedup=dedup, device=device)
+        t0_method=t0_method, bucket=bucket, dedup=dedup, device=device)
+
+
+_GRID_NOT_PORTED = {
+    "fast": "the split-complex grid kernels (ROADMAP A.4, B.3, B.4)",
+    "fast-full": "the split-complex grid kernels (ROADMAP A.4, B.3)",
+    "sharded": "a device mesh (ROADMAP A.10)",
+}
+
+
+def _grid_engine(engine, mesh):
+    if engine in _GRID_NOT_PORTED or mesh is not None:
+        raise NotImplementedError(
+            f"engine={engine!r}{' with mesh=' if mesh is not None else ''}"
+            f" is not ported to qnmfits_tpu_torch yet: "
+            f"{_GRID_NOT_PORTED.get(engine, _GRID_NOT_PORTED['sharded'])}")
+    if engine not in ("batched", "loop"):
+        raise ValueError(f"unknown engine {engine!r}")
+
+
+def mismatch_M_chi_grid(times, data, modes, Mf_minmax, chif_minmax, t0,
+                        t0_method="geq", T=100, res=50,
+                        spherical_modes=None, delta=0.0, engine="batched",
+                        precision="x64", mesh=None, device="cuda"):
+    """Mismatch over an (Mf, chif) grid (reference qnmfits.py:1304-1415),
+    row-major over Mf rows and chif columns.  engine: 'batched' (default;
+    one batched sweep through the CUDA solve) or 'loop' (the reference-
+    style NumPy loop)."""
+    _check_precision(precision)
+    _grid_engine(engine, mesh)
+    if engine == "loop":
+        return ref_impl.mismatch_M_chi_grid(
+            times, data, modes, Mf_minmax, chif_minmax, t0, t0_method, T,
+            res, spherical_modes, delta)
+    return batched.batch_mismatch_M_chi(
+        times, data, modes, Mf_minmax, chif_minmax, t0, t0_method=t0_method,
+        T=T, res=res, spherical_modes=spherical_modes, delta=delta,
+        device=device)
+
+
+def mismatch_omega_grid(times, data, modes, Mf, chif, re_minmax, im_minmax,
+                        t0, t0_method="geq", T=100, res=50,
+                        engine="batched", precision="x64", mesh=None,
+                        device="cuda"):
+    """Mismatch over a complex-frequency grid for one free mode on top of
+    fixed QNMs (reference qnmfits.py:1679-1827), transposed like the
+    reference.  engine: 'batched' (default) or 'loop'."""
+    _check_precision(precision)
+    _grid_engine(engine, mesh)
+    if engine == "loop":
+        return ref_impl.mismatch_omega_grid(
+            times, data, modes, Mf, chif, re_minmax, im_minmax, t0,
+            t0_method, T, res)
+    return batched.batch_mismatch_omega(
+        times, data, modes, Mf, chif, re_minmax, im_minmax, t0,
+        t0_method=t0_method, T=T, res=res, device=device)

@@ -21,9 +21,11 @@ def window_geq(times, t0, T):
 def window_closest(times, t0, T):
     """{0,1} weights for t0_method='closest': sample index closest to t0
     up to (exclusive) the index closest to t0 + T, first index winning
-    ties (reference qnmfits.py:240-243).  times (K,), t0/T scalars."""
-    k0 = torch.argmin((times - t0) ** 2)
-    k1 = torch.argmin((times - t0 - T) ** 2)
+    ties (reference qnmfits.py:240-243).  times (K,), t0/T scalars or
+    (..., 1).  The scores keep the association fl((fl(t - t0) - T)^2),
+    which the dedup keys of ``batched._window_dedup_closest`` reproduce."""
+    k0 = torch.argmin((times - t0) ** 2, dim=-1, keepdim=True)
+    k1 = torch.argmin((times - t0 - T) ** 2, dim=-1, keepdim=True)
     idx = torch.arange(times.shape[0], device=times.device)
     return ((idx >= k0) & (idx < k1)).to(times.dtype)
 

@@ -1,11 +1,12 @@
-"""NumPy oracle for multimode ringdown fits (port of the multimode part of
-qnmfits_tpu/ref_impl.py).
+"""NumPy oracle for static-spectrum ringdown fits and their serial sweeps
+(port of the static part of qnmfits_tpu/ref_impl.py).
 
 Masked design matrices a[k, j] = exp(-i w_j (t_k - t0)), LAPACK SVD least
 squares (np.linalg.lstsq, rcond=None) and trapezoid mismatches, as the
 reference fitting engine computes them (qnmfits.py:478-673).  Frequencies
 and mixing coefficients come from ``engine.SpectrumEvaluator``.  It shares
-no code with the sweep it checks beyond the spectrum.
+no code with the sweeps it checks beyond the spectrum.  The serial loops
+are the ``engine='loop'`` paths of the public sweeps.
 """
 
 from __future__ import annotations
@@ -14,11 +15,35 @@ import numpy as np
 
 from .engine import SpectrumEvaluator
 
-__all__ = ["multimode_ringdown_fit", "multimode_mismatch"]
+__all__ = ["ringdown", "mismatch", "multimode_mismatch", "ringdown_fit",
+           "multimode_ringdown_fit", "mismatch_t0_array",
+           "mismatch_M_chi_grid", "mismatch_omega_grid"]
+
+
+def ringdown(time, start_time, complex_amplitudes, frequencies):
+    """Damped-sinusoid sum, zero before start_time
+    (reference qnmfits.py:15-70)."""
+    time = np.asarray(time)
+    h = np.zeros(len(time), dtype=complex)
+    sel = time >= start_time
+    ts = time[sel] - start_time
+    amps = np.asarray(complex_amplitudes, dtype=complex)
+    freqs = np.asarray(frequencies, dtype=complex)
+    h[sel] = (amps[:, None] * np.exp(-1j * freqs[:, None] * ts[None, :])).sum(0)
+    return h
 
 
 def _trapz(y, x):
     return np.trapezoid(y, x=x)
+
+
+def mismatch(times, wf_1, wf_2):
+    """1 - Re<w1,w2>/sqrt(<w1,w1><w2,w2>), trapezoid inner products
+    (reference qnmfits.py:73-97)."""
+    num = np.real(_trapz(wf_1 * np.conj(wf_2), times))
+    den = np.sqrt(_trapz(np.real(wf_1 * np.conj(wf_1)), times)
+                  * _trapz(np.real(wf_2 * np.conj(wf_2)), times))
+    return 1 - num / den
 
 
 def multimode_mismatch(times, wf_dict_1, wf_dict_2):
@@ -59,6 +84,40 @@ def _lstsq(a, d):
     return C, res, rank, sv
 
 
+def _delta_factor(delta, n_modes):
+    """Frequency perturbation factor 1 + delta
+    (reference qnmfits.py:253-274)."""
+    if isinstance(delta, (list, np.ndarray)):
+        delta = np.asarray(delta, dtype=float)
+        if len(delta) != n_modes:
+            raise ValueError("delta array must have length len(modes)")
+        return delta + 1.0
+    return float(delta) + 1.0
+
+
+def ringdown_fit(times, data, modes, Mf, chif, t0, t0_method="geq", T=100,
+                 delta=0.0):
+    """Single-series least-squares ringdown fit
+    (reference qnmfits.py:142-315)."""
+    idx = mask_times(times, t0, T, t0_method)
+    tm, dm = np.asarray(times)[idx], np.asarray(data)[idx]
+
+    factor = _delta_factor(delta, len(modes))
+    frequencies = factor * SpectrumEvaluator(modes).omega(chif, Mf)
+
+    a = _design_matrix(tm, t0, frequencies)
+    C, res, rank, sv = _lstsq(a, dm)
+    model = a @ C
+    return {
+        "residual": res, "rank": rank, "s": sv,
+        "mismatch": mismatch(tm, model, dm),
+        "C": C, "data": dm, "model": model, "model_times": tm,
+        "t0": t0, "modes": modes,
+        "mode_labels": [str(m) for m in modes],
+        "frequencies": frequencies,
+    }
+
+
 def multimode_ringdown_fit(times, data_dict, modes, Mf, chif, t0,
                            t0_method="geq", T=100, spherical_modes=None):
     """Joint fit across spherical-harmonic modes with shared amplitudes
@@ -89,3 +148,67 @@ def multimode_ringdown_fit(times, data_dict, modes, Mf, chif, t0,
         "C": C, "data": masked, "model": model_dict, "model_times": tm,
         "t0": t0, "modes": modes, "frequencies": frequencies,
     }
+
+
+def _fit(times, data, modes, Mf, chif, t0, t0_method, T, spherical_modes,
+         delta):
+    """The fit of a static-spectrum sweep's loop: multimode for dict data,
+    single-series otherwise (reference qnmfits.py:1268-1299)."""
+    if np.ndim(Mf) or np.ndim(chif):
+        raise NotImplementedError(
+            "time-dependent Mf/chif (dynamic spectra) are not ported to "
+            "qnmfits_tpu_torch yet (ROADMAP A.5)")
+    if isinstance(data, dict):
+        return multimode_ringdown_fit(times, data, modes, Mf, chif, t0,
+                                      t0_method, T, spherical_modes)
+    return ringdown_fit(times, data, modes, Mf, chif, t0, t0_method, T,
+                        delta)
+
+
+def mismatch_t0_array(times, data, modes, Mf, chif, t0_array,
+                      t0_method="geq", T_array=100, spherical_modes=None,
+                      delta=0.0):
+    """Mismatch vs ringdown start time (reference qnmfits.py:1183-1301)."""
+    t0_array = np.asarray(t0_array)
+    if np.ndim(T_array) == 0:
+        T_array = np.full(len(t0_array), T_array)
+    return [_fit(times, data, modes, Mf, chif, t0, t0_method, T,
+                 spherical_modes, delta)["mismatch"]
+            for t0, T in zip(t0_array, T_array)]
+
+
+def mismatch_M_chi_grid(times, data, modes, Mf_minmax, chif_minmax, t0,
+                        t0_method="geq", T=100, res=50,
+                        spherical_modes=None, delta=0.0):
+    """Mismatch over an (Mf, chif) grid (reference qnmfits.py:1304-1415),
+    row-major over Mf (rows) x chif (columns) (qnmfits.py:1413)."""
+    Mf_array = np.linspace(*Mf_minmax, res)
+    chif_array = np.linspace(*chif_minmax, res)
+    mm = np.empty(res * res)
+    for i in range(res * res):
+        mm[i] = _fit(times, data, modes, Mf_array[i // res],
+                     chif_array[i % res], t0, t0_method, T, spherical_modes,
+                     delta)["mismatch"]
+    return mm.reshape(res, res)
+
+
+def mismatch_omega_grid(times, data, modes, Mf, chif, re_minmax, im_minmax,
+                        t0, t0_method="geq", T=100, res=50):
+    """Mismatch over a complex-frequency grid for one extra free mode
+    (reference qnmfits.py:1679-1827), transposed like the reference
+    (qnmfits.py:1825).  The window is masked once: the reference re-masks
+    inside its loop, which shrinks 'closest' windows each iteration
+    (PARITY.md "Known deltas"); for 'geq' the two agree."""
+    idx = mask_times(times, t0, T, t0_method)
+    tm, dm = np.asarray(times)[idx], np.asarray(data)[idx]
+    fixed = (SpectrumEvaluator(modes).omega(chif, Mf) if len(modes)
+             else np.zeros(0, complex))
+    re_array = np.linspace(*re_minmax, res)
+    im_array = np.linspace(*im_minmax, res)
+    mm = np.empty(res * res)
+    for i in range(res * res):
+        w_free = re_array[i // res] + 1j * im_array[i % res]
+        a = _design_matrix(tm, t0, np.concatenate([fixed, [w_free]]))
+        C, *_ = _lstsq(a, dm)
+        mm[i] = mismatch(tm, a @ C, dm)
+    return mm.reshape(res, res).T

@@ -1,4 +1,4 @@
-"""The port's CUDA kernel on the card (marked ``cuda``; they skip where
+"""The port's CUDA kernels on the card (marked ``cuda``; they skip where
 torch.cuda.is_available() is false).  This file imports no JAX, so on a
 machine without it run it alone:
 
@@ -29,17 +29,19 @@ def _rel(x, ref):
 
 # B = 1, 15 and 17 leave partial slabs and partial teams at every n; 1000
 # spans several slabs; 131072 is the bench sweep's batch without dedup,
-# more slabs than the persistent grid has blocks.
-@pytest.mark.parametrize("n,B", [(n, B) for n in range(2, 17)
+# more slabs than the persistent grid has blocks.  n = 1..16 run the team
+# kernel, n = 17..64 the warp kernel.
+@pytest.mark.parametrize("n,B", [(n, B) for n in range(1, 65)
                                  for B in (1, 15, 17, 1000)]
-                         + [(8, 131072)])
+                         + [(8, 131072), (40, 131072)])
 def test_kernel_matches_plain(cuda, n, B):
     G, b = random_hermitian_systems(B, n, seed=n + B, n_pad=n // 4)
     G = torch.as_tensor(G, dtype=torch.complex128, device=cuda)
     b = torch.as_tensor(b, dtype=torch.complex128, device=cuda)
-    before = chol_cuda.launches
+    before, wide = chol_cuda.launches, chol_cuda.wide_launches
     x = chol_cuda.regularised_solve(G, b)
     assert chol_cuda.launches == before + 1
+    assert chol_cuda.wide_launches == wide + (n > 16)
     ref = engine_real._regularised_solve_plain(G, b)
     torch.cuda.synchronize()
     assert _rel(x, ref) <= 1e-12
@@ -47,7 +49,7 @@ def test_kernel_matches_plain(cuda, n, B):
 
 def test_kernel_does_not_spill(cuda):
     report = chol_cuda.ptxas_report()
-    assert sorted(report) == list(range(2, 17))
+    assert set(report) == {f"team<{n}>" for n in range(1, 17)} | {"wide"}
     for n, r in report.items():
         assert r["spill_stores"] == 0 and r["spill_loads"] == 0, (n, r)
 
@@ -73,10 +75,12 @@ def test_kernel_rejects_misaligned_input(cuda):
 
 
 def test_kernel_rejects_bad_input(cuda):
-    G = torch.eye(17, dtype=torch.complex128, device=cuda)[None]
-    b = torch.zeros((1, 17), dtype=torch.complex128, device=cuda)
-    with pytest.raises(ValueError, match="n=17"):
+    G = torch.eye(65, dtype=torch.complex128, device=cuda)[None]
+    b = torch.zeros((1, 65), dtype=torch.complex128, device=cuda)
+    before = chol_cuda.launches
+    with pytest.raises(ValueError, match="n=65"):
         chol_cuda.regularised_solve(G, b)
+    assert chol_cuda.launches == before
     with pytest.raises(TypeError, match="complex128"):
         chol_cuda.regularised_solve(G[:, :4, :4].to(torch.complex64),
                                     b[:, :4].to(torch.complex64))
@@ -94,3 +98,31 @@ def test_sweep_through_kernel_matches_plain(cuda):
             problem, "cuda", dedup=dedup,
             solve=engine_real._regularised_solve_plain)
         assert np.max(np.abs(mm - mm_plain)[:, keep]) <= 1e-11
+
+
+def test_paths_through_kernel_match_plain(cuda):
+    """Every path of the static-spectrum surface at a small size
+    (chip_smoke.py's phase 6): its launches, the kernel route against the
+    plain-solve route, and the NumPy oracle."""
+    import chip_smoke
+    problem = chip_smoke.build_problem(**chip_smoke.SMALL)
+    paths = chip_smoke.run_paths(problem, "cuda")
+    assert {p["key"] for p in paths} >= {"closest", "remnant", "bucket",
+                                         "n1", "n17", "n40"}
+    assert sum(p["wide_launches"] for p in paths) == 2
+
+
+def test_closest_dedup_keys_on_device(cuda):
+    """The 'closest' dedup keys of adversarial start times (exact sample
+    midpoints, their ulp neighbours) group them as the device's own
+    window argmins do."""
+    import chip_smoke
+    times = np.arange(-5.0, 30.05, 0.1)
+    dt = times[1] - times[0]
+    mids = 0.5 * (times[40:200:3] + times[41:201:3])
+    rng = np.random.default_rng(7)
+    t0s = np.sort(np.concatenate([
+        mids, np.nextafter(mids, np.inf), np.nextafter(mids, -np.inf),
+        times[40] + dt * rng.uniform(0.49, 0.51, 100)]))
+    for T in (20.0, 20.05):
+        chip_smoke.check_closest_keys(dict(times=times, t0s=t0s, T=T), cuda)

@@ -24,13 +24,15 @@ sys.path.insert(0, {repo!r})
 import qnmfits_tpu_torch
 from qnmfits_tpu_torch import (batched, engine, engine_real, fitting,
                                ref_impl, testing)
-from qnmfits_tpu_torch.ops import chol, chol_cuda, windows
+from qnmfits_tpu_torch.ops import chol, chol_cuda, cmath, solve, windows
 from qnmfits_tpu_torch.spectrum import tables
 import chip_smoke
 
 problem = chip_smoke.build_problem(**chip_smoke.SMALL)
 out = chip_smoke.run_main_path(problem, "cpu")
 assert out["mm"].shape == (4, 64) and out["launches"] == 0
+paths = chip_smoke.run_paths(problem, "cpu")
+assert len(paths) == 12 and all(p["launches"] == 0 for p in paths)
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "qnmfits_tpu")
                 and sys.modules[m] is not None)
@@ -59,22 +61,38 @@ def test_port_and_smoke_run_without_jax():
                        cwd=REPO, env=env)
     assert r.returncode == 0, r.stdout[-3000:] + r.stderr[-3000:]
     assert "HERMETIC-OK" in r.stdout
-    assert "oracle" in r.stdout            # the phase ran its checks
+    assert "oracle" in r.stdout            # the phases ran their checks
+    assert "40-mode set" in r.stdout
     new = _listing() - before
     assert not new, f"files written into the repository: {sorted(new)}"
 
 
 def test_entry_point_without_cuda_raises(monkeypatch):
     import numpy as np
-    from qnmfits_tpu_torch import mismatch_t0_mode_sets, resolve_device
+    import qnmfits_tpu_torch as tq
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
-        resolve_device()
-    with pytest.raises(RuntimeError, match="device='cpu'"):
-        mismatch_t0_mode_sets(np.arange(0.0, 10.0, 0.1),
-                              np.zeros(100, complex), [[(2, 2, 0, 1)]],
-                              0.952, 0.692, np.array([0.0, 1.0]))
-    assert resolve_device("cpu").type == "cpu"
+        tq.resolve_device()
+    times, h = np.arange(0.0, 10.0, 0.1), np.zeros(100, complex)
+    modes, t0s = [(2, 2, 0, 1)], np.array([0.0, 1.0])
+    calls = [
+        lambda: tq.mismatch_t0_mode_sets(times, h, [modes], 0.952, 0.692,
+                                         t0s),
+        lambda: tq.ringdown_fit(times, h, modes, 0.952, 0.692, 0.0),
+        lambda: tq.multimode_ringdown_fit(times, {(2, 2): h}, modes, 0.952,
+                                          0.692, 0.0),
+        lambda: tq.mismatch_t0_array(times, h, modes, 0.952, 0.692, t0s),
+        lambda: tq.mismatch_t0_array(times, h, modes, 0.952, 0.692, t0s,
+                                     engine="fast"),
+        lambda: tq.mismatch_M_chi_grid(times, h, modes, (0.9, 1.0),
+                                       (0.6, 0.7), 0.0, res=2),
+        lambda: tq.mismatch_omega_grid(times, h, modes, 0.952, 0.692,
+                                       (0.4, 0.5), (-0.2, -0.1), 0.0, res=2),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    assert tq.resolve_device("cpu").type == "cpu"
 
 
 def test_chip_smoke_without_cuda_fails_and_prints_no_result():

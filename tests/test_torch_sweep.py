@@ -175,18 +175,28 @@ def test_windows_match_jax(problem):
 
 
 def test_unsorted_and_unported_raise(problem):
+    """Unsorted 'geq' start times, bad spins and bad arguments raise, and
+    so do the parts of the JAX signature the port does not have yet (a
+    device mesh, dynamic spectra)."""
     times, data, _ = problem
     kw = dict(spherical_modes=SPH, device="cpu")
+    args = (times, data, MODE_SETS, 0.952)
+    t0s = np.array([0.0, 5.0])
     with pytest.raises(ValueError, match="sorted"):
-        mismatch_t0_mode_sets(times, data, MODE_SETS, 0.952, 0.692,
-                              np.array([5.0, 0.0]), **kw)
-    with pytest.raises(NotImplementedError, match="closest"):
-        mismatch_t0_mode_sets(times, data, MODE_SETS, 0.952, 0.692,
-                              np.array([0.0, 5.0]), t0_method="closest", **kw)
-    with pytest.raises(NotImplementedError, match="remnant"):
-        mismatch_t0_mode_sets(times, data, MODE_SETS, 0.952,
-                              np.array([0.6, 0.7]), np.array([0.0, 5.0]),
-                              **kw)
+        mismatch_t0_mode_sets(*args, 0.692, np.array([5.0, 0.0]), **kw)
     with pytest.raises(ValueError, match="chif"):
-        mismatch_t0_mode_sets(times, data, MODE_SETS, 0.952, 1.2,
-                              np.array([0.0, 5.0]), **kw)
+        mismatch_t0_mode_sets(*args, 1.2, t0s, **kw)
+    with pytest.raises(ValueError, match="chif"):
+        mismatch_t0_mode_sets(*args, np.array([0.5, 1.2]), t0s, **kw)
+    with pytest.raises(ValueError, match="1-D"):
+        mismatch_t0_mode_sets(*args, np.full((2, 2), 0.692), t0s, **kw)
+    with pytest.raises(ValueError, match="bucket"):
+        mismatch_t0_mode_sets(*args, 0.692, t0s, t0_method="closest",
+                              bucket=True, **kw)
+    with pytest.raises(ValueError, match="t0_method"):
+        mismatch_t0_mode_sets(*args, 0.692, t0s, t0_method="GEQ", **kw)
+    with pytest.raises(NotImplementedError, match="A.10"):
+        mismatch_t0_mode_sets(*args, 0.692, t0s, mesh="auto", **kw)
+    with pytest.raises(NotImplementedError, match="A.5"):
+        mismatch_t0_mode_sets(*args, np.full(len(times), 0.692), t0s,
+                              dynamic=True, **kw)
