@@ -7,13 +7,18 @@ Needs one CUDA device and nvcc; exits non-zero without them.  Phases, one
 flushed line each with elapsed seconds:
 
 1. the card's name and power limit (nvidia-smi);
-2. the build of the solve kernel (csrc/chol_solve.cu, sm_90a) from this
+2. the build of the solve kernels (csrc/chol_solve.cu, sm_90a) from this
    checkout into build/qnmfits_tpu_torch/, and ptxas's registers and
-   spills for each system size (no spill allowed);
-3. the kernel against its plain PyTorch version on the card, for every
-   system size n = 2..16 on random batches with dead columns and padding,
-   at B = 8208 and at batches that leave partial slabs (B = 1, 15, 17,
-   1000), and at B = 131072 for n = 8;
+   spills for each instantiation (no spill allowed);
+3. the kernels against their plain PyTorch version on the card, on
+   random batches with dead columns and padding: the team kernel at every
+   n = 1..16, at B = 8208 and at batches that leave partial slabs (B = 1,
+   15, 17, 1000), and at B = 131072 for n = 8; the wide kernel at n =
+   17..200 on each side of its thresholds (threads a block, stages, shared
+   memory or the global workspace) at B = 1, 15, 17, 1000; then the wide
+   kernel timed at B = 8208 for n = 17, 40 and 64 beside its bound, its
+   plain version and torch.linalg, and at B = 1000 for n = 200 (the
+   global workspace) beside its bound and torch.linalg;
 4. the main path at the bench's full width (bench.py: K=2001 samples,
    spherical modes (2,2) and (3,2), the 16 mode sets padded to J=8,
    8192 start times on [-5, 46.2], T=100, seed 11) through the public
@@ -32,12 +37,12 @@ flushed line each with elapsed seconds:
    bucket=True; mismatch_t0_array 'fast' and 'batched' on the deepest
    set; ringdown_fit and multimode_ringdown_fit at t0 = 0, 10, 20 (SVD,
    no hand kernel); the (Mf, chif) and free-frequency grids at res = 50;
-   sweeps of one-mode, 17-mode and 40-mode sets (the team kernel's n = 1,
-   the warp kernel's 17 and 40).  Each is held against the same call
-   through the plain solve and against the NumPy oracle, and reports its
-   launches, the kernels' device time on its own systems and its wall
-   time; then the warp kernel on the 17- and 40-mode systems beside its
-   bound, its plain version and torch.linalg;
+   sweeps of one-mode, 17-mode, 40-mode and 96-mode sets (the team
+   kernel's n = 1, the wide kernel's 17, 40 and 96).  Each is held against
+   the same call through the plain solve and against the NumPy oracle, and
+   reports its launches and its wall time; then the wide kernel on the
+   17-, 40- and 96-mode paths' own systems beside its bound, its plain
+   version and torch.linalg;
 7. a JSON line of the paths, a JSON line describing each kernel, and
    last the JSON ok line.
 
@@ -76,10 +81,11 @@ KERNEL_RTOL = 1e-12   # kernel vs plain solve, per-system relative
 # 500 J eps floor reads ~floor / ||A|| ~ 9e-13, so this bound sees it.
 KERNEL_BWD_TOL = 1e-14
 
-# H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, FP64 outside the
-# tensor cores.  They assume the full 700 W power limit.
+# H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth and FP64 (67 TFLOP/s
+# on the tensor cores; 34 outside them, where this kernel runs: the card's
+# peak gives the least time).  They assume the full 700 W power limit.
 HBM_BYTES_PER_S = 3.35e12
-FP64_FLOP_PER_S = 34e12
+FP64_FLOP_PER_S = 67e12
 
 
 def log(msg):
@@ -170,7 +176,7 @@ def run_main_path(problem, device):
         mm = sweep(problem, device, dedup)
         n_launch = chol_cuda.launches
         if chol_cuda.wide_launches:
-            raise RuntimeError("the main path launched the warp kernel")
+            raise RuntimeError("the main path launched the wide kernel")
         if mm.shape != (S, B) or not np.all(np.isfinite(mm)):
             raise RuntimeError(f"main path (dedup={dedup}) gave shape "
                                f"{mm.shape} or non-finite mismatches")
@@ -254,31 +260,58 @@ def rel_err(x, ref):
 # Timings for which torch.profiler recorded no device time, even after a
 # retry, and CUDA events stood in (reported in the kernels' JSON).
 EVENT_TIMINGS = []
+# Kernel records torch.profiler dropped, per profile that dropped any.
+DROPPED = []
 
 
 def device_ms(fn, reps=20):
     """Device time of one fn() call: the durations of the kernels it
     launches, summed, from torch.profiler (CUPTI) over reps calls.  The
-    host's launch cost and the gaps between kernels are left out.  Where
-    the profiler records no device time twice running (seen once on an
-    H100 with torch 2.11), CUDA events around the reps calls stand in;
-    they include the gaps between a call's kernels."""
+    host's launch cost and the gaps between kernels are left out.
+
+    On an H100 with torch 2.11 a profile drops one to three kernel
+    records, whatever reps is (2 of 20, 2 of 5, 2 of 40), so the sum of
+    the records over reps reads low, by 40% at 5 reps.  Each kernel is
+    therefore counted as its mean duration over its records times its
+    launches a call: its records over reps, rounded up, which is exact
+    while reps exceeds the records dropped.  For the CUDA solve that
+    count must equal what its wrapper counted (chol_cuda.launches).  A
+    profile with no device time is taken again; twice running (seen once),
+    CUDA events around the reps calls stand in: they include the gaps
+    between a call's kernels."""
+    import math
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    from qnmfits_tpu_torch.ops import chol_cuda
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
     for _ in range(2):
+        made = chol_cuda.launches
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        us = sum(e.self_device_time_total for e in prof.key_averages()
-                 if e.device_type == DeviceType.CUDA)
-        if us > 0:
-            return us / 1e3 / reps
+        made = chol_cuda.launches - made
+        us, solve, dropped = 0.0, 0, 0
+        for e in prof.key_averages():
+            if e.device_type != DeviceType.CUDA or e.count == 0:
+                continue
+            per_call = math.ceil(e.count / reps)
+            us += e.self_device_time_total / e.count * per_call
+            dropped += per_call * reps - e.count
+            if "regularised_solve" in e.key:
+                solve += per_call * reps
+        if us == 0:
+            continue
+        if dropped:
+            DROPPED.append(dropped)
+        if made and solve != made:
+            raise RuntimeError(f"torch.profiler counted {solve} solve "
+                               f"launches, the wrapper {made}")
+        return us / 1e3
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     start.record()
     for _ in range(reps):
@@ -306,19 +339,29 @@ def backward_err(G, b, x):
 
 # Phase 3's batches: the main path's 8208 (513 windows x 16 sets), and
 # batches that leave partial slabs and teams, at every n of the team
-# kernel; the last four at the warp kernel's sizes around its 32-row lane
-# wrap and its ends (tests/test_torch_cuda.py covers every n); 131072
-# (8192 start times x 16 sets, the sweep without dedup) at the bench's
-# n = 8.
+# kernel; the last four at the wide kernel's sizes, each side of its
+# thresholds (threads a block 32/33 and 96/97, two stages or one 118/119,
+# shared memory or the global workspace 167/168) and the sweeps' 17, 40
+# and 96 (tests/test_torch_cuda.py covers every n to 64); 131072 (8192
+# start times x 16 sets, the sweep without dedup) at the bench's n = 8.
 CHECK_BATCHES = (8208, 1, 15, 17, 1000)
-CHECK_WIDE_N = (17, 31, 32, 33, 40, 64)
+CHECK_WIDE_N = (17, 31, 32, 33, 40, 64, 65, 96, 97, 118, 119, 128, 167,
+                168, 200)
 CHECK_LARGE = (131072, 8)
+# The wide kernel timed on random systems, (B, n): where many systems share
+# each SM, 8208 (513 windows x 16 sets) at n = 17, 40 and 64; and in the
+# global workspace.  Above n = 96 the plain version is not timed: its
+# column loop issues ~n^2 operations a call, which the profiler takes
+# minutes to record.
+TIME_WIDE = ((8208, 17), (8208, 40), (8208, 64), (1000, 200))
+TIME_PLAIN_MAX_N = 96
 
 
 def check_build():
     """Phase 2: ptxas's registers and spills per kernel (the team kernel
-    per system size, and the warp kernel).  Returns (registers by
-    kernel, the largest spill in bytes); raises on a spill."""
+    per system size, the wide kernel per block size and arena).  Returns
+    (registers by kernel, the largest spill in bytes); raises on a
+    spill."""
     from qnmfits_tpu_torch.ops import chol_cuda
     report = chol_cuda.ptxas_report()
     spill = max(max(r["spill_stores"], r["spill_loads"])
@@ -364,11 +407,39 @@ def check_kernel_sizes(device):
     return max_abs
 
 
-def time_solves(G, b):
-    """Device times (ms) of the kernel, its plain version and
-    torch.linalg.cholesky_ex + cholesky_solve (on the equilibrated system
-    only) on one batch, and the kernel's backward error beside the plain
-    solve's, and its relative difference from it."""
+def time_wide(gpu):
+    """Phase 3, last: the wide kernel on random systems at each (B, n) of
+    TIME_WIDE, beside its bound, its plain version and torch.linalg,
+    with its backward error gated.  Returns {n: record}."""
+    import torch
+    from qnmfits_tpu_torch.testing import random_hermitian_systems
+    out = {}
+    for B, n in TIME_WIDE:
+        G, b = random_hermitian_systems(B, n, seed=n, n_pad=n // 4)
+        G = torch.as_tensor(G, dtype=torch.complex128, device="cuda")
+        b = torch.as_tensor(b, dtype=torch.complex128, device="cuda")
+        r = out[n] = time_solves(G, b, plain=n <= TIME_PLAIN_MAX_N)
+        r["bound_ms"], r["bound_by"] = bound_ms(r["batch"], n)
+        r["bound_share"] = r["bound_ms"] / r["ms"]
+        plain = ("not timed" if r["plain_ms"] is None
+                 else f"{r['plain_ms']:.4f} ms")
+        log(f"wide kernel on {gpu}, B={r['batch']} random systems, n={n}: "
+            f"{r['ms']:.4f} ms, bound {r['bound_ms']:.3e} ms "
+            f"({r['bound_by']}), share {r['bound_share']:.3f}; plain "
+            f"{plain}; torch.linalg {r['library_ms']:.4f} ms; "
+            f"backward error {r['backward_err']:.3e}")
+        if not r["backward_err"] <= KERNEL_BWD_TOL:
+            raise RuntimeError(f"wide kernel solution (n={n}, "
+                               f"B={B}) fails the backward-error "
+                               "check")
+    return out
+
+
+def time_solves(G, b, plain=True):
+    """Device times (ms) of the kernel, its plain version (None unless
+    ``plain``) and torch.linalg.cholesky_ex + cholesky_solve (on the
+    equilibrated system only) on one batch, and the kernel's backward
+    error beside the plain solve's, and its relative difference from it."""
     import torch
     from qnmfits_tpu_torch import engine_real
     from qnmfits_tpu_torch.ops import chol_cuda
@@ -381,7 +452,8 @@ def time_solves(G, b):
         backward_err_plain=backward_err(G, b, ref), rel_diff=rel_err(x, ref),
         ms=device_ms(lambda: chol_cuda.regularised_solve(G, b)),
         plain_ms=device_ms(
-            lambda: engine_real._regularised_solve_plain(G, b), reps=5),
+            lambda: engine_real._regularised_solve_plain(G, b), reps=10)
+        if plain else None,
         library_ms=device_ms(lambda: torch.cholesky_solve(
             bs[..., None], torch.linalg.cholesky_ex(A)[0])))
 
@@ -469,19 +541,24 @@ def _m2(l, count, sign=1):
 
 
 # Sets of the sizes the bench never makes: one mode each (the team
-# kernel's n = 1), and 17 and 40 m = 2 modes, prograde and mirror
-# overtones of l = 2..6 (the warp kernel).
+# kernel's n = 1), and 17, 40 and 96 m = 2 modes, prograde and mirror
+# overtones (the wide kernel); SET_96 is every one with n < 8 of
+# l = 2..7.  Before the ringdown (t0 < 0) the kernel and the plain solve,
+# both backward stable, differ by more than PRE_TOL in mismatch at 40 and
+# 96 modes (PERF.md, section 6), so there the kernel's backward error is
+# gated instead.
 ONE_MODE_SETS = [[(2, 2, 0, 1)], [(2, 2, 1, 1)], [(2, 2, 0, -1)],
                  [(3, 2, 0, 1)]]
 SET_17 = _m2(2, 5) + _m2(2, 4, -1) + _m2(3, 4) + _m2(3, 2, -1) + _m2(4, 2)
 SET_40 = (_m2(2, 8) + _m2(2, 6, -1) + _m2(3, 6) + _m2(3, 4, -1) + _m2(4, 5)
           + _m2(4, 3, -1) + _m2(5, 4) + _m2(5, 2, -1) + _m2(6, 2))
+SET_96 = [m for l in range(2, 8) for m in _m2(l, 8) + _m2(l, 8, -1)]
 
 
 def drive(fn):
     """fn() with the kernels' launch counts set to 0 just before it and
     read just after.  Returns (result, launches of both kernels, launches
-    of the warp kernel, wall seconds); results are NumPy arrays, so the
+    of the wide kernel, wall seconds); results are NumPy arrays, so the
     device has finished."""
     from qnmfits_tpu_torch.ops import chol_cuda
     chol_cuda.launches = chol_cuda.wide_launches = 0
@@ -526,7 +603,7 @@ def path_specs(problem, device):
     the plain route (None: the kernel's backward error is gated
     instead); ``oracle``, mm -> max |d| against the
     NumPy oracle (t0 >= 0, t0 < 0); ``expect``, the launches (both
-    kernels, warp kernel) the call must make on the card."""
+    kernels, wide kernel) the call must make on the card."""
     from qnmfits_tpu_torch import batched, fitting, ref_impl
     from qnmfits_tpu_torch.testing import bench_mode_sets
     times, data, t0s, T = (problem[k] for k in ("times", "data", "t0s", "T"))
@@ -664,11 +741,8 @@ def path_specs(problem, device):
 
     modesets("n1", "one-mode sets (n = 1)", ONE_MODE_SETS, (1, 0))
     modesets("n17", "17-mode set (n = 17)", [SET_17] + sets[:2], (1, 1))
-    # Forty modes: before the ringdown (t0 < 0) the kernel and the plain
-    # solve, both backward stable, differ by more than PRE_TOL in mismatch
-    # (PERF.md, section 6), so there the kernel's backward error is gated
-    # instead.
     modesets("n40", "40-mode set (n = 40)", [SET_40], (1, 1), pre_tol=None)
+    modesets("n96", "96-mode set (n = 96)", [SET_96], (1, 1), pre_tol=None)
     return specs
 
 
@@ -688,10 +762,10 @@ def run_paths(problem, device):
             raise RuntimeError(f"{name}: non-finite mismatches")
         if device != "cpu" and (n, n_wide) != spec["expect"]:
             raise RuntimeError(f"{name}: {n} kernel launches ({n_wide} of "
-                               f"the warp kernel), expected {spec['expect']}")
+                               f"the wide kernel), expected {spec['expect']}")
         rec = dict(key=spec["key"], name=name, launches=n,
                    wide_launches=n_wide, wall_s=wall)
-        msg = f"{name}: mm {mm.shape}, launches {n} (warp {n_wide})"
+        msg = f"{name}: mm {mm.shape}, launches {n} (wide {n_wide})"
         if spec["plain"] is not None:
             plain = PlainSolve()
             mm_p = np.asarray(spec["plain"](plain))
@@ -754,31 +828,21 @@ def check_closest_keys(problem, device):
         "every group's (k0, k1) on the device equals its key's")
 
 
-def measure_paths(records, max_abs, build, gpu):
-    """Phase 6, on the card: each path's kernel device time on its own
-    systems (the ones its plain route solved, in as many launches as the
-    path made), and the warp kernel on the 17- and 40-mode systems beside
-    its bound, its plain version and torch.linalg, with its backward
-    error gated.  Returns the warp kernel's JSON record."""
-    from qnmfits_tpu_torch.ops import chol_cuda
+def measure_paths(records, max_abs, build, random_wide):
+    """Phase 6, on the card: the wide kernel on the 17-, 40- and 96-mode
+    paths' own systems (the ones their plain route solved) beside its
+    bound, its plain version and torch.linalg, with its backward error
+    gated.  Each path record keeps the count and largest size of its
+    systems.  Returns the wide kernel's JSON record, with phase 3's
+    timings on random systems (``random_wide``)."""
     wide = {}
     for rec in records:
         systems = rec.pop("systems", None)
-        rec["kernel_ms"] = None
         if not systems:
             continue
         rec["systems"] = sum(b.shape[0] for _, b in systems)
         rec["n"] = max(b.shape[-1] for _, b in systems)
-        rec["kernel_ms"] = device_ms(
-            lambda: [chol_cuda.regularised_solve(G, b) for G, b in systems],
-            reps=5)
-        rec["bound_ms"] = sum(bound_ms(b.shape[0], b.shape[-1])[0]
-                              for _, b in systems)
-        log(f"{rec['name']}: {rec['launches']} launch(es), "
-            f"{rec['systems']} systems of n <= {rec['n']}, kernel device "
-            f"time {rec['kernel_ms']:.4f} ms on {gpu}, bound "
-            f"{rec['bound_ms']:.3e} ms")
-        if rec["key"] in ("n17", "n40"):
+        if rec["key"] in ("n17", "n40", "n96"):
             wide[rec["n"]] = (rec, systems)
 
     out = {}
@@ -788,17 +852,19 @@ def measure_paths(records, max_abs, build, gpu):
         r["bound_ms"], r["bound_by"] = bound_ms(r["batch"], n)
         r["bound_share"] = r["bound_ms"] / r["ms"]
         r["launches"] = rec["wide_launches"]
-        log(f"warp kernel on the {n}-mode path's systems (B={r['batch']}): "
+        log(f"wide kernel on the {n}-mode path's systems (B={r['batch']}): "
             f"{r['ms']:.4f} ms, bound {r['bound_ms']:.3e} ms "
             f"({r['bound_by']}), share {r['bound_share']:.3f}; plain "
             f"{r['plain_ms']:.4f} ms; torch.linalg {r['library_ms']:.4f} "
             f"ms; backward error {r['backward_err']:.3e} (bound "
             f"{KERNEL_BWD_TOL:.0e}; plain {r['backward_err_plain']:.3e})")
         if not r["backward_err"] <= KERNEL_BWD_TOL:
-            raise RuntimeError(f"warp kernel solution (n={n}) fails the "
+            raise RuntimeError(f"wide kernel solution (n={n}) fails the "
                                "backward-error check")
-    big, small = out[40], out[17]
+    big = out[40]
     regs, _ = build
+    keys = ("batch", "ms", "plain_ms", "bound_ms", "bound_by", "bound_share",
+            "library_ms", "backward_err")
     return dict(name="chol_solve_wide", route="cuda",
                 source="qnmfits_tpu_torch/csrc/chol_solve.cu",
                 replaces="qnmfits_tpu/ops/chol_pallas.py:184",
@@ -808,16 +874,16 @@ def measure_paths(records, max_abs, build, gpu):
                 library_ms=big["library_ms"],
                 library="torch.linalg.cholesky_ex + torch.cholesky_solve",
                 bound_share=big["bound_share"], batch=big["batch"], n=40,
-                launches_n17=small["launches"], ms_n17=small["ms"],
-                plain_ms_n17=small["plain_ms"],
-                bound_ms_n17=small["bound_ms"],
-                library_ms_n17=small["library_ms"],
-                bound_share_n17=small["bound_share"],
-                batch_n17=small["batch"],
+                paths={n: {k: r[k] for k in keys + ("launches",)}
+                       for n, r in out.items()},
+                random={n: {k: r[k] for k in keys}
+                        for n, r in random_wide.items()},
                 max_abs_err_wide=max(max_abs[n] for n in CHECK_WIDE_N),
-                backward_err=max(big["backward_err"],
-                                 small["backward_err"]),
-                registers=regs["wide"], event_timings=len(EVENT_TIMINGS))
+                backward_err=max(r["backward_err"] for r in out.values()),
+                registers={k: v for k, v in regs.items() if "wide" in k},
+                event_timings=len(EVENT_TIMINGS),
+                profiles_dropping=len(DROPPED),
+                records_dropped_max=max(DROPPED, default=0))
 
 
 def main():
@@ -847,6 +913,7 @@ def main():
 
     device = "cuda"
     max_abs = check_kernel_sizes(device)
+    random_wide = time_wide(gpu)
     t = time.perf_counter()
     problem = build_problem(**FULL)
     log(f"bench problem built in {time.perf_counter() - t:.2f} s: "
@@ -860,7 +927,7 @@ def main():
         raise RuntimeError("the remnant sweep without dedup made one join "
                            "group: it does not exercise the budget")
     check_closest_keys(problem, device)
-    wide = measure_paths(paths, max_abs, build, gpu)
+    wide = measure_paths(paths, max_abs, build, random_wide)
     print(json.dumps({"paths": paths}), flush=True)
     print(json.dumps({"kernels": [record, wide]}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -7,8 +7,9 @@ the regularisation of ``qnmfits_tpu/engine_real.py::_regularised_solve``
 around it, so one launch computes what ``engine_real._regularised_solve``
 computes (its plain PyTorch version is
 ``engine_real._regularised_solve_plain``).  The system size alone picks
-the kernel: the team kernel for n = 1..16, the warp kernel for
-n = 17..64; larger systems raise.
+the kernel: the team kernel for n = 1..16, the wide kernel for every
+n >= 17 (a block per system; its arena in shared memory, or above the
+card's shared memory a global workspace that this wrapper allocates).
 
 The source is compiled at first use with ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface under ``build/qnmfits_tpu_torch/``
@@ -31,19 +32,21 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["build", "ptxas_report", "regularised_solve", "launches",
-           "wide_launches"]
+__all__ = ["build", "ptxas_report", "regularised_solve", "wide_plan",
+           "launches", "wide_launches"]
 
 SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "chol_solve.cu"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "qnmfits_tpu_torch"
 BUILD_LOG = BUILD_DIR / "chol_solve_build.log"
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-MIN_N, MAX_N = 1, 64
-TEAM_MAX_N = 16          # the team kernel takes n <= 16, the warp kernel more
+TEAM_MAX_N = 16          # the team kernel takes n <= 16, the wide kernel more
+# The wide kernel's instantiations: threads a block, and whether its arena
+# is the global workspace.
+WIDE_KERNELS = ("wide<32>", "wide<128>", "wide<256>", "wide_global<256>")
 
 # Kernel launches since the last reset (callers set them to 0 and read
-# them): ``launches`` counts both kernels, ``wide_launches`` the warp
+# them): ``launches`` counts both kernels, ``wide_launches`` the wide
 # kernel's alone.
 launches = 0
 wide_launches = 0
@@ -83,9 +86,9 @@ def build() -> Path:
 
 def ptxas_report() -> dict:
     """ptxas's report of the last build, per kernel: {"team<n>" for
-    n = 1..16, and "wide": dict(registers=, spill_stores=, spill_loads=)}
-    in bytes for the spills.  Raises when the log is not that of the
-    library ``build()`` returns."""
+    n = 1..16, and each name of ``WIDE_KERNELS``: dict(registers=,
+    spill_stores=, spill_loads=)} in bytes for the spills.  Raises when
+    the log is not that of the library ``build()`` returns."""
     lib = build()
     text = BUILD_LOG.read_text()
     if lib.stem not in text.splitlines()[0]:
@@ -93,12 +96,18 @@ def ptxas_report() -> dict:
     report = {}
     # ptxas prints, per kernel: "Compiling entry function '<mangled>'",
     # then "N bytes spill stores, M bytes spill loads" and "Used R
-    # registers"; the team kernel's template argument n is mangled as
-    # ILi<n>E.
+    # registers"; template arguments are mangled as ILi<n>E (the team
+    # kernel's n) and ILi<T>ELb<0|1>E (the wide kernel's threads, and 1
+    # for the global workspace).
     for block in text.split("Compiling entry function")[1:]:
         team = re.search(r"regularised_solve_kernelILi(\d+)E", block)
-        name = f"team<{team[1]}>" if team else "wide"
-        if not team and "regularised_solve_wide_kernel" not in block:
+        wide = re.search(r"regularised_solve_wide_kernelILi(\d+)ELb([01])E",
+                         block)
+        if team:
+            name = f"team<{team[1]}>"
+        elif wide:
+            name = f"{'wide_global' if wide[2] == '1' else 'wide'}<{wide[1]}>"
+        else:
             raise RuntimeError(f"unknown kernel in {BUILD_LOG}")
         spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                           block)
@@ -106,26 +115,54 @@ def ptxas_report() -> dict:
         report[name] = dict(registers=int(regs[1]),
                             spill_stores=int(spill[1]),
                             spill_loads=int(spill[2]))
-    expected = {f"team<{n}>" for n in range(1, TEAM_MAX_N + 1)} | {"wide"}
+    expected = ({f"team<{n}>" for n in range(1, TEAM_MAX_N + 1)}
+                | set(WIDE_KERNELS))
     if set(report) != expected:
         raise RuntimeError(f"{BUILD_LOG} reports kernels {sorted(report)}")
     return report
 
 
 @functools.lru_cache(maxsize=None)
-def _entry(wide: bool):
+def _lib():
     lib = ctypes.CDLL(str(build()))
-    fn = lib.qnm_regularised_solve_wide if wide else lib.qnm_regularised_solve
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+    args = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    lib.qnm_regularised_solve.argtypes = args
+    lib.qnm_regularised_solve_wide.argtypes = args + [ctypes.c_void_p,
+                                                      ctypes.c_longlong]
+    lib.qnm_wide_plan.argtypes = [ctypes.c_int, ctypes.c_longlong,
+                                  ctypes.c_int,
+                                  ctypes.POINTER(ctypes.c_longlong)]
+    for fn in (lib.qnm_regularised_solve, lib.qnm_regularised_solve_wide,
+               lib.qnm_wide_plan):
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def wide_plan(n: int, batch: int, device: int) -> dict:
+    """The wide kernel's launch for ``batch`` systems of size n >= 17 on
+    CUDA device ``device``: threads a block, stages (2 where two copies of
+    a system fit the card's shared memory a block and leave as many
+    blocks resident as the batch can use, else 1), ``global`` (the arena
+    lies in a global workspace: above n = 167 on an H100), grid, dynamic
+    shared bytes and workspace bytes."""
+    out = (ctypes.c_longlong * 6)()
+    err = _lib().qnm_wide_plan(n, batch, device, out)
+    if err != 0:
+        raise RuntimeError(f"chol_solve wide plan for n={n} failed: CUDA "
+                           f"error {err}")
+    keys = ("threads", "stages", "global", "grid", "smem_bytes", "work_bytes")
+    return dict(zip(keys, (int(v) for v in out)))
+
+
+@functools.lru_cache(maxsize=None)
+def _wide_global(n: int, device: int) -> bool:
+    return bool(wide_plan(n, 1, device)["global"])
 
 
 def regularised_solve(G: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Launch a kernel: G (B, n, n) and b (B, n) complex128 on one CUDA
-    device, 1 <= n <= 64 (the team kernel up to n = 16, the warp kernel
+    device, any n >= 1 (the team kernel up to n = 16, the wide kernel
     above).  Returns x (B, n), the equilibrated, dead-column masked,
     floored solution of G x = b (``_regularised_solve``)."""
     global launches, wide_launches
@@ -137,9 +174,8 @@ def regularised_solve(G: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"shapes G {tuple(G.shape)} and b {tuple(b.shape)} "
                          "are not (B, n, n) and (B, n)")
     n = G.shape[-1]
-    if not MIN_N <= n <= MAX_N:
-        raise ValueError(f"system size n={n} outside [{MIN_N}, {MAX_N}]: "
-                         f"the CUDA solve kernels take at most {MAX_N} modes")
+    if n < 1:
+        raise ValueError(f"system size n={n}: the solve takes n >= 1")
     G = G.contiguous()
     b = b.contiguous()
     for name, t in (("G", G), ("b", b)):
@@ -152,9 +188,24 @@ def regularised_solve(G: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if G.shape[0] == 0:
         return x
     wide = n > TEAM_MAX_N
+    dev = G.device.index
     stream = torch.cuda.current_stream(G.device).cuda_stream
-    err = _entry(wide)(G.data_ptr(), b.data_ptr(), x.data_ptr(), G.shape[0],
-                       n, G.device.index, stream)
+    if wide:
+        # Only an arena past the card's shared memory needs a workspace.
+        # It lives on the launch's stream; the caching allocator hands it
+        # out again only to work queued after the kernel.
+        work, work_bytes = None, 0
+        if _wide_global(n, dev):
+            work_bytes = wide_plan(n, G.shape[0], dev)["work_bytes"]
+            work = torch.empty(work_bytes, dtype=torch.uint8,
+                               device=G.device)
+        err = _lib().qnm_regularised_solve_wide(
+            G.data_ptr(), b.data_ptr(), x.data_ptr(), G.shape[0], n, dev,
+            stream, None if work is None else work.data_ptr(), work_bytes)
+    else:
+        err = _lib().qnm_regularised_solve(
+            G.data_ptr(), b.data_ptr(), x.data_ptr(), G.shape[0], n, dev,
+            stream)
     if err != 0:
         raise RuntimeError(f"chol_solve kernel launch failed: CUDA error {err}")
     launches += 1

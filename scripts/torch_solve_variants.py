@@ -16,7 +16,7 @@ variants made from it by a textual edit, each with nvcc for sm_90a into
   kernel only moves the data (its result is not checked).
 
 For each it prints ptxas's registers and spills at n = 8 and the largest
-spill over n = 1..16 (the team kernel; the warp kernel of n = 17..64 is
+spill over n = 1..16 (the team kernel; the wide kernel of n >= 17 is
 built alongside and left out of the report), and the device time (torch.profiler, as
 ``chip_smoke.device_ms``) on random systems at the main path's shapes
 (n = 8: 8208 systems with dedup, 131072 without), in turns (as is,
@@ -78,9 +78,9 @@ def build_all():
             raise RuntimeError(f"variant {name} failed to build:\n{log}")
         report = {}
         for block in log.split("Compiling entry function")[1:]:
-            team = re.search(r"kernelILi(\d+)E", block)
+            team = re.search(r"regularised_solve_kernelILi(\d+)E", block)
             if team is None:
-                continue                       # the warp kernel
+                continue                       # the wide kernel
             n = int(team[1])
             spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
                               r"loads", block)

@@ -30,10 +30,19 @@ def _rel(x, ref):
 # B = 1, 15 and 17 leave partial slabs and partial teams at every n; 1000
 # spans several slabs; 131072 is the bench sweep's batch without dedup,
 # more slabs than the persistent grid has blocks.  n = 1..16 run the team
-# kernel, n = 17..64 the warp kernel.
+# kernel, every larger n the wide kernel, whose thresholds sit at 32/33
+# and 96/97 (threads a block), 118/119 (two stages fit the shared memory
+# or one) and 167/168 (shared memory or the global workspace); at n > 32
+# B = 1000 is more than one wave of blocks, at n <= 32 B = 4000 is; 8208
+# is the 40-mode path's batch with the main path's 16 sets.
+WIDE_N = (65, 80, 96, 97, 118, 119, 128, 167, 168, 200)
+
+
 @pytest.mark.parametrize("n,B", [(n, B) for n in range(1, 65)
                                  for B in (1, 15, 17, 1000)]
-                         + [(8, 131072), (40, 131072)])
+                         + [(n, B) for n in WIDE_N for B in (1, 15, 17, 1000)]
+                         + [(17, 4000), (32, 4000), (40, 8208), (8, 131072),
+                            (40, 131072)])
 def test_kernel_matches_plain(cuda, n, B):
     G, b = random_hermitian_systems(B, n, seed=n + B, n_pad=n // 4)
     G = torch.as_tensor(G, dtype=torch.complex128, device=cuda)
@@ -49,7 +58,9 @@ def test_kernel_matches_plain(cuda, n, B):
 
 def test_kernel_does_not_spill(cuda):
     report = chol_cuda.ptxas_report()
-    assert set(report) == {f"team<{n}>" for n in range(1, 17)} | {"wide"}
+    assert set(report) == ({f"team<{n}>" for n in range(1, 17)}
+                           | {"wide<32>", "wide<128>", "wide<256>",
+                              "wide_global<256>"})
     for n, r in report.items():
         assert r["spill_stores"] == 0 and r["spill_loads"] == 0, (n, r)
 
@@ -75,15 +86,36 @@ def test_kernel_rejects_misaligned_input(cuda):
 
 
 def test_kernel_rejects_bad_input(cuda):
-    G = torch.eye(65, dtype=torch.complex128, device=cuda)[None]
-    b = torch.zeros((1, 65), dtype=torch.complex128, device=cuda)
+    G = torch.eye(4, dtype=torch.complex128, device=cuda)[None]
+    b = torch.zeros((1, 4), dtype=torch.complex128, device=cuda)
     before = chol_cuda.launches
-    with pytest.raises(ValueError, match="n=65"):
-        chol_cuda.regularised_solve(G, b)
-    assert chol_cuda.launches == before
+    with pytest.raises(ValueError, match="n=0"):
+        chol_cuda.regularised_solve(G[:, :0, :0], b[:, :0])
     with pytest.raises(TypeError, match="complex128"):
-        chol_cuda.regularised_solve(G[:, :4, :4].to(torch.complex64),
-                                    b[:, :4].to(torch.complex64))
+        chol_cuda.regularised_solve(G.to(torch.complex64),
+                                    b.to(torch.complex64))
+    assert chol_cuda.launches == before
+
+
+def test_wide_plan_thresholds(cuda):
+    """The wide kernel's launch on each side of its thresholds: threads a
+    block, the stages of its arena, and the global workspace, which stays
+    within 256 MiB or one arena an SM."""
+    dev = torch.cuda.current_device()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+
+    def plan(n, B=1):
+        return chol_cuda.wide_plan(n, B, dev)
+
+    assert [plan(n)["threads"] for n in (17, 32, 33, 96, 97, 167)] == [
+        32, 32, 128, 128, 256, 256]
+    assert plan(118)["stages"] == 2 and plan(119)["stages"] == 1
+    assert plan(167)["global"] == 0 and plan(167)["work_bytes"] == 0
+    p = plan(168, 10000)
+    assert p["global"] == 1 and p["smem_bytes"] == 0
+    arena = p["work_bytes"] // p["grid"]
+    assert 0 < p["work_bytes"] <= max(256 << 20, sms * arena)
+    assert plan(40, 513)["grid"] == 513         # one wave for the 40-mode path
 
 
 def test_sweep_through_kernel_matches_plain(cuda):
@@ -108,8 +140,8 @@ def test_paths_through_kernel_match_plain(cuda):
     problem = chip_smoke.build_problem(**chip_smoke.SMALL)
     paths = chip_smoke.run_paths(problem, "cuda")
     assert {p["key"] for p in paths} >= {"closest", "remnant", "bucket",
-                                         "n1", "n17", "n40"}
-    assert sum(p["wide_launches"] for p in paths) == 2
+                                         "n1", "n17", "n40", "n96"}
+    assert sum(p["wide_launches"] for p in paths) == 3
 
 
 def test_closest_dedup_keys_on_device(cuda):

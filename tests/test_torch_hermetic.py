@@ -32,7 +32,7 @@ problem = chip_smoke.build_problem(**chip_smoke.SMALL)
 out = chip_smoke.run_main_path(problem, "cpu")
 assert out["mm"].shape == (4, 64) and out["launches"] == 0
 paths = chip_smoke.run_paths(problem, "cpu")
-assert len(paths) == 12 and all(p["launches"] == 0 for p in paths)
+assert len(paths) == 13 and all(p["launches"] == 0 for p in paths)
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "qnmfits_tpu")
                 and sys.modules[m] is not None)
@@ -62,7 +62,7 @@ def test_port_and_smoke_run_without_jax():
     assert r.returncode == 0, r.stdout[-3000:] + r.stderr[-3000:]
     assert "HERMETIC-OK" in r.stdout
     assert "oracle" in r.stdout            # the phases ran their checks
-    assert "40-mode set" in r.stdout
+    assert "40-mode set" in r.stdout and "96-mode set" in r.stdout
     new = _listing() - before
     assert not new, f"files written into the repository: {sorted(new)}"
 
