@@ -43,7 +43,24 @@ flushed line each with elapsed seconds:
    reports its launches and its wall time; then the wide kernel on the
    17-, 40- and 96-mode paths' own systems beside its bound, its plain
    version and torch.linalg;
-7. a JSON line of the paths, a JSON line describing each kernel, and
+7. the dynamic-spectrum sweeps and the catalog event batch at the same
+   width, each through its public entry point with the launch counts
+   read as in phase 6, along tracks Mf(t) = linspace(1.02 Mf, Mf, K) and
+   chif(t) = linspace(0.60, chif, K): D1 ``mismatch_t0_mode_sets(dynamic=
+   True)`` on the 16 sets and 8192 start times (131072 fits, one team
+   launch); D2 the 17-mode set on every 16th start time (one wide
+   launch); D3 ``mismatch_t0_array`` with the tracks on the deepest set
+   and the (2,2) row, 'geq' and 'closest' windows; D4 ``fit_events`` on a
+   catalog of 8192 events in the shape of examples/catalog_events.py.
+   (engine='fast' runs the very sweep of 'batched' for D3's 'geq' and for
+   D4, tests/test_torch_dynamic.py checks that, so each runs once here.)
+   Each is held against its plain-solve route and the NumPy oracle; the
+   kernel's backward error is gated on D1's and D2's systems; each
+   path's solve is timed on its own systems (D1's back to back with the
+   main path's systems of the same shape), and its call's device time
+   split into Gram/projection products, elementwise work, the solve,
+   host-device copies and the rest, with the device's idle share;
+8. a JSON line of the paths, a JSON line describing each kernel, and
    last the JSON ok line.
 
 Any failure raises and exits non-zero before the last line.
@@ -62,11 +79,15 @@ T_START = time.perf_counter()
 
 MF, CHIF = 0.952, 0.692
 SPH = [(2, 2), (3, 2)]
-# bench.py's problem; SMALL is the same shape of problem cut to CPU size.
+# bench.py's problem, and phase 7's catalog in the shape of
+# examples/catalog_events.py; SMALL is the same shape of problem cut to
+# CPU size.
 FULL = dict(t_range=(-50.0, 150.05), n_t0=8192, t0_range=(-5.0, 46.2),
-            T=100.0, sets=tuple(range(16)), res=50, spins=8)
+            T=100.0, sets=tuple(range(16)), res=50, spins=8, events=8192,
+            event_t=(-5.0, 95.0), event_T=80.0)
 SMALL = dict(t_range=(-10.0, 30.05), n_t0=64, t0_range=(-2.0, 10.0),
-             T=20.0, sets=(1, 3, 9, 13), res=6, spins=3)
+             T=20.0, sets=(1, 3, 9, 13), res=6, spins=3, events=48,
+             event_t=(-5.0, 35.0), event_T=25.0)
 STRATA = (-5.0, -1.0, 0.5, 2.5, 10.0, 25.0, 40.0)     # bench.py:160-179
 
 MAIN_TOL = 1e-11      # kernel path vs plain-solve path, |mismatch| abs
@@ -92,10 +113,12 @@ def log(msg):
     print(f"[{time.perf_counter() - T_START:8.2f} s] {msg}", flush=True)
 
 
-def build_problem(t_range, n_t0, t0_range, T, sets, res=6, spins=3):
+def build_problem(t_range, n_t0, t0_range, T, sets, res=6, spins=3,
+                  events=48, event_t=(-5.0, 35.0), event_T=25.0):
     """The bench problem: a synthetic (2,2,n<8) ringdown with mixing
     into (2,2) and (3,2), sampled at 0.1 M; with the grid resolution and
-    the number of remnant spins of phase 6."""
+    the number of remnant spins of phase 6, the remnant tracks and the
+    catalog of phase 7."""
     from qnmfits_tpu_torch.testing import (bench_mode_sets,
                                            synthetic_multimode)
     times = np.arange(*t_range, 0.1)
@@ -103,10 +126,42 @@ def build_problem(t_range, n_t0, t0_range, T, sets, res=6, spins=3):
                               spherical_modes=SPH, Mf=MF, chif=CHIF,
                               times=times, seed=11)
     all_sets = bench_mode_sets()
+    K = len(times)
     return dict(times=times, data=syn["data_dict"],
                 mode_sets=[all_sets[i] for i in sets],
                 t0s=np.linspace(*t0_range, n_t0), T=T, res=res,
-                spins=np.linspace(CHIF - 0.03, CHIF + 0.03, spins))
+                spins=np.linspace(CHIF - 0.03, CHIF + 0.03, spins),
+                Mf_t=np.linspace(1.02 * MF, MF, K),
+                chif_t=np.linspace(0.60, CHIF, K),
+                catalog=build_catalog(events, event_t, event_T))
+
+
+EVENT_MODES = [(2, 2, n, 1) for n in range(4)]
+
+
+def build_catalog(E, t_range, T, seed=42):
+    """A catalog in the shape of examples/catalog_events.py: E events on
+    one grid of 0.1 M steps, each a (2,2,n<4) ringdown with its own
+    remnant, Mf ~ U(0.90, 0.99), chif ~ U(0.45, 0.85), amplitudes scaled
+    1, 0.5, 0.2, 0.1, complex noise of 2e-5, and its own start time t0 ~
+    U(0, 6); window length T."""
+    from qnmfits_tpu_torch.engine import SpectrumEvaluator
+    rng = np.random.default_rng(seed)
+    times = np.arange(*t_range, 0.1)
+    Mfs = rng.uniform(0.90, 0.99, E)
+    chifs = rng.uniform(0.45, 0.85, E)
+    t0s = rng.uniform(0.0, 6.0, E)
+    omegas = SpectrumEvaluator(EVENT_MODES).omega(chifs, Mfs).T     # (E, J)
+    amps = ((rng.standard_normal((E, 4)) + 1j * rng.standard_normal((E, 4)))
+            * np.array([1.0, 0.5, 0.2, 0.1]))
+    tpos = np.maximum(times, 0.0)
+    rows = np.zeros((E, len(times)), complex)
+    for j in range(4):
+        rows += amps[:, j:j + 1] * np.exp(-1j * omegas[:, j:j + 1] * tpos)
+    rows[:, times < 0] = 0.0
+    rows += 2e-5 * (rng.standard_normal(rows.shape)
+                    + 1j * rng.standard_normal(rows.shape))
+    return dict(times=times, rows=rows, Mfs=Mfs, chifs=chifs, t0s=t0s, T=T)
 
 
 def sweep(problem, device, dedup, solve=None):
@@ -123,12 +178,16 @@ def sweep(problem, device, dedup, solve=None):
 
 
 def oracle_diff(problem, mm, mode_sets, chif=CHIF, t0_method="geq",
-                sets_axis=None):
+                sets_axis=None, Mf=MF, t0s=None, data=None):
     """max |mm - oracle| over the mode sets x the t0 STRATA, for t0 >= 0
-    and for t0 < 0: mm (S, B) against ref_impl.multimode_ringdown_fit.
-    ``sets_axis`` picks which sets to check (all by default)."""
+    and for t0 < 0: mm (S, B) against ref_impl.fit_dispatch (the
+    multimode fit for the problem's data; a dynamic fit where Mf/chif are
+    tracks).  ``sets_axis`` picks which sets to check (all by default);
+    ``t0s`` (the problem's by default) are mm's start times and ``data``
+    a substitute for the problem's data."""
     from qnmfits_tpu_torch import ref_impl
-    t0s = problem["t0s"]
+    t0s = problem["t0s"] if t0s is None else t0s
+    data = problem["data"] if data is None else data
     dev_in, dev_pre = 0.0, 0.0
     for si in (range(len(mode_sets)) if sets_axis is None else sets_axis):
         for t0_val in STRATA:
@@ -136,10 +195,9 @@ def oracle_diff(problem, mm, mode_sets, chif=CHIF, t0_method="geq",
                 continue
             i = int(round((t0_val - t0s[0]) / (t0s[-1] - t0s[0])
                           * (len(t0s) - 1)))
-            ref = ref_impl.multimode_ringdown_fit(
-                problem["times"], problem["data"], mode_sets[si], MF, chif,
-                t0=float(t0s[i]), T=problem["T"], spherical_modes=SPH,
-                t0_method=t0_method)
+            ref = ref_impl.fit_dispatch(
+                problem["times"], data, mode_sets[si], Mf, chif,
+                float(t0s[i]), t0_method, problem["T"], SPH)
             d = abs(float(mm[si, i]) - ref["mismatch"])
             if t0_val >= 0.0:
                 dev_in = max(dev_in, d)
@@ -747,14 +805,21 @@ def path_specs(problem, device):
 
 
 def run_paths(problem, device):
-    """Phase 6: drive each path of ``path_specs`` through its public entry
-    point, check its launches, and hold it against the plain-solve route
-    (MAIN_TOL for t0 >= 0; the spec's pre_tol for t0 < 0, or else the
-    kernel's backward error KERNEL_BWD_TOL) and the NumPy oracle
-    (ORACLE_TOL for t0 >= 0).  Returns one record per path, with the
-    systems the plain route solved; raises on any failed gate."""
+    """Phase 6: ``run_specs`` on the paths of ``path_specs``."""
+    return run_specs(path_specs(problem, device), device)
+
+
+def run_specs(specs, device):
+    """Drive each path spec through its public entry point, check its
+    launches, and hold it against the plain-solve route (MAIN_TOL for
+    t0 >= 0; the spec's pre_tol for t0 < 0, or else the kernel's backward
+    error KERNEL_BWD_TOL, which a spec with ``backward`` gates as well)
+    and the NumPy oracle (ORACLE_TOL, or the spec's ``oracle_tol``, for
+    t0 >= 0).  Returns one record per
+    path, with the systems the plain route solved; raises on any failed
+    gate."""
     records = []
-    for spec in path_specs(problem, device):
+    for spec in specs:
         mm, n, n_wide, wall = drive(spec["kernel"])
         mm = np.asarray(mm)
         name = spec["name"]
@@ -783,7 +848,7 @@ def run_paths(problem, device):
                 raise RuntimeError(f"{name}: kernel route and plain route "
                                    f"disagree beyond {MAIN_TOL:.0e} "
                                    f"(t0 >= 0) or {pre_tol} (t0 < 0)")
-            if pre_tol is None and device != "cpu":
+            if (pre_tol is None or spec.get("backward")) and device != "cpu":
                 from qnmfits_tpu_torch.ops import chol_cuda
                 bwd = max(backward_err(G, b, chol_cuda.regularised_solve(G, b))
                           for G, b in plain.systems)
@@ -794,11 +859,12 @@ def run_paths(problem, device):
                                        f"{bwd:.3e} > {KERNEL_BWD_TOL:.0e}")
         if spec["oracle"] is not None:
             o_in, o_pre = spec["oracle"](mm)
-            rec.update(oracle_in=o_in, oracle_pre=o_pre)
+            o_tol = spec.get("oracle_tol", ORACLE_TOL)
+            rec.update(oracle_in=o_in, oracle_pre=o_pre, oracle_tol=o_tol)
             msg += f"; vs oracle {o_in:.3e} (t0 >= 0), {o_pre:.3e} (t0 < 0)"
-            if not o_in <= ORACLE_TOL:
+            if not o_in <= o_tol:
                 raise RuntimeError(f"{name}: disagrees with the NumPy "
-                                   f"oracle beyond {ORACLE_TOL:.0e}")
+                                   f"oracle beyond {o_tol:.0e}")
         log(f"{msg}; wall {wall:.3f} s")
         records.append(rec)
     return records
@@ -886,6 +952,251 @@ def measure_paths(records, max_abs, build, random_wide):
                 records_dropped_max=max(DROPPED, default=0))
 
 
+# ---------------------------------------------------------------------------
+# Phase 7: dynamic spectra and the catalog event batch
+# ---------------------------------------------------------------------------
+
+D2_STRIDE = 16                   # D2 fits every 16th start time
+EVENT_ORACLE = 64                # events checked against the NumPy oracle
+# Along the tracks (not the data's remnant: mismatch ~1e-4) the bench's
+# 8-overtone ladder has Grams of kappa ~ 1e8, where the Gram path and the
+# oracle's SVD part: by 1.3e-9 at the bench shape on the CPU, and the JAX
+# package by as much (ROADMAP C.3; tests/test_torch_dynamic.py,
+# test_deep_ladder_oracle_gap_is_the_jax_packages).  That set is held to
+# this bound, every other set to ORACLE_TOL.
+DEEP_ORACLE_TOL = 1e-8
+
+
+def events_oracle(cat, mm):
+    """max |mm - oracle| over EVENT_ORACLE events spread over the catalog
+    (every start time is >= 0): ref_impl.ringdown_fit per event."""
+    from qnmfits_tpu_torch import ref_impl
+    E = len(cat["t0s"])
+    d = 0.0
+    picks = np.linspace(0, E - 1, EVENT_ORACLE).round().astype(int)
+    for e in np.unique(picks):
+        ref = ref_impl.ringdown_fit(cat["times"], cat["rows"][e], EVENT_MODES,
+                                    cat["Mfs"][e], cat["chifs"][e],
+                                    float(cat["t0s"][e]), T=cat["T"])
+        d = max(d, abs(float(mm[e]) - ref["mismatch"]))
+    return d, 0.0
+
+
+def dynamic_specs(problem, device):
+    """The paths of phase 7, as ``path_specs`` describes them: D1, D2
+    (``backward``: the kernel's backward error on their systems is gated),
+    D3 and D4."""
+    import qnmfits_tpu_torch as tq
+    from qnmfits_tpu_torch import batched, fitting
+    from qnmfits_tpu_torch.testing import bench_mode_sets
+    times, data, t0s, T = (problem[k] for k in ("times", "data", "t0s", "T"))
+    Mf_t, chif_t, sets = problem["Mf_t"], problem["chif_t"], \
+        problem["mode_sets"]
+    kw = dict(T_array=T, spherical_modes=SPH, device=device)
+    deep, row = bench_mode_sets()[DEEPEST], data[(2, 2)]
+    specs = []
+
+    def modesets(key, name, mode_sets, t0v, expect):
+        def check(mm):
+            gated = [i for i, ms in enumerate(mode_sets) if ms != deep]
+            d_in, d_pre = oracle_diff(problem, mm, mode_sets, chif_t,
+                                      Mf=Mf_t, t0s=t0v, sets_axis=gated)
+            if len(gated) < len(mode_sets):
+                ladder = [mode_sets.index(deep)]
+                l_in, l_pre = oracle_diff(problem, mm, mode_sets, chif_t,
+                                          Mf=Mf_t, t0s=t0v, sets_axis=ladder)
+                log(f"{name}: the 8-overtone ladder against the oracle: "
+                    f"{l_in:.3e} (t0 >= 0; bound {DEEP_ORACLE_TOL:.0e}, "
+                    f"ROADMAP C.3), {l_pre:.3e} (t0 < 0)")
+                if not l_in <= DEEP_ORACLE_TOL:
+                    raise RuntimeError(f"{name}: the 8-overtone ladder "
+                                       "disagrees with the NumPy oracle")
+                d_pre = max(d_pre, l_pre)
+            return d_in, d_pre
+
+        specs.append(dict(
+            key=key, name=name, expect=expect, pre=t0v < 0, backward=True,
+            kernel=lambda: fitting.mismatch_t0_mode_sets(
+                times, data, mode_sets, Mf_t, chif_t, t0v, dynamic=True,
+                **kw),
+            plain=lambda solve: batched.batch_mismatch_t0_modesets_dynamic(
+                times, data, mode_sets, Mf_t, chif_t, t0v, solve=solve, **kw),
+            oracle=check))
+
+    modesets("d1", f"D1 dynamic mode sets, {len(sets)} sets x {len(t0s)} "
+             "start times", sets, t0s, (1, 0))
+    modesets("d2", f"D2 dynamic 17-mode set, every {D2_STRIDE}th start time",
+             [SET_17], t0s[::D2_STRIDE], (1, 1))
+
+    for method in ("geq", "closest"):
+        specs.append(dict(
+            key=f"d3_{method}",
+            name=f"D3 mismatch_t0_array with tracks, '{method}' (deepest "
+                 "set, (2,2) row)",
+            kernel=lambda method=method: fitting.mismatch_t0_array(
+                times, row, deep, Mf_t, chif_t, t0s, t0_method=method,
+                T_array=T, device=device),
+            plain=lambda solve, method=method:
+                batched.batch_mismatch_t0_dynamic(
+                    times, row, deep, Mf_t, chif_t, t0s, t0_method=method,
+                    T_array=T, device=device, solve=solve),
+            pre=t0s < 0, expect=(1, 0), oracle_tol=DEEP_ORACLE_TOL,
+            oracle=lambda mm, method=method: oracle_diff(
+                problem, np.asarray(mm)[None], [deep], chif_t, method,
+                Mf=Mf_t, data=row)))
+
+    cat = problem["catalog"]
+    ev = (cat["times"], cat["rows"], EVENT_MODES, cat["Mfs"], cat["chifs"],
+          cat["t0s"])
+    specs.append(dict(
+        key="d4", name=f"D4 fit_events, {len(cat['t0s'])} events",
+        kernel=lambda: tq.fit_events(*ev, T=cat["T"], device=device)[0],
+        plain=lambda solve: batched.batch_fit_events(
+            *ev, T=cat["T"], device=device, solve=solve)[0],
+        pre=None, expect=(1, 0), oracle=lambda mm: events_oracle(cat, mm)))
+    return specs
+
+
+def _kernel_kind(name):
+    """The share of phase 7's device-time split a kernel belongs to."""
+    low = name.lower()
+    if "regularised_solve" in name:
+        return "solve"
+    if "memcpy" in low or "memset" in low:
+        return "copies"
+    if any(k in low for k in ("gemm", "gemv", "cutlass", "dot_kernel",
+                              "xmma")):
+        return "products"
+    return "elementwise" if "elementwise" in low else "rest"
+
+
+def device_split(fn, reps=2):
+    """Device time of one fn() call split by kind of record: the Gram and
+    projection products (GEMM kernels), elementwise kernels (the basis
+    build among them), the solve kernels, the host-device copies and
+    memsets (CUPTI's Memcpy/Memset records) and the rest (reductions,
+    concatenations), from torch.profiler over reps calls, each record
+    counted as in ``device_ms``.  wall_ms is a warm call's wall time
+    without the profiler (mean over reps), profiled_wall_ms the same under
+    the profiler, and idle_share 1 - busy / profiled_wall_ms: busy time
+    and the wall it divides come from the same profiled calls.  None
+    where the profiler recorded no device time."""
+    import math
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    plain_wall = (time.perf_counter() - t) / reps * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) / reps * 1e3
+    split = dict(products=0.0, elementwise=0.0, solve=0.0, copies=0.0,
+                 rest=0.0)
+    kernels = copies = 0
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA or e.count == 0:
+            continue
+        per_call = math.ceil(e.count / reps)
+        kind = _kernel_kind(e.key)
+        if kind == "copies":
+            copies += per_call
+        else:
+            kernels += per_call
+        split[kind] += e.self_device_time_total / e.count * per_call / 1e3
+    busy = sum(split.values())
+    if busy == 0:
+        return None
+    return dict(wall_ms=plain_wall, profiled_wall_ms=wall, busy_ms=busy,
+                idle_share=1.0 - busy / wall, kernels=kernels, copies=copies,
+                **{f"{k}_ms": v for k, v in split.items()})
+
+
+def solve_side_by_side(batches, rounds=2):
+    """The kernel's device time (``device_ms``) on each of two batches of
+    systems of one shape, timed in the order A B B A, ``rounds`` times in
+    one process, so that a gap between them is the systems' and not the
+    run's.  Returns [mean ms of A, mean ms of B] and every reading."""
+    from qnmfits_tpu_torch.ops import chol_cuda
+    reads = ([], [])
+    for _ in range(rounds):
+        for i in (0, 1, 1, 0):
+            G, b = batches[i]
+            reads[i].append(device_ms(
+                lambda: chol_cuda.regularised_solve(G, b)))
+    return [sum(r) / len(r) for r in reads], reads
+
+
+def run_dynamic(problem, device, gpu=None, main_systems=None):
+    """Phase 7: ``run_specs`` on the paths of ``dynamic_specs``; on the
+    card also each path's solve timed on its own systems beside its bound,
+    its plain version and torch.linalg (its backward error gated), D1's
+    back to back with ``main_systems`` (the main path's systems of the
+    same shape), and each call's device-time split.  Returns the path
+    records and the solve records by path key."""
+    t = time.perf_counter()
+    specs = dynamic_specs(problem, device)
+    records = run_specs(specs, device)
+    solves = {}
+    for spec, rec in zip(specs, records):
+        systems = rec.pop("systems")
+        rec["systems"] = sum(b.shape[0] for _, b in systems)
+        rec["n"] = max(b.shape[-1] for _, b in systems)
+        if device == "cpu":
+            continue
+        G, b = systems[0]
+        r = solves[rec["key"]] = time_solves(G, b)
+        r["n"], r["launches"] = rec["n"], rec["launches"]
+        r["bound_ms"], r["bound_by"] = bound_ms(r["batch"], rec["n"])
+        r["bound_share"] = r["bound_ms"] / r["ms"]
+        if rec["key"] == "d1" and main_systems is not None:
+            if main_systems[1].shape != b.shape:
+                raise RuntimeError("D1 and the main path without dedup solve "
+                                   "batches of different shapes")
+            (ms_main, ms_d1), reads = solve_side_by_side([main_systems,
+                                                          (G, b)])
+            r["side_by_side"] = dict(main_ms=ms_main, d1_ms=ms_d1,
+                                     main_reads=reads[0], d1_reads=reads[1])
+            log(f"solve on {gpu}, back to back (order main D1 D1 main, "
+                f"twice): main path's {b.shape[0]} systems {ms_main:.4f} ms, "
+                f"D1's {ms_d1:.4f} ms; readings main "
+                f"{[round(x, 4) for x in reads[0]]}, D1 "
+                f"{[round(x, 4) for x in reads[1]]}")
+        split = rec["split"] = device_split(spec["kernel"])
+        log(f"{rec['name']} on {gpu}: solve {r['ms']:.4f} ms on its "
+            f"{r['batch']} systems (n={rec['n']}), bound {r['bound_ms']:.3e} "
+            f"ms ({r['bound_by']}), plain {r['plain_ms']:.4f} ms, "
+            f"torch.linalg {r['library_ms']:.4f} ms, backward error "
+            f"{r['backward_err']:.3e}")
+        if split is None:
+            log("  device-time split: torch.profiler recorded no device time "
+                "(not measured)")
+        else:
+            log(f"  device-time split: warm wall {split['wall_ms']:.2f} ms "
+                f"unprofiled, {split['profiled_wall_ms']:.2f} ms profiled; "
+                f"busy {split['busy_ms']:.2f} ms, idle share of the profiled "
+                f"wall {split['idle_share']:.3f}; {split['kernels']} "
+                f"kernels and {split['copies']} copies: products "
+                f"{split['products_ms']:.2f}, elementwise "
+                f"{split['elementwise_ms']:.2f}, solve "
+                f"{split['solve_ms']:.4f}, copies {split['copies_ms']:.2f}, "
+                f"rest {split['rest_ms']:.2f} ms")
+        if not r["backward_err"] <= KERNEL_BWD_TOL:
+            raise RuntimeError(f"{rec['name']}: kernel backward error "
+                               f"{r['backward_err']:.3e}")
+    wall = time.perf_counter() - t
+    log(f"phase 7: {len(records)} paths in {wall:.1f} s")
+    return records, solves, wall
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -928,7 +1239,17 @@ def main():
                            "group: it does not exercise the budget")
     check_closest_keys(problem, device)
     wide = measure_paths(paths, max_abs, build, random_wide)
-    print(json.dumps({"paths": paths}), flush=True)
+    dynamic, solves, phase7_wall = run_dynamic(
+        problem, device, gpu, main_path["systems"][False])
+    keys = ("batch", "n", "launches", "ms", "plain_ms", "bound_ms",
+            "bound_by", "bound_share", "library_ms", "backward_err",
+            "side_by_side")
+    for rec in (record, wide):
+        rec["dynamic_paths"] = {
+            k: {x: r[x] for x in keys if x in r} for k, r in solves.items()
+            if (r["n"] > chol_cuda.TEAM_MAX_N) == (rec is wide)}
+    print(json.dumps({"paths": paths + dynamic,
+                      "phase7_wall_s": phase7_wall}), flush=True)
     print(json.dumps({"kernels": [record, wide]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -1,12 +1,13 @@
 """qnmfits_tpu_torch: the PyTorch/CUDA port of qnmfits_tpu.
 
 Each module is named after the qnmfits_tpu module it ports, which stays
-the reference the port is tested against.  The port covers the
-static-spectrum fitting surface: the single fits (``ringdown_fit``,
-``multimode_ringdown_fit`` and their dynamic forms), ``mismatch_t0_array``,
-``mismatch_t0_mode_sets`` (windows 'geq' or 'closest', a remnant axis,
-width buckets) and the (Mf, chif) and free-frequency grids.  Every batched
-Hermitian solve runs in the hand-written FP64 CUDA kernels
+the reference the port is tested against.  The port covers the fitting
+surface: the single fits (``ringdown_fit``, ``multimode_ringdown_fit``
+and their dynamic forms), ``mismatch_t0_array`` (static or with Mf/chif
+time tracks), ``mismatch_t0_mode_sets`` (windows 'geq' or 'closest', a
+remnant axis, width buckets, ``dynamic=True``), the (Mf, chif) and
+free-frequency grids, and the catalog event batch ``fit_events``.  Every
+batched Hermitian solve runs in the hand-written FP64 CUDA kernels
 (``ops/chol_cuda.py``, ``csrc/chol_solve.cu``).
 
 Device and dtype policy:
@@ -59,6 +60,7 @@ from .fitting import (  # noqa: E402
     ringdown,
     ringdown_fit,
 )
+from .batched import batch_fit_events as fit_events  # noqa: E402
 
 __all__ = [
     "CDTYPE", "RDTYPE", "resolve_device",
@@ -66,5 +68,5 @@ __all__ = [
     "ringdown_fit", "dynamic_ringdown_fit",
     "multimode_ringdown_fit", "dynamic_multimode_ringdown_fit",
     "mismatch_t0_array", "mismatch_t0_mode_sets",
-    "mismatch_M_chi_grid", "mismatch_omega_grid",
+    "mismatch_M_chi_grid", "mismatch_omega_grid", "fit_events",
 ]

@@ -1,15 +1,18 @@
-"""Batched ringdown sweeps over start times, mode sets, remnant spins and
-frequency grids (port of the static-spectrum part of
-qnmfits_tpu/batched.py).
+"""Batched ringdown sweeps over start times, mode sets, remnant spins,
+frequency grids and catalog events, static or with time-dependent
+spectra (port of qnmfits_tpu/batched.py).
 
 Host preparation (spectrum splines, dedup keys, chunk sizing) is NumPy,
 as in the JAX package; the sweeps run in torch on the requested device.
-Two sweep engines: the factored kernel
+Sweep engines: the factored kernel
 (``engine_real.sweep_t0_modesets_factored_real``; 'geq' windows, start
-times sorted) and the complex window sweep over ``engine.fit_core``
-(any window method, and the spectrum-batched grids).  Both build their
-systems chunk by chunk and solve them in as few calls of the batched
-Hermitian solve as the join budget allows (``engine_real.JOIN_BYTES``).
+times sorted); the complex window sweep over ``engine.fit_core`` (any
+window method, and the spectrum-batched grids); the dynamic-spectrum
+sweep (``sweep_t0_modesets_dynamic_real``) and the event batch
+(``sweep_events_real``), both over the complex fit cores of ``engine``.
+Each builds its systems chunk
+by chunk and solves them in as few calls of the batched Hermitian solve
+as the join budget allows (``engine_real.JOIN_BYTES``).
 """
 
 from __future__ import annotations
@@ -21,21 +24,26 @@ import torch
 
 from . import CDTYPE, RDTYPE, resolve_device
 from .engine import (SpectrumEvaluator, _window, cached_evaluator,
-                     check_spin, fit_systems, solve_fits)
+                     check_spin, chunk_bounds, dynamic_fit_systems,
+                     fit_systems, solve_fits)
 from .engine_real import (sweep_t0_factored_real,
                           sweep_t0_modesets_factored_real)
 from .ref_impl import _delta_factor
 
 __all__ = [
-    "batch_mismatch_t0", "batch_mismatch_t0_fast",
-    "batch_mismatch_t0_modesets", "batch_mismatch_M_chi",
-    "batch_mismatch_omega", "sweep_t0_core", "sweep_t0_modesets",
+    "batch_fit_events", "batch_mismatch_t0", "batch_mismatch_t0_dynamic",
+    "batch_mismatch_t0_fast", "batch_mismatch_t0_modesets",
+    "batch_mismatch_t0_modesets_dynamic", "batch_mismatch_M_chi",
+    "batch_mismatch_omega", "sweep_events_real", "sweep_t0_core",
+    "sweep_t0_modesets", "sweep_t0_modesets_dynamic_real",
 ]
 
 _CHUNK = 64      # start times (or grid points) a chunk of the complex sweep
-# Most bytes of one (S, chunk, K, J) complex basis of the complex sweep: a
-# wide set axis (a remnant axis folded in) shrinks its chunk of start
-# times instead (the JAX package maps over the sets one at a time).
+# Most bytes of one chunk's complex basis: (S, chunk, K, J) in the complex
+# sweep, where a wide set axis (a remnant axis folded in) shrinks its
+# chunk of start times instead (the JAX package maps over the sets one at
+# a time); (chunk, I, K, J) in the dynamic sweep; (chunk, K, J) in the
+# event batch.
 _BASIS_BYTES = 1 << 28
 
 
@@ -49,6 +57,11 @@ def _real(a, dev):
 
 def _cplx(a, dev):
     return torch.tensor(np.asarray(a, complex), dtype=CDTYPE, device=dev)
+
+
+def _not_ported(what, item):
+    raise NotImplementedError(
+        f"{what} is not ported to qnmfits_tpu_torch yet (ROADMAP {item})")
 
 
 def _check_t0_method(t0_method):
@@ -249,6 +262,21 @@ def _modesets_spectrum_fn(sets_key, sph):
     return eval_all, masks
 
 
+def _modesets_spectrum_dynamic_fn(sets_key, sph):
+    """The padded time-track spectra of a mode-set list (batched.py:1130):
+    returns (eval_all, masks) with eval_all(chif_t, Mf_t) -> omegas_t
+    (S, K, J), mus_t (S, I, K, J) complex, zero in the padded slots, at
+    (K,) tracks (``_modesets_spectrum_fn`` at K remnants, with the track
+    axis moved inside the set axis); masks (S, J)."""
+    eval_all, masks = _modesets_spectrum_fn(sets_key, sph)
+
+    def eval_tracks(chif_t, Mf_t):
+        omegas, mus = eval_all(chif_t, Mf_t)      # (K, S, J), (K, S, I, J)
+        return np.moveaxis(omegas, 0, 1), np.moveaxis(mus, 0, 2)
+
+    return eval_tracks, masks
+
+
 # ---------------------------------------------------------------------------
 # The complex window sweep (fit_core over a batch of windows)
 # ---------------------------------------------------------------------------
@@ -277,8 +305,8 @@ def sweep_t0_modesets(times, data, omegas, mus, t0s, Ts, col_masks=None,
         w = _window(times, t0c[:, None], Ts[lo:hi, None], t0_method)
         return fit_systems(times, data, om, mu, t0c, w, mask)
 
-    return solve_fits(t0s.shape[0], chunk, 2 * S * J * J * 16, systems,
-                      solve)
+    return solve_fits(chunk_bounds(t0s.shape[0], chunk), 2 * S * J * J * 16,
+                      systems, solve)
 
 
 def sweep_t0_core(times, data, omega, mu, t0s, Ts, t0_method="geq",
@@ -303,17 +331,11 @@ def _t0_grid(t0_array, T_array, ascending):
     return t0s, Ts
 
 
-def _static_only(Mf, chif, delta):
-    """The dynamic-spectrum sweeps are not ported; the delta rule is the
-    JAX package's (the reference's dynamic fits take no delta)."""
-    if np.ndim(Mf) == 0 and np.ndim(chif) == 0:
-        return
+def _no_delta(delta):
+    """The reference's dynamic fits take no delta (qnmfits.py:318-475)."""
     if np.any(np.asarray(delta)):
         raise ValueError("delta is not supported for dynamic-spectrum "
                          "fits (time-dependent Mf/chif)")
-    raise NotImplementedError(
-        "time-dependent Mf/chif (dynamic spectra) are not ported to "
-        "qnmfits_tpu_torch yet (ROADMAP A.5)")
 
 
 def _spectrum(modes, sph, Mf, chif, delta):
@@ -341,10 +363,17 @@ def batch_mismatch_t0(times, data, modes, Mf, chif, t0_array,
     """All start times of one mode set on the complex fit core
     (batched.py:192; the reference's loop at qnmfits.py:1183-1301), any
     window method.  dedup=True solves each distinct window once (exact
-    for static spectra).  ``solve`` substitutes the batched Hermitian
-    solve.  Returns mm (B,), with return_amplitudes=True also C (B, J).
+    for static spectra).  Array Mf/chif (time tracks) route to
+    ``batch_mismatch_t0_dynamic`` (batched.py:206-215).  ``solve``
+    substitutes the batched Hermitian solve.  Returns mm (B,), with
+    return_amplitudes=True also C (B, J).
     """
-    _static_only(Mf, chif, delta)
+    if np.ndim(Mf) != 0 or np.ndim(chif) != 0:
+        _no_delta(delta)
+        return batch_mismatch_t0_dynamic(
+            times, data, modes, Mf, chif, t0_array, t0_method=t0_method,
+            T_array=T_array, spherical_modes=spherical_modes,
+            return_amplitudes=return_amplitudes, device=device, solve=solve)
     _check_t0_method(t0_method)
     check_spin(chif)
     dev = resolve_device(device)
@@ -509,6 +538,207 @@ def batch_mismatch_t0_modesets(times, data, mode_sets, Mf, chif, t0_array,
 
 
 # ---------------------------------------------------------------------------
+# Time-dependent spectra and catalog event batches
+# ---------------------------------------------------------------------------
+
+def _window_spans(times, t0s, Ts):
+    """Per start time, a sample range [lo, hi) holding its window, 'geq'
+    or 'closest', with two samples to spare on each side: fits restricted
+    to it are exact, since the window and trapezoid weights vanish
+    outside.  Host int64 tensors (B,)."""
+    t = times.cpu()
+    t0 = t0s.cpu()
+    K = t.shape[0]
+    lo = torch.clamp(torch.searchsorted(t, t0) - 2, 0, K)
+    hi = torch.clamp(torch.searchsorted(t, t0 + Ts.cpu()) + 2, 0, K)
+    return lo, hi
+
+
+def sweep_t0_modesets_dynamic_real(times, data, omegas_t, mus_t, t0s, Ts,
+                                   col_masks, t0_method="geq", chunk=32,
+                                   solve=None):
+    """t0 x mode-set sweep with time-dependent spectra (the port of
+    engine_real.sweep_t0_modesets_dynamic_real, engine_real.py:344; with
+    S = 1 also sweep_t0_dynamic_real, :323): every (set, window) pair an
+    ``engine.dynamic_fit_systems`` fit, the reference loop
+    qnmfits.py:1286-1299 over sets.
+
+    times (K,), data (I, K), omegas_t (S, K, J), mus_t (S, I, K, J), t0s
+    and Ts (B,) in any order, col_masks (S, J) bool.  Each set's start
+    times are built ``chunk`` at a time on the sample range the chunk's
+    windows touch (``_window_spans``); the chunks are joined while their G
+    and G_tau stay within ``JOIN_BYTES`` and each group is solved by one
+    call of ``solve``.  No window dedup: t0 enters the design per row.
+    Returns C (S, B, J) and mm (S, B).
+    """
+    S, _, J = omegas_t.shape
+    B = t0s.shape[0]
+    lo_k, hi_k = _window_spans(times, t0s, Ts)
+
+    def systems(lo, hi):
+        s, b0, b1 = lo // B, lo % B, lo % B + hi - lo
+        a, e = int(lo_k[b0:b1].min()), int(hi_k[b0:b1].max())
+        t0c, tt = t0s[b0:b1], times[a:e]
+        w = _window(tt, t0c[:, None], Ts[b0:b1, None], t0_method)
+        return dynamic_fit_systems(tt, data[:, a:e], omegas_t[s, a:e],
+                                   mus_t[s, :, a:e], t0c, w, col_masks[s])
+
+    bounds = [(s * B + lo, s * B + min(lo + chunk, B)) for s in range(S)
+              for lo in range(0, B, chunk)]
+    C, mm = solve_fits(bounds, 2 * J * J * 16, systems, solve)
+    return C.reshape(S, B, J), mm.reshape(S, B)
+
+
+def sweep_events_real(times, data, omegas, t0s, Ts, chunk=64,
+                      t0_method="geq", solve=None):
+    """Per-event fit batch (the port of engine_real.sweep_events_real,
+    engine_real.py:1167, with its summed Grams): each event has its own
+    data row, spectrum and window, and is one single-series fit
+    (``engine.fit_systems``, the complex128 form of fit_core_real).
+
+    times (K,); data (E, K); omegas (E, J); t0s/Ts (E,).  ``chunk``
+    events are built at a time, joined while their G and G_tau stay
+    within ``JOIN_BYTES``, one ``solve`` call a group.  Returns C (E, J)
+    and mm (E,).
+    """
+    E, J = omegas.shape
+    ones = torch.ones((1, J), dtype=omegas.dtype, device=omegas.device)
+
+    def systems(lo, hi):
+        t0c = t0s[lo:hi]
+        w = _window(times, t0c[:, None], Ts[lo:hi, None], t0_method)
+        return fit_systems(times, data[lo:hi, None, :], omegas[lo:hi], ones,
+                           t0c, w)
+
+    return solve_fits(chunk_bounds(E, chunk), 2 * J * J * 16, systems,
+                      solve)
+
+
+def _tracks(K, Mf, chif):
+    """(K,) Mf and chif tracks from scalars or (K,) arrays."""
+    Mf_t = np.full(K, float(Mf)) if np.ndim(Mf) == 0 \
+        else np.asarray(Mf, float)
+    chif_t = np.full(K, float(chif)) if np.ndim(chif) == 0 \
+        else np.asarray(chif, float)
+    if Mf_t.shape != (K,) or chif_t.shape != (K,):
+        raise ValueError("dynamic Mf/chif must be scalars or (K,) tracks")
+    return Mf_t, chif_t
+
+
+def _dynamic_sweep(times, data, mode_sets, Mf, chif, t0_array, t0_method,
+                   T_array, spherical_modes, return_amplitudes, device,
+                   solve):
+    """Every (mode set, window) fit with the spectrum of the (Mf(t),
+    chif(t)) tracks.  Returns mm (S, B), C (S, B, J) or None, and the
+    canonical sets."""
+    _check_t0_method(t0_method)
+    check_spin(chif)          # a scalar, before it is expanded to a track
+    dev = resolve_device(device)
+    times, rows, sph = _prep(times, data, spherical_modes)
+    K = len(times)
+    Mf_t, chif_t = _tracks(K, Mf, chif)
+    t0s, Ts = _t0_grid(t0_array, T_array, ascending=False)
+    sets = [list(_canon(ms)) for ms in mode_sets]
+    eval_tracks, masks = _modesets_spectrum_dynamic_fn(
+        tuple(tuple(ms) for ms in sets), sph)
+    omegas_t, mus_t = eval_tracks(chif_t, Mf_t)
+    chunk = max(1, _BASIS_BYTES // (mus_t[0].size * 16))
+    C, mm = sweep_t0_modesets_dynamic_real(
+        _real(times, dev), _cplx(rows, dev), _cplx(omegas_t, dev),
+        _cplx(mus_t, dev), _real(t0s, dev), _real(Ts, dev),
+        torch.as_tensor(masks, device=dev), t0_method, chunk=chunk,
+        solve=solve)
+    return (mm.cpu().numpy(), C.cpu().numpy() if return_amplitudes
+            else None, sets)
+
+
+def batch_mismatch_t0_dynamic(times, data, modes, Mf, chif, t0_array,
+                              t0_method="geq", T_array=100,
+                              spherical_modes=None, return_amplitudes=False,
+                              engine="batched", device="cuda", solve=None):
+    """Start-time sweep with a time-dependent spectrum (batched.py:316):
+    Mf/chif scalars or (K,) tracks, any window method, start times in any
+    order, never deduplicated (t0 enters the design per row).  engine
+    'batched' and 'fast' are one sweep here
+    (``sweep_t0_modesets_dynamic_real`` with one set).
+    Returns mm (B,), with return_amplitudes=True also C (B, J)."""
+    if engine not in ("batched", "fast"):
+        raise ValueError(f"unknown engine {engine!r}")
+    mm, C, _ = _dynamic_sweep(times, data, [modes], Mf, chif, t0_array,
+                              t0_method, T_array, spherical_modes,
+                              return_amplitudes, device, solve)
+    return (mm[0], C[0]) if return_amplitudes else mm[0]
+
+
+def batch_mismatch_t0_modesets_dynamic(times, data, mode_sets, Mf, chif,
+                                       t0_array, t0_method="geq",
+                                       T_array=100, spherical_modes=None,
+                                       return_amplitudes=False, mesh=None,
+                                       device="cuda", solve=None):
+    """The t0 x mode-set sweep with a time-dependent spectrum
+    (batched.py:1186): every (mode set, start time) pair a dynamic fit.
+    Mf/chif are scalars or (K,) time tracks (not a remnant axis); ragged
+    sets are padded with exact-zero amplitude slots.  Returns mm (S, B);
+    with return_amplitudes=True also a list of S (B, len(set)) arrays."""
+    if mesh is not None:
+        _not_ported("mesh= (the sharded dynamic mode-set sweep)", "A.10")
+    mm, C, sets = _dynamic_sweep(times, data, mode_sets, Mf, chif, t0_array,
+                                 t0_method, T_array, spherical_modes,
+                                 return_amplitudes, device, solve)
+    if not return_amplitudes:
+        return mm
+    return mm, [C[si, :, :len(ms)] for si, ms in enumerate(sets)]
+
+
+def batch_fit_events(times, data, modes, Mf, chif, t0, T=100,
+                     t0_method="geq", mesh=None, engine="batched",
+                     chunk=None, device="cuda", solve=None):
+    """One mode model fitted to many events (batched.py:1291): E series on
+    a shared time grid, each with its own remnant (Mf_e, chif_e) and
+    window (t0_e, T_e); the reference fits them one call at a time
+    (qnmfits.py:142-315).
+
+    times (K,); data (E, K) complex; Mf/chif/t0/T scalars or (E,) arrays.
+    engine 'batched' (any window method) or 'fast' ('geq' windows only);
+    both take the summed Grams (``sweep_events_real``): a closed-form
+    Gram branch like the JAX package's 'fast' one measured slower on the
+    H100 (PERF.md, section 6).
+    ``chunk`` events are built at a time (by default as many as
+    _BASIS_BYTES of basis hold).  Returns mm (E,) and C (E, J) complex.
+    """
+    _check_t0_method(t0_method)
+    if mesh is not None:
+        _not_ported("mesh= (the sharded event batch)", "A.10")
+    if engine not in ("batched", "fast"):
+        raise ValueError(f"unknown engine {engine!r}")
+    times = np.asarray(times, float)
+    rows = np.asarray(data, complex)
+    if rows.ndim != 2:
+        raise ValueError("data must be (E, K): one series per event")
+    E = rows.shape[0]
+
+    def per_event(x):
+        return np.ascontiguousarray(np.broadcast_to(np.asarray(x, float),
+                                                    (E,)))
+
+    chifs = per_event(chif)
+    for c in chifs:
+        check_spin(float(c))
+    if engine == "fast" and t0_method != "geq":
+        raise ValueError("engine='fast' event batches support "
+                         "t0_method='geq' only")
+    dev = resolve_device(device)
+    omegas = cached_evaluator(_canon(modes)).omega(chifs, per_event(Mf)).T
+    if chunk is None:
+        chunk = max(1, _BASIS_BYTES // (omegas.size // E * len(times) * 16))
+    C, mm = sweep_events_real(
+        _real(times, dev), _cplx(rows, dev), _cplx(omegas, dev),
+        _real(per_event(t0), dev), _real(per_event(T), dev), chunk=chunk,
+        t0_method=t0_method, solve=solve)
+    return mm.cpu().numpy(), C.cpu().numpy()
+
+
+# ---------------------------------------------------------------------------
 # Spectrum-batched grids (one window, many spectra)
 # ---------------------------------------------------------------------------
 
@@ -525,8 +755,8 @@ def _grid_sweep(times, rows, omegas, mus, t0, T, t0_method, dev, solve):
     def systems(lo, hi):
         return fit_systems(times_t, rows_t, om[lo:hi], mu[lo:hi], t0_t, w)
 
-    _, mm = solve_fits(omegas.shape[0], _CHUNK, 2 * J * J * 16, systems,
-                       solve)
+    _, mm = solve_fits(chunk_bounds(omegas.shape[0], _CHUNK), 2 * J * J * 16,
+                       systems, solve)
     return mm.cpu().numpy()
 
 

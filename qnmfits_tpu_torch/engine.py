@@ -1,11 +1,12 @@
-"""Spectrum evaluation and the complex fit core (port of
+"""Spectrum evaluation and the complex fit cores (port of
 qnmfits_tpu/engine.py).
 
 The JAX main path evaluates the spectrum splines eagerly on the host
 (``batched._on_host``) before the sweep; the port does the same in NumPy.
 ``fit_core`` is the Gram-assembly weighted least-squares fit with its
-trapezoid mismatch, batched over leading axes (the JAX vmap); its solve
-is ``ops/solve.gram_cholesky``, the CUDA kernel on the card.
+trapezoid mismatch, and ``dynamic_fit_systems`` its time-dependent-spectrum
+twin, both batched over leading axes (the JAX vmap); their solve is
+``ops/solve.gram_cholesky``, the CUDA kernel on the card.
 """
 
 from __future__ import annotations
@@ -23,7 +24,8 @@ from .spectrum.tables import (ModeIndexSet, SpectrumTables, default_tables,
                               eval_spline_np)
 
 __all__ = ["SpectrumEvaluator", "cached_evaluator", "check_spin",
-           "fit_core", "fit_systems", "fit_mismatch", "solve_fits"]
+           "chunk_bounds", "dynamic_fit_systems", "fit_core", "fit_systems",
+           "fit_mismatch", "solve_fits"]
 
 
 def _raise_if_bad_spin(c: float, hi: float) -> None:
@@ -133,17 +135,37 @@ def _window(times, t0, T, t0_method: str):
     raise ValueError("t0_method must be 'geq' or 'closest'")
 
 
+def _masked(G, rhs, col_mask):
+    """Identity Gram rows and zero right-hand sides in the padding slots
+    (col_mask False), so their amplitudes are exactly zero."""
+    if col_mask is None:
+        return G, rhs
+    eye = torch.eye(G.shape[-1], dtype=G.dtype, device=G.device)
+    G = torch.where(col_mask[..., :, None] & col_mask[..., None, :], G, eye)
+    rhs = torch.where(col_mask, rhs, torch.zeros((), dtype=rhs.dtype,
+                                                 device=rhs.device))
+    return G, rhs
+
+
+def _expanded(G, rhs, G_tau, r_tau, data_norm):
+    batch = rhs.shape[:-1]
+    return (G.expand(*batch, *G.shape[-2:]), rhs,
+            G_tau.expand(*batch, *G_tau.shape[-2:]),
+            r_tau.expand(*batch, r_tau.shape[-1]), data_norm.expand(batch))
+
+
 def fit_systems(times, data, omega, mu, t0, w, col_mask=None):
     """The pieces of ``fit_core`` before and after its solve, batched over
     leading axes that broadcast together.
 
-    times (K,) real; data (I, K) complex; omega (..., J); mu (..., I, J);
-    t0 (...) real tensor; w (..., K) {0,1} window weights; col_mask
-    (..., J) bool marking real (True) vs padding slots, which get identity
-    Gram rows and a zero right-hand side.  Returns G (..., J, J), rhs
-    (..., J): the masked normal equations; and G_tau, r_tau, data_norm:
-    the trapezoid-weighted Gram, projections and data norm of the
-    mismatch.
+    times (K,) real; data (..., I, K) complex; omega (..., J); mu
+    (..., I, J); t0 (...) real tensor; w (..., K) {0,1} window weights;
+    col_mask (..., J) bool marking real (True) vs padding slots, which get
+    identity Gram rows and a zero right-hand side.  The complex128 form of
+    engine_real.fit_core_real with its summed Grams.
+    Returns G (..., J, J), rhs (..., J): the masked normal equations; and
+    G_tau, r_tau, data_norm: the trapezoid-weighted Gram, projections and
+    data norm of the mismatch.
     """
     tau = trapz_weights(times, w)
     # Window-clamped phase (w binary): no backward-in-time overflow, even
@@ -151,26 +173,52 @@ def fit_systems(times, data, omega, mu, t0, w, col_mask=None):
     phi = damped_phase(omega[..., None, :],
                        ((times - t0[..., None]) * w)[..., :, None])
     phiw = phi * w[..., :, None]                               # (..., K, J)
-    Mmu = mu.mH @ mu                                           # (..., J, J)
-    G = Mmu * (phiw.mH @ phiw)
-    pd = (data * w[..., None, :]).to(phi.dtype) @ phiw.conj()  # (..., I, J)
-    rhs = (mu.conj() * pd).sum(dim=-2)
-    if col_mask is not None:
-        keep = col_mask
-        eye = torch.eye(G.shape[-1], dtype=G.dtype, device=G.device)
-        G = torch.where(keep[..., :, None] & keep[..., None, :], G, eye)
-        rhs = torch.where(keep, rhs, torch.zeros((), dtype=rhs.dtype,
-                                                 device=rhs.device))
-
     phit = phi * tau[..., :, None]
-    G_tau = Mmu * (phit.mH @ phi)
+    Mmu = mu.mH @ mu                                           # (..., J, J)
+    Gt, Gt_tau = phiw.mH @ phiw, phit.mH @ phi
+    pd = (data * w[..., None, :]).to(phi.dtype) @ phiw.conj()  # (..., I, J)
+    G, rhs = _masked(Mmu * Gt, (mu.conj() * pd).sum(dim=-2), col_mask)
     r_tau = (mu.conj() * (data.to(phi.dtype) @ phit.conj())).sum(dim=-2)
     data_norm = (tau[..., None, :] * (data.real ** 2 + data.imag ** 2)).sum(
         dim=(-2, -1))
-    batch = rhs.shape[:-1]
-    return (G.expand(*batch, *G.shape[-2:]), rhs,
-            G_tau.expand(*batch, *G_tau.shape[-2:]),
-            r_tau.expand(*batch, r_tau.shape[-1]), data_norm.expand(batch))
+    return _expanded(G, rhs, Mmu * Gt_tau, r_tau, data_norm)
+
+
+def dynamic_fit_systems(times, data, omega_t, mu_t, t0, w, col_mask=None):
+    """``fit_systems`` with a time-dependent spectrum (engine.py:262,
+    engine_real.dynamic_fit_core_real): design entries a^i_kj =
+    mu^i_kj exp(-i omega_kj (t_k - t0)) (reference qnmfits.py:438-444,
+    863-864), batched over leading axes that broadcast together.
+
+    times (K,); data (I, K); omega_t (..., K, J); mu_t (..., I, K, J);
+    t0 (...); w (..., K) {0,1}; col_mask (..., J) bool.  The per-sample
+    mixing does not factor out of the design, so the Grams contract over
+    the flattened (I * K) axis; the window-weighted and the trapezoid-
+    weighted copies of the design are made one after the other, never
+    both at once.  Returns what ``fit_systems`` returns.
+    """
+    tau = trapz_weights(times, w)
+    phi = damped_phase(omega_t, ((times - t0[..., None]) * w)[..., :, None])
+    E = mu_t * phi[..., None, :, :]                         # (..., I, K, J)
+    I, K, J = E.shape[-3:]
+    lead = E.shape[:-3]
+    Ef = E.reshape(*lead, I * K, J)
+    d = data.to(E.dtype)
+
+    Ew = (E * w[..., None, :, None]).reshape(*lead, I * K, J)
+    G = Ew.mH @ Ew
+    dw = (d * w[..., None, :]).expand(*lead, I, K)
+    rhs = (Ew.mH @ dw.reshape(*lead, I * K, 1))[..., 0]
+    del Ew
+    G, rhs = _masked(G, rhs, col_mask)
+
+    Et = (E * tau[..., None, :, None]).reshape(*lead, I * K, J)
+    G_tau = Et.mH @ Ef
+    r_tau = (Et.mH @ d.reshape(I * K, 1))[..., 0]
+    del Et
+    data_norm = (tau[..., None, :] * (data.real ** 2 + data.imag ** 2)).sum(
+        dim=(-2, -1))
+    return _expanded(G, rhs, G_tau, r_tau, data_norm)
 
 
 def fit_mismatch(C, G_tau, r_tau, data_norm):
@@ -192,18 +240,23 @@ def fit_core(times, data, omega, mu, t0, w, col_mask=None, solve=None):
     return C, fit_mismatch(C, G_tau, r_tau, data_norm)
 
 
-def solve_fits(n, chunk, item_bytes, systems, solve=None):
-    """Fits of n items built chunk by chunk and solved in few calls.
+def chunk_bounds(n, chunk):
+    """[(lo, hi)] runs of ``chunk`` items covering 0..n in order."""
+    return [(lo, min(lo + chunk, n)) for lo in range(0, n, chunk)]
+
+
+def solve_fits(bounds, item_bytes, systems, solve=None):
+    """Fits of the items of ``bounds`` (consecutive (lo, hi) runs, e.g.
+    ``chunk_bounds``) built run by run and solved in few calls.
 
     ``systems(lo, hi)`` returns the ``fit_systems`` tuple of items lo:hi
     with the item axis last among the batch axes (the JAX lax.map with
     batch_size=chunk, which never holds every item's (K, J) basis at
-    once).  Consecutive chunks are joined while their G and G_tau stay
+    once).  Consecutive runs are joined while their G and G_tau stay
     within ``engine_real.JOIN_BYTES`` (``item_bytes`` a joined item), and
     each group is solved by one ``gram_cholesky`` call.  Returns C
     (..., n, J) and mm (..., n).
     """
-    bounds = [(lo, min(lo + chunk, n)) for lo in range(0, n, chunk)]
     Cs, mms = [], []
     for g0, g1 in join_groups([hi - lo for lo, hi in bounds], item_bytes):
         parts = list(zip(*(systems(lo, hi) for lo, hi in bounds[g0:g1])))

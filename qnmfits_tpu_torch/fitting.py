@@ -1,6 +1,6 @@
-"""Public fitting entry points (port of the static-spectrum surface of
-qnmfits_tpu/fitting.py): the single fits, their dynamic forms, and the
-start-time, mode-set, (Mf, chif) and free-frequency sweeps.
+"""Public fitting entry points (port of qnmfits_tpu/fitting.py): the
+single fits, their dynamic forms, and the start-time, mode-set, (Mf, chif)
+and free-frequency sweeps, static or with time-dependent spectra.
 
 Every entry point takes ``device=`` ("cuda" by default, raising when
 there is none; "cpu" runs the plain PyTorch path).  The single fits solve
@@ -18,6 +18,7 @@ import torch
 
 from . import CDTYPE, RDTYPE, resolve_device
 from . import batched, ref_impl
+from .batched import _not_ported
 from .engine import _window, cached_evaluator, check_spin
 from .ops.cmath import damped_phase
 from .ops.solve import svd_lstsq
@@ -47,11 +48,6 @@ def _check_precision(precision):
             f"precision={precision!r}: qnmfits_tpu_torch computes in "
             "float64/complex128 only ('x64'); the JAX package's f32 path is "
             "a TPU workaround")
-
-
-def _not_ported(what, item):
-    raise NotImplementedError(
-        f"{what} is not ported to qnmfits_tpu_torch yet (ROADMAP {item})")
 
 
 # ---------------------------------------------------------------------------
@@ -229,16 +225,29 @@ def mismatch_t0_array(times, data, modes, Mf, chif, t0_array,
     engine: 'batched' (default) -- all start times on the complex fit core,
     any window method; 'fast' -- the factored kernel ('geq', t0_array
     sorted ascending); 'loop' -- the reference-style serial NumPy loop
-    (``ref_impl``, on the host).  dedup=True solves each distinct window
-    once (exact for static spectra); 'loop' always runs per t0.
-    Time-dependent Mf/chif, engine='sharded' and ``mesh`` are not ported.
+    (``ref_impl``, on the host).  With (K,) Mf/chif time tracks 'batched'
+    and 'fast' run the dynamic-spectrum sweep (any window method, any
+    order).  dedup=True solves each distinct window once (exact for
+    static spectra); 'loop' and the dynamic sweep always run per t0.
+    engine='sharded' and ``mesh`` are not ported.
     """
     _check_precision(precision)
-    batched._static_only(Mf, chif, delta)
     if engine == "loop":
         return ref_impl.mismatch_t0_array(
             times, data, modes, Mf, chif, t0_array, t0_method, T_array,
             spherical_modes, delta)
+    if np.ndim(Mf) != 0 or np.ndim(chif) != 0:
+        if engine == "sharded":
+            raise ValueError(
+                "engine='sharded' needs a static spectrum; use "
+                "engine='batched' or 'fast' for time-dependent Mf/chif")
+        batched._no_delta(delta)
+        if mesh is not None:
+            _not_ported("mesh= (a device mesh)", "A.10")
+        return batched.batch_mismatch_t0_dynamic(
+            times, data, modes, Mf, chif, t0_array, t0_method=t0_method,
+            T_array=T_array, spherical_modes=spherical_modes, engine=engine,
+            device=device)
     if engine == "sharded" or mesh is not None:
         _not_ported("engine='sharded' (a device mesh)", "A.10")
     if engine == "fast":
@@ -271,15 +280,23 @@ def mismatch_t0_mode_sets(times, data, mode_sets, Mf, chif, t0_array,
     window sweep).  chif and/or Mf may be 1-D arrays, a remnant axis R
     folded into the set axis.  bucket=True runs one factored sweep per
     padded width.  dedup=True solves each distinct window once (exact
-    for static spectra).  Runs on ``device``.  Returns mm (S, B), or
-    (S, R, B) with a remnant axis; with return_amplitudes=True also a
-    list of per-set complex (B, len(mode_set)) (or (R, B, len)) arrays.
-    ``mesh`` and dynamic=True are not ported.
+    for static spectra).  With dynamic=True, Mf/chif are instead scalars
+    or (K,) time tracks and every (set, t0) pair is a dynamic-spectrum fit
+    (any window method and order, never deduplicated).  Runs on
+    ``device``.  Returns mm (S, B), or (S, R, B) with a remnant axis; with
+    return_amplitudes=True also a list of per-set complex (B,
+    len(mode_set)) (or (R, B, len)) arrays.  ``mesh`` is not ported.
     """
     if mesh is not None:
         _not_ported("mesh= (the sharded mode-set sweep)", "A.10")
     if dynamic:
-        _not_ported("dynamic=True (time-dependent Mf/chif tracks)", "A.5")
+        if bucket:
+            raise ValueError("bucket=True is not supported for the "
+                             "dynamic mode-set sweep")
+        return batched.batch_mismatch_t0_modesets_dynamic(
+            times, data, mode_sets, Mf, chif, t0_array, t0_method=t0_method,
+            T_array=T_array, spherical_modes=spherical_modes,
+            return_amplitudes=return_amplitudes, device=device)
     return batched.batch_mismatch_t0_modesets(
         times, data, mode_sets, Mf, chif, t0_array, T_array=T_array,
         spherical_modes=spherical_modes, return_amplitudes=return_amplitudes,

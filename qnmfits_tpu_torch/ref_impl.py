@@ -1,9 +1,10 @@
-"""NumPy oracle for static-spectrum ringdown fits and their serial sweeps
-(port of the static part of qnmfits_tpu/ref_impl.py).
+"""NumPy oracle for ringdown fits, static and dynamic-spectrum, and their
+serial sweeps (port of qnmfits_tpu/ref_impl.py).
 
-Masked design matrices a[k, j] = exp(-i w_j (t_k - t0)), LAPACK SVD least
+Masked design matrices a[k, j] = exp(-i w_j (t_k - t0)) (with a time-
+dependent spectrum w_j(t_k) and mixing mu_j(t_k)), LAPACK SVD least
 squares (np.linalg.lstsq, rcond=None) and trapezoid mismatches, as the
-reference fitting engine computes them (qnmfits.py:478-673).  Frequencies
+reference fitting engine computes them (qnmfits.py:142-911).  Frequencies
 and mixing coefficients come from ``engine.SpectrumEvaluator``.  It shares
 no code with the sweeps it checks beyond the spectrum.  The serial loops
 are the ``engine='loop'`` paths of the public sweeps.
@@ -16,8 +17,9 @@ import numpy as np
 from .engine import SpectrumEvaluator
 
 __all__ = ["ringdown", "mismatch", "multimode_mismatch", "ringdown_fit",
-           "multimode_ringdown_fit", "mismatch_t0_array",
-           "mismatch_M_chi_grid", "mismatch_omega_grid"]
+           "dynamic_ringdown_fit", "multimode_ringdown_fit",
+           "dynamic_multimode_ringdown_fit", "fit_dispatch",
+           "mismatch_t0_array", "mismatch_M_chi_grid", "mismatch_omega_grid"]
 
 
 def ringdown(time, start_time, complex_amplitudes, frequencies):
@@ -118,6 +120,33 @@ def ringdown_fit(times, data, modes, Mf, chif, t0, t0_method="geq", T=100,
     }
 
 
+def _track(x, idx, n):
+    """A remnant track at the window's samples: a scalar repeated, or the
+    (K,) track's in-window samples."""
+    return np.full(n, x) if np.ndim(x) == 0 else np.asarray(x)[idx]
+
+
+def dynamic_ringdown_fit(times, data, modes, Mf, chif, t0, t0_method="geq",
+                         T=100):
+    """Fit with a time-dependent (Mf(t), chif(t)) spectrum
+    (reference qnmfits.py:318-475)."""
+    idx = mask_times(times, t0, T, t0_method)
+    tm, dm = np.asarray(times)[idx], np.asarray(data)[idx]
+    frequencies = SpectrumEvaluator(modes).omega(
+        _track(chif, idx, len(tm)), _track(Mf, idx, len(tm)))    # (J, K)
+    a = np.exp(-1j * frequencies * (tm - t0)).T
+    C, res, rank, sv = _lstsq(a, dm)
+    model = a @ C
+    return {
+        "residual": res,
+        "mismatch": mismatch(tm, model, dm),
+        "C": C, "data": dm, "model": model, "model_times": tm,
+        "t0": t0, "modes": modes,
+        "mode_labels": [str(m) for m in modes],
+        "frequencies": frequencies,
+    }
+
+
 def multimode_ringdown_fit(times, data_dict, modes, Mf, chif, t0,
                            t0_method="geq", T=100, spherical_modes=None):
     """Joint fit across spherical-harmonic modes with shared amplitudes
@@ -150,19 +179,65 @@ def multimode_ringdown_fit(times, data_dict, modes, Mf, chif, t0,
     }
 
 
-def _fit(times, data, modes, Mf, chif, t0, t0_method, T, spherical_modes,
-         delta):
-    """The fit of a static-spectrum sweep's loop: multimode for dict data,
-    single-series otherwise (reference qnmfits.py:1268-1299)."""
-    if np.ndim(Mf) or np.ndim(chif):
-        raise NotImplementedError(
-            "time-dependent Mf/chif (dynamic spectra) are not ported to "
-            "qnmfits_tpu_torch yet (ROADMAP A.5)")
+def dynamic_multimode_ringdown_fit(times, data_dict, modes, Mf, chif, t0,
+                                   t0_method="geq", T=100,
+                                   spherical_modes=None):
+    """Multimode fit with a time-dependent spectrum
+    (reference qnmfits.py:676-911)."""
+    if spherical_modes is None:
+        spherical_modes = list(data_dict.keys())
+    idx = mask_times(times, t0, T, t0_method)
+    tm = np.asarray(times)[idx]
+    masked = {lm: np.asarray(data_dict[lm])[idx] for lm in spherical_modes}
+    d = np.concatenate([masked[lm] for lm in spherical_modes])
+
+    chif_t = _track(chif, idx, len(tm))
+    ev = SpectrumEvaluator(modes, spherical_modes)
+    freqs = ev.omega(chif_t, _track(Mf, idx, len(tm))).T     # (K, J)
+    mu_blocks = list(np.moveaxis(ev.mu(chif_t), -1, 1))      # I x (K, J)
+
+    decay = np.exp(-1j * freqs * (tm[:, None] - t0))         # (K, J)
+    a = np.concatenate([mu * decay for mu in mu_blocks])     # (I*K, J)
+
+    C, res, rank, sv = _lstsq(a, d)
+    model = a @ C
+    weighted = np.concatenate(mu_blocks) * C
+
+    K = len(tm)
+    model_dict = {lm: model[i * K:(i + 1) * K]
+                  for i, lm in enumerate(spherical_modes)}
+    weighted_C = {lm: weighted[i * K:(i + 1) * K]
+                  for i, lm in enumerate(spherical_modes)}
+    return {
+        "residual": res,
+        "mismatch": multimode_mismatch(tm, model_dict, masked),
+        "C": C, "weighted_C": weighted_C,
+        "data": masked, "model": model_dict, "model_times": tm,
+        "t0": t0, "modes": modes,
+        "mode_labels": [str(m) for m in modes],
+        "frequencies": np.vstack(len(spherical_modes) * [freqs]),
+    }
+
+
+def _is_static(x):
+    return np.ndim(x) == 0
+
+
+def fit_dispatch(times, data, modes, Mf, chif, t0, t0_method, T,
+                 spherical_modes=None, delta=0.0):
+    """The fit of a sweep's loop, by (dict data?, static spectrum?) like
+    the reference's sweep loops (qnmfits.py:1268-1299)."""
+    static = _is_static(Mf) and _is_static(chif)
     if isinstance(data, dict):
-        return multimode_ringdown_fit(times, data, modes, Mf, chif, t0,
-                                      t0_method, T, spherical_modes)
-    return ringdown_fit(times, data, modes, Mf, chif, t0, t0_method, T,
-                        delta)
+        fit = multimode_ringdown_fit if static \
+            else dynamic_multimode_ringdown_fit
+        return fit(times, data, modes, Mf, chif, t0, t0_method, T,
+                   spherical_modes)
+    if static:
+        return ringdown_fit(times, data, modes, Mf, chif, t0, t0_method, T,
+                            delta)
+    return dynamic_ringdown_fit(times, data, modes, Mf, chif, t0, t0_method,
+                                T)
 
 
 def mismatch_t0_array(times, data, modes, Mf, chif, t0_array,
@@ -172,8 +247,8 @@ def mismatch_t0_array(times, data, modes, Mf, chif, t0_array,
     t0_array = np.asarray(t0_array)
     if np.ndim(T_array) == 0:
         T_array = np.full(len(t0_array), T_array)
-    return [_fit(times, data, modes, Mf, chif, t0, t0_method, T,
-                 spherical_modes, delta)["mismatch"]
+    return [fit_dispatch(times, data, modes, Mf, chif, t0, t0_method, T,
+                         spherical_modes, delta)["mismatch"]
             for t0, T in zip(t0_array, T_array)]
 
 
@@ -186,9 +261,9 @@ def mismatch_M_chi_grid(times, data, modes, Mf_minmax, chif_minmax, t0,
     chif_array = np.linspace(*chif_minmax, res)
     mm = np.empty(res * res)
     for i in range(res * res):
-        mm[i] = _fit(times, data, modes, Mf_array[i // res],
-                     chif_array[i % res], t0, t0_method, T, spherical_modes,
-                     delta)["mismatch"]
+        mm[i] = fit_dispatch(times, data, modes, Mf_array[i // res],
+                             chif_array[i % res], t0, t0_method, T,
+                             spherical_modes, delta)["mismatch"]
     return mm.reshape(res, res)
 
 

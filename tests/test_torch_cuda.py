@@ -158,3 +158,44 @@ def test_closest_dedup_keys_on_device(cuda):
         times[40] + dt * rng.uniform(0.49, 0.51, 100)]))
     for T in (20.0, 20.05):
         chip_smoke.check_closest_keys(dict(times=times, t0s=t0s, T=T), cuda)
+
+
+def test_dynamic_paths_through_kernel_match_plain(cuda):
+    """chip_smoke.py's phase 7 dynamic paths (D1-D3) at a small size:
+    exactly one launch each (the wide kernel's for the 17-mode set), the
+    kernel route against the plain-solve route, the NumPy oracle, and the
+    kernel's backward error on D1's and D2's systems."""
+    import chip_smoke
+    problem = chip_smoke.build_problem(**chip_smoke.SMALL)
+    specs = [s for s in chip_smoke.dynamic_specs(problem, "cuda")
+             if not s["key"].startswith("d4")]
+    paths = chip_smoke.run_specs(specs, "cuda")
+    assert [p["key"] for p in paths] == ["d1", "d2", "d3_geq", "d3_closest"]
+    assert [(p["launches"], p["wide_launches"]) for p in paths] == [
+        (1, 0), (1, 1), (1, 0), (1, 0)]
+    assert all(p["backward_err"] <= chip_smoke.KERNEL_BWD_TOL
+               for p in paths[:2])
+
+
+def test_events_through_kernel_match_plain(cuda):
+    """chip_smoke.py's phase 7 event batch (D4) at a small size, one
+    launch; engine='fast' on the card runs the 'batched' sweep (summed
+    Grams), on a grid that is not uniform too: the same results."""
+    import chip_smoke
+    import qnmfits_tpu_torch as tq
+    problem = chip_smoke.build_problem(**chip_smoke.SMALL)
+    specs = [s for s in chip_smoke.dynamic_specs(problem, "cuda")
+             if s["key"].startswith("d4")]
+    paths = chip_smoke.run_specs(specs, "cuda")
+    assert [(p["launches"], p["wide_launches"]) for p in paths] == [(1, 0)]
+    cat = problem["catalog"]
+    times = cat["times"] + 1e-3 * np.sin(np.arange(len(cat["times"])))
+    args = (times, cat["rows"], chip_smoke.EVENT_MODES, cat["Mfs"],
+            cat["chifs"], cat["t0s"])
+    for grid in (cat["times"], times):
+        args = (grid,) + args[1:]
+        mm_f, C_f = tq.fit_events(*args, T=cat["T"], engine="fast")
+        mm_b, C_b = tq.fit_events(*args, T=cat["T"])
+        assert np.all(np.isfinite(mm_f))
+        np.testing.assert_array_equal(mm_f, mm_b)
+        np.testing.assert_array_equal(C_f, C_b)

@@ -261,9 +261,12 @@ def test_t0_sweep_unported_and_bad_input_raise(single):
     chif_t = np.linspace(0.6, s["chif"], K)
     with pytest.raises(ValueError, match="delta"):
         tq.mismatch_t0_array(*args, chif_t, T0S, delta=0.01, device="cpu")
-    for engine in ("batched", "fast", "loop"):
-        with pytest.raises(NotImplementedError, match="A.5"):
-            tq.mismatch_t0_array(*args, chif_t, T0S, engine=engine,
+    with pytest.raises(ValueError, match="static spectrum"):
+        tq.mismatch_t0_array(*args, chif_t, T0S, engine="sharded",
+                             device="cpu")
+    for engine in ("batched", "fast"):
+        with pytest.raises(ValueError, match="tracks"):
+            tq.mismatch_t0_array(*args, chif_t[:-1], T0S, engine=engine,
                                  device="cpu")
     with pytest.raises(NotImplementedError, match="A.10"):
         tq.mismatch_t0_array(*args, s["chif"], T0S, engine="sharded",

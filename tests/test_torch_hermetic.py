@@ -32,7 +32,8 @@ problem = chip_smoke.build_problem(**chip_smoke.SMALL)
 out = chip_smoke.run_main_path(problem, "cpu")
 assert out["mm"].shape == (4, 64) and out["launches"] == 0
 paths = chip_smoke.run_paths(problem, "cpu")
-assert len(paths) == 13 and all(p["launches"] == 0 for p in paths)
+paths += chip_smoke.run_dynamic(problem, "cpu")[0]
+assert len(paths) == 18 and all(p["launches"] == 0 for p in paths)
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "qnmfits_tpu")
                 and sys.modules[m] is not None)
@@ -63,6 +64,7 @@ def test_port_and_smoke_run_without_jax():
     assert "HERMETIC-OK" in r.stdout
     assert "oracle" in r.stdout            # the phases ran their checks
     assert "40-mode set" in r.stdout and "96-mode set" in r.stdout
+    assert "D1 dynamic mode sets" in r.stdout and "D4 fit_events" in r.stdout
     new = _listing() - before
     assert not new, f"files written into the repository: {sorted(new)}"
 
@@ -75,6 +77,7 @@ def test_entry_point_without_cuda_raises(monkeypatch):
         tq.resolve_device()
     times, h = np.arange(0.0, 10.0, 0.1), np.zeros(100, complex)
     modes, t0s = [(2, 2, 0, 1)], np.array([0.0, 1.0])
+    chif_t = np.full(len(times), 0.692)
     calls = [
         lambda: tq.mismatch_t0_mode_sets(times, h, [modes], 0.952, 0.692,
                                          t0s),
@@ -88,6 +91,15 @@ def test_entry_point_without_cuda_raises(monkeypatch):
                                        (0.6, 0.7), 0.0, res=2),
         lambda: tq.mismatch_omega_grid(times, h, modes, 0.952, 0.692,
                                        (0.4, 0.5), (-0.2, -0.1), 0.0, res=2),
+        lambda: tq.mismatch_t0_array(times, h, modes, 0.952, chif_t, t0s),
+        lambda: tq.mismatch_t0_array(times, h, modes, 0.952, chif_t, t0s,
+                                     engine="fast"),
+        lambda: tq.mismatch_t0_mode_sets(times, h, [modes], 0.952, chif_t,
+                                         t0s, dynamic=True),
+        lambda: tq.fit_events(times, np.stack([h, h]), modes, 0.952, 0.692,
+                              t0s),
+        lambda: tq.fit_events(times, np.stack([h, h]), modes, 0.952, 0.692,
+                              t0s, engine="fast"),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="device='cpu'"):

@@ -176,8 +176,9 @@ def test_windows_match_jax(problem):
 
 def test_unsorted_and_unported_raise(problem):
     """Unsorted 'geq' start times, bad spins and bad arguments raise, and
-    so do the parts of the JAX signature the port does not have yet (a
-    device mesh, dynamic spectra)."""
+    so does the part of the JAX signature the port does not have yet (a
+    device mesh); dynamic=True refuses buckets and tracks of the wrong
+    length."""
     times, data, _ = problem
     kw = dict(spherical_modes=SPH, device="cpu")
     args = (times, data, MODE_SETS, 0.952)
@@ -197,6 +198,9 @@ def test_unsorted_and_unported_raise(problem):
         mismatch_t0_mode_sets(*args, 0.692, t0s, t0_method="GEQ", **kw)
     with pytest.raises(NotImplementedError, match="A.10"):
         mismatch_t0_mode_sets(*args, 0.692, t0s, mesh="auto", **kw)
-    with pytest.raises(NotImplementedError, match="A.5"):
+    with pytest.raises(ValueError, match="bucket"):
         mismatch_t0_mode_sets(*args, np.full(len(times), 0.692), t0s,
+                              dynamic=True, bucket=True, **kw)
+    with pytest.raises(ValueError, match="tracks"):
+        mismatch_t0_mode_sets(*args, np.full(len(times) - 1, 0.692), t0s,
                               dynamic=True, **kw)
