@@ -60,7 +60,23 @@ flushed line each with elapsed seconds:
    main path's systems of the same shape), and its call's device time
    split into Gram/projection products, elementwise work, the solve,
    host-device copies and the rest, with the device's idle share;
-8. a JSON line of the paths, a JSON line describing each kernel, and
+8. the optimisers at the same width, each through its public entry point
+   with the launch counts read as in phase 6 and held to the count derived
+   from the code (``opt_launches``): O1 ``free_frequency_fit_array`` on
+   the (2,2) row with the overtones (2,2,n=1..3) fixed and one free mode
+   (193 bordered seeds a window, then 30 Newton steps, each a forward, a
+   backward and two Hessian passes through the solve and a trial fit); O2
+   ``calculate_epsilon_array`` on both rows with the (2,2,n<8) ladder (189
+   seed fits and 5 polished trajectories a window); O3
+   ``mismatch_omega_grid(engine='fast')``, the bordered grid, which
+   launches no solve; and the one-window L-BFGS-B paths
+   ``calculate_epsilon`` and ``free_frequency_fit`` at t0 = 0, 10, 20
+   (two launches an objective evaluation).  Each is held against the same
+   call with the plain solve in its forward and backward passes, and its
+   oracle (Nelder-Mead, the one-window path, or the NumPy grid); O1's and
+   O2's gradients and Hessians through both routes, their device-time
+   split, and the solve on O2's own systems;
+9. a JSON line of the paths, a JSON line describing each kernel, and
    last the JSON ok line.
 
 Any failure raises and exits non-zero before the last line.
@@ -84,10 +100,10 @@ SPH = [(2, 2), (3, 2)]
 # CPU size.
 FULL = dict(t_range=(-50.0, 150.05), n_t0=8192, t0_range=(-5.0, 46.2),
             T=100.0, sets=tuple(range(16)), res=50, spins=8, events=8192,
-            event_t=(-5.0, 95.0), event_T=80.0)
+            event_t=(-5.0, 95.0), event_T=80.0, opt_maxiter=30)
 SMALL = dict(t_range=(-10.0, 30.05), n_t0=64, t0_range=(-2.0, 10.0),
              T=20.0, sets=(1, 3, 9, 13), res=6, spins=3, events=48,
-             event_t=(-5.0, 35.0), event_T=25.0)
+             event_t=(-5.0, 35.0), event_T=25.0, opt_maxiter=8)
 STRATA = (-5.0, -1.0, 0.5, 2.5, 10.0, 25.0, 40.0)     # bench.py:160-179
 
 MAIN_TOL = 1e-11      # kernel path vs plain-solve path, |mismatch| abs
@@ -114,11 +130,12 @@ def log(msg):
 
 
 def build_problem(t_range, n_t0, t0_range, T, sets, res=6, spins=3,
-                  events=48, event_t=(-5.0, 35.0), event_T=25.0):
+                  events=48, event_t=(-5.0, 35.0), event_T=25.0,
+                  opt_maxiter=8):
     """The bench problem: a synthetic (2,2,n<8) ringdown with mixing
     into (2,2) and (3,2), sampled at 0.1 M; with the grid resolution and
     the number of remnant spins of phase 6, the remnant tracks and the
-    catalog of phase 7."""
+    catalog of phase 7, and the Newton steps of phase 8."""
     from qnmfits_tpu_torch.testing import (bench_mode_sets,
                                            synthetic_multimode)
     times = np.arange(*t_range, 0.1)
@@ -133,7 +150,8 @@ def build_problem(t_range, n_t0, t0_range, T, sets, res=6, spins=3,
                 spins=np.linspace(CHIF - 0.03, CHIF + 0.03, spins),
                 Mf_t=np.linspace(1.02 * MF, MF, K),
                 chif_t=np.linspace(0.60, CHIF, K),
-                catalog=build_catalog(events, event_t, event_T))
+                catalog=build_catalog(events, event_t, event_T),
+                opt_maxiter=opt_maxiter)
 
 
 EVENT_MODES = [(2, 2, n, 1) for n in range(4)]
@@ -207,16 +225,16 @@ def oracle_diff(problem, mm, mode_sets, chif=CHIF, t0_method="geq",
 
 
 class PlainSolve:
-    """The plain-solve route: the kernels' plain PyTorch version, keeping
-    the systems of every call (the same systems the kernel route
-    solves)."""
+    """The plain-solve route: the kernels' plain PyTorch version (through
+    which autograd differentiates, on a differentiable path), keeping the
+    systems of every call (the same systems the kernel route solves)."""
 
     def __init__(self):
         self.systems = []
 
     def __call__(self, G, b):
         from qnmfits_tpu_torch import engine_real
-        self.systems.append((G, b))
+        self.systems.append((G.detach(), b.detach()))
         return engine_real._regularised_solve_plain(G, b)
 
 
@@ -946,10 +964,7 @@ def measure_paths(records, max_abs, build, random_wide):
                         for n, r in random_wide.items()},
                 max_abs_err_wide=max(max_abs[n] for n in CHECK_WIDE_N),
                 backward_err=max(r["backward_err"] for r in out.values()),
-                registers={k: v for k, v in regs.items() if "wide" in k},
-                event_timings=len(EVENT_TIMINGS),
-                profiles_dropping=len(DROPPED),
-                records_dropped_max=max(DROPPED, default=0))
+                registers={k: v for k, v in regs.items() if "wide" in k})
 
 
 # ---------------------------------------------------------------------------
@@ -1070,7 +1085,7 @@ def _kernel_kind(name):
     return "elementwise" if "elementwise" in low else "rest"
 
 
-def device_split(fn, reps=2):
+def device_split(fn, reps=2, host_ops=True):
     """Device time of one fn() call split by kind of record: the Gram and
     projection products (GEMM kernels), elementwise kernels (the basis
     build among them), the solve kernels, the host-device copies and
@@ -1079,21 +1094,26 @@ def device_split(fn, reps=2):
     counted as in ``device_ms``.  wall_ms is a warm call's wall time
     without the profiler (mean over reps), profiled_wall_ms the same under
     the profiler, and idle_share 1 - busy / profiled_wall_ms: busy time
-    and the wall it divides come from the same profiled calls.  None
-    where the profiler recorded no device time."""
+    and the wall it divides come from the same profiled calls; peak_gib
+    the device memory the unprofiled calls peaked at.  host_ops=False
+    records the device alone (no host operator events, which the
+    optimisers' autograd issues by the hundred thousand).  None where the
+    profiler recorded no device time."""
     import math
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     t = time.perf_counter()
     for _ in range(reps):
         fn()
     torch.cuda.synchronize()
     plain_wall = (time.perf_counter() - t) / reps * 1e3
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    with profile(activities=[ProfilerActivity.CPU] * host_ops
+                 + [ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
         for _ in range(reps):
             fn()
@@ -1116,6 +1136,7 @@ def device_split(fn, reps=2):
     if busy == 0:
         return None
     return dict(wall_ms=plain_wall, profiled_wall_ms=wall, busy_ms=busy,
+                peak_gib=peak,
                 idle_share=1.0 - busy / wall, kernels=kernels, copies=copies,
                 **{f"{k}_ms": v for k, v in split.items()})
 
@@ -1197,6 +1218,365 @@ def run_dynamic(problem, device, gpu=None, main_systems=None):
     return records, solves, wall
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: the optimisers
+# ---------------------------------------------------------------------------
+
+# O1 fits the (2,2) row with the overtones (2,2,n=1..3) fixed and one free
+# mode, which finds the fundamental: a free mode on top of (2,2,n<4) would
+# have nothing left to find once the ringdown's higher overtones have
+# decayed below the data's precision (from t0 ~ 10 on), and its optimum
+# would be any frequency.
+OPT_FIXED = [(2, 2, n, 1) for n in range(1, 4)]
+OPT_ORACLE_T0S = (0.0, 2.5, 5.0, 10.0, 15.0, 20.0, 30.0, 40.0)
+FF_ORACLE_TOL = 1e-5     # omega vs Nelder-Mead (tests/test_optimize.py:121)
+EPS_ORACLE_TOL = 1e-6    # (Mf, chif) vs one-window calculate_epsilon (:140)
+OPT_MM_TOL = 1e-10       # kernel vs plain route: mismatch at the optimum
+# ... and parameters where both report ok.  A Newton endpoint is fixed
+# only to where the gradient's rounding balances the Hessian: two routes
+# that differ by rounding alone end 1.3e-8 apart at the SMALL size on the
+# CPU, so the JAX package's own optimiser bar (tests/test_optimize.py)
+# gates and the measured gap is reported.
+OPT_PARAM_TOL = 1e-6
+# The one-window L-BFGS-B paths: parameters kernel vs plain route, and
+# against Nelder-Mead (omega; the remnant is reported).
+LBFGS_PARAM_TOL = 1e-6
+# Gradient and Hessian, kernel vs plain route, 0.01 off the optimum.  Two
+# backward-stable solves differ by ~cond * eps in the amplitudes, and the
+# 8-overtone ladder's equilibrated Grams reach cond ~1e8: O2's read
+# 1.8e-8 on the H100, O1's (four modes) 4.9e-13 (PERF.md, section 6).
+GRAD_RTOL = 1e-6
+
+
+def _nearest(t0s, values):
+    return sorted({int(np.argmin(np.abs(t0s - v))) for v in values
+                   if t0s[0] <= v <= t0s[-1]})
+
+
+def opt_launches(problem, kind, K, J):
+    """The solve launches an array optimiser must make, derived from the
+    code: its window chunks (optimize.free_frequency_chunks /
+    epsilon_chunks over the distinct windows) times, per chunk, the seed
+    solves (none for the bordered free-frequency seeds; one per join group
+    of each of the remnant's two seed stages), one exact fit of the
+    winning seed (free frequency), 7 a Newton step (the forward, the
+    backward, two for each of the two Hessian rows, the trial fit) and 2
+    for the final gradient.  Returns (launches, forward solves, chunks)."""
+    from qnmfits_tpu_torch import engine_real, optimize
+    t0s, maxiter = problem["t0s"], problem["opt_maxiter"]
+    n_win = len(optimize._windows(problem["times"], t0s, problem["T"], "geq",
+                                  True)[0])
+    launches = forward = 0
+    if kind == "ff":
+        chunks = optimize.free_frequency_chunks(n_win, K, J - 1)
+        for _ in chunks:
+            launches += 1 + 7 * maxiter + 2
+            forward += 1 + 2 * maxiter + 1
+    else:
+        chunks = optimize.epsilon_chunks(n_win, K, J)
+        for lo, hi in chunks:
+            for items, per in optimize.epsilon_seed_items(hi - lo, K, J):
+                sizes = [min(per, items - a) for a in range(0, items, per)]
+                groups = len(engine_real.join_groups(sizes, 2 * J * J * 16))
+                launches += groups
+                forward += groups
+            launches += 7 * maxiter + 2
+            forward += 2 * maxiter + 1
+    return launches, forward, len(chunks)
+
+
+def opt_gradients(problem, device, kind, x, n_check=64):
+    """The objective's gradient and Hessian (optimize._grad) through the
+    kernel route against the plain route, on the first n_check distinct
+    windows with t0 >= 0: the largest relative differences 0.01 off their
+    optimum x (in both parameters), and at x, where the gradient is a
+    cancellation to ~0, the gradient's difference as a step,
+    max |d g| / max |H|.  Returns (grad_rel, hess_rel, grad_step)."""
+    import torch
+    from qnmfits_tpu_torch import engine_real, optimize
+    from qnmfits_tpu_torch.engine import cached_evaluator
+    from qnmfits_tpu_torch.testing import bench_mode_sets
+    t0s, Ts, _ = optimize._windows(problem["times"], problem["t0s"],
+                                   problem["T"], "geq", True)
+    keep = np.flatnonzero(t0s >= 0)[:n_check]
+    dev = torch.device(device)
+    if kind == "ff":
+        rows = np.asarray(problem["data"][(2, 2)])[None]
+        fixed = torch.as_tensor(cached_evaluator(OPT_FIXED).omega(CHIF, MF),
+                                device=dev)
+        spectrum = optimize.free_frequency_spectrum(fixed)
+    else:
+        rows = np.stack([problem["data"][lm] for lm in SPH])
+        ev = cached_evaluator(bench_mode_sets()[DEEPEST], SPH)
+        spectrum = optimize.epsilon_spectrum(ev, SPH, 1.0, dev)
+    xt = torch.as_tensor(np.asarray(x)[keep], device=dev)
+    win = torch.arange(len(keep), device=dev)
+    out = {}
+    for name, solve in (("kernel", None),
+                        ("plain", engine_real._regularised_solve_plain)):
+        prob = optimize._Problem(problem["times"], rows, t0s[keep], Ts[keep],
+                                 "geq", dev, solve)
+        out[name] = [optimize._grad(lambda y: prob.mm(*spectrum(y), win),
+                                    xt + shift, hessian=True)
+                     for shift in (0.01, 0.0)]
+    (g, H), (g0, H0) = out["kernel"]
+    (gp, Hp), (gp0, _) = out["plain"]
+    return (float((g - gp).abs().max() / gp.abs().max()),
+            float((H - Hp).abs().max() / Hp.abs().max()),
+            float((g0 - gp0).abs().max() / H0.abs().max()))
+
+
+def optimiser_specs(problem, device):
+    """The paths of phase 8.  Each spec: key, name, ``kernel`` and
+    ``plain`` (the call through the kernel route and with a given solve),
+    ``expect`` (the launches on the card), ``check`` (kernel result, plain
+    result -> dict of gaps, raising on a failed gate)."""
+    from qnmfits_tpu_torch import fitting, optimize, ref_impl
+    from qnmfits_tpu_torch.testing import bench_mode_sets
+    import qnmfits_tpu_torch as tq
+    times, data, t0s, T = (problem[k] for k in ("times", "data", "t0s", "T"))
+    row, deep = data[(2, 2)], bench_mode_sets()[DEEPEST]
+    K, pre = len(times), t0s < 0
+    oracle_idx = _nearest(t0s, OPT_ORACLE_T0S)
+    specs = []
+
+    def route_gaps(name, mm, mm_p, dx, ok, ok_p):
+        """Kernel route against plain route: the mismatch at the optimum
+        (t0 >= 0 gated, t0 < 0 reported) and the largest parameter gap dx
+        (per start time) where both report ok."""
+        both = ok & ok_p & ~pre
+        gaps = dict(route_mm=float(np.max(np.abs(mm - mm_p)[~pre])),
+                    route_mm_pre=float(np.max(np.abs(mm - mm_p)[pre],
+                                              initial=0.0)),
+                    route_param=float(np.max(dx[both], initial=0.0)),
+                    ok_share=float(np.mean(ok[~pre])),
+                    both_ok=int(both.sum()))
+        if not (gaps["route_mm"] <= OPT_MM_TOL
+                and gaps["route_param"] <= OPT_PARAM_TOL):
+            raise RuntimeError(f"{name}: kernel and plain routes disagree: "
+                               f"{gaps}")
+        return gaps
+
+    ff_kw = dict(modes=OPT_FIXED, Mf=MF, chif=CHIF, T_array=T,
+                 maxiter=problem["opt_maxiter"], return_mismatch=True,
+                 device=device)
+
+    def ff_check(out, out_p):
+        (w, mm, ok), (w_p, mm_p, ok_p) = out, out_p
+        gaps = route_gaps("O1", mm, mm_p, np.abs(w - w_p), ok, ok_p)
+        gaps["oracle"] = max(abs(w[i] - ref_impl.free_frequency_fit(
+            times, row, float(t0s[i]), modes=OPT_FIXED, Mf=MF, chif=CHIF,
+            T=T)) for i in oracle_idx)
+        if not gaps["oracle"] <= FF_ORACLE_TOL:
+            raise RuntimeError(f"O1: omega {gaps['oracle']:.3e} from "
+                               "Nelder-Mead")
+        return gaps
+
+    ff_l, ff_f, ff_c = opt_launches(problem, "ff", K, len(OPT_FIXED) + 1)
+    specs.append(dict(
+        key="o1", name=f"O1 free_frequency_fit_array, (2,2) row, "
+        f"{len(OPT_FIXED)} fixed + 1 free", expect=ff_l, forward=ff_f,
+        chunks=ff_c, kind="ff",
+        kernel=lambda: tq.free_frequency_fit_array(times, row, t0s, **ff_kw),
+        plain=lambda solve: optimize.free_frequency_fit_array(
+            times, row, t0s, solve=solve, **ff_kw), check=ff_check))
+
+    eps_kw = dict(spherical_modes=SPH, T_array=T,
+                  maxiter=problem["opt_maxiter"], return_mismatch=True,
+                  device=device)
+
+    def eps_check(out, out_p):
+        (_, Mf, chif, mm, ok), (_, Mf_p, chif_p, mm_p, ok_p) = out, out_p
+        x, x_p = np.stack([Mf, chif], 1), np.stack([Mf_p, chif_p], 1)
+        gaps = route_gaps("O2", mm, mm_p, np.abs(x - x_p).max(1), ok, ok_p)
+        gaps["oracle"] = max(
+            float(np.max(np.abs(np.array(fitting.calculate_epsilon(
+                times, data, deep, MF, CHIF, float(t0s[i]), T=T,
+                spherical_modes=SPH, device=device)[1:]) - x[i])))
+            for i in oracle_idx)
+        if not gaps["oracle"] <= EPS_ORACLE_TOL:
+            raise RuntimeError(f"O2: remnant {gaps['oracle']:.3e} from the "
+                               "one-window calculate_epsilon")
+        return gaps
+
+    eps_l, eps_f, eps_c = opt_launches(problem, "eps", K, len(deep))
+    specs.append(dict(
+        key="o2", name=f"O2 calculate_epsilon_array, both rows, "
+        f"(2,2,n<{len(deep)})", expect=eps_l, forward=eps_f, chunks=eps_c,
+        kind="eps",
+        kernel=lambda: tq.calculate_epsilon_array(times, data, deep, MF, CHIF,
+                                                  t0s, **eps_kw),
+        plain=lambda solve: optimize.calculate_epsilon_array(
+            times, data, deep, MF, CHIF, t0s, solve=solve, **eps_kw),
+        check=eps_check))
+
+    res = problem["res"]
+    omega_args = (times, row, deep[:2], MF, CHIF, *OMEGA_BOX, GRID_T0)
+
+    def o3_check(mm, _):
+        mm_b = fitting.mismatch_omega_grid(*omega_args, T=T, res=res,
+                                           device=device)
+        ref = ref_impl.mismatch_omega_grid(*omega_args, T=T, res=res)
+        gaps = dict(vs_batched=_diff(mm, mm_b, None)[0],
+                    oracle=_diff(mm, ref, None)[0])
+        if not (gaps["vs_batched"] <= MAIN_TOL
+                and gaps["oracle"] <= ORACLE_TOL):
+            raise RuntimeError(f"O3: {gaps}")
+        return gaps
+
+    specs.append(dict(
+        key="o3", name=f"O3 mismatch_omega_grid engine='fast' res={res}",
+        expect=0, forward=0, chunks=0,
+        kernel=lambda: fitting.mismatch_omega_grid(
+            *omega_args, T=T, res=res, engine="fast", device=device),
+        plain=None, check=o3_check))
+
+    def single_calls(solve=None):
+        out = []
+        for t0 in SINGLE_T0S:
+            out.append(optimize.calculate_epsilon_gradient(
+                times, data, deep, MF, CHIF, t0, T=T, spherical_modes=SPH,
+                device=device, solve=solve)[1:])
+            w = optimize.free_frequency_fit_gradient(
+                times, row, t0, modes=OPT_FIXED, Mf=MF, chif=CHIF, T=T,
+                device=device, solve=solve)
+            out.append((w.real, w.imag))
+        return np.array(out)
+
+    def single_check(x, x_p):
+        gaps = dict(route_param=float(np.max(np.abs(x - x_p))))
+        nm = []
+        for t0 in SINGLE_T0S:
+            nm.append(ref_impl.calculate_epsilon(
+                times, data, deep, MF, CHIF, t0, T=T,
+                spherical_modes=SPH)[1:])
+            w = ref_impl.free_frequency_fit(times, row, t0, modes=OPT_FIXED,
+                                            Mf=MF, chif=CHIF, T=T)
+            nm.append((w.real, w.imag))
+        d = np.abs(x - np.array(nm)).max(1)
+        gaps["oracle_remnant"] = float(d[0::2].max())
+        gaps["oracle"] = float(d[1::2].max())
+        if not (gaps["route_param"] <= LBFGS_PARAM_TOL
+                and gaps["oracle"] <= FF_ORACLE_TOL):
+            raise RuntimeError(f"one-window L-BFGS-B paths: {gaps}")
+        return gaps
+
+    specs.append(dict(
+        key="single", name="calculate_epsilon + free_frequency_fit "
+        f"('gradient'), t0 = {SINGLE_T0S}", expect=None, forward=None,
+        chunks=0, kernel=lambda: single_calls(),
+        plain=lambda solve: single_calls(solve), check=single_check))
+    return specs
+
+
+def run_optimisers(problem, device, gpu=None):
+    """Phase 8: drive each optimiser path through its public entry point
+    with the launch counts read as in phase 6, check the launches against
+    the derived counts (the one-window paths: twice their objective
+    evaluations), hold each against its plain route and its oracle, and
+    on the card check the objectives' gradients and Hessians through both
+    routes, split each array optimiser's device time and time the solve on
+    O2's own systems.  Returns (path records, O2's solve timings)."""
+    from qnmfits_tpu_torch import optimize
+    t = time.perf_counter()
+    records, solves = [], {}
+    for spec in optimiser_specs(problem, device):
+        optimize.evaluations = 0
+        out, n, n_wide, wall = drive(spec["kernel"])
+        expect = (2 * optimize.evaluations if spec["expect"] is None
+                  else spec["expect"])
+        rec = dict(key=spec["key"], name=spec["name"], launches=n,
+                   wide_launches=n_wide, expected_launches=expect,
+                   chunks=spec["chunks"], wall_s=wall)
+        if device != "cpu" and (n, n_wide) != (expect, 0):
+            raise RuntimeError(f"{spec['name']}: {n} launches ({n_wide} "
+                               f"wide), derived {expect}")
+        plain = None
+        if spec["plain"] is not None:
+            plain = PlainSolve()
+            t_p = time.perf_counter()
+            out_p = spec["plain"](plain)
+            rec["plain_wall_s"] = time.perf_counter() - t_p
+            calls = len(plain.systems)
+            if spec["forward"] is not None and calls != spec["forward"]:
+                raise RuntimeError(f"{spec['name']}: the plain route made "
+                                   f"{calls} forward solves, derived "
+                                   f"{spec['forward']}")
+        else:
+            out_p = None
+        for v in (out if isinstance(out, tuple) else (out,)):
+            if not np.all(np.isfinite(np.asarray(v, float)
+                                      if np.asarray(v).dtype != complex
+                                      else np.abs(v))):
+                raise RuntimeError(f"{spec['name']}: non-finite output")
+        rec.update(spec["check"](out, out_p))
+        log(f"{spec['name']}: launches {n} (derived {expect}), wall "
+            f"{wall:.2f} s; " + ", ".join(
+                f"{k} {v:.3e}" for k, v in rec.items()
+                if isinstance(v, float) and k != "wall_s"))
+        if device != "cpu" and spec["key"] in ("o1", "o2"):
+            x = (np.stack([out[0].real, out[0].imag], 1) if spec["key"] == "o1"
+                 else np.stack([out[1], out[2]], 1))
+            x = _distinct(problem, x)
+            rec["grad_rel"], rec["hess_rel"], rec["grad_step"] = \
+                opt_gradients(problem, device, spec["kind"], x)
+            if not (rec["grad_rel"] <= GRAD_RTOL
+                    and rec["hess_rel"] <= GRAD_RTOL):
+                raise RuntimeError(f"{spec['name']}: gradient or Hessian "
+                                   "through the kernel and the plain route "
+                                   f"differ: {rec['grad_rel']:.3e}, "
+                                   f"{rec['hess_rel']:.3e}")
+            rec["split"] = device_split(spec["kernel"], reps=1,
+                                        host_ops=False)
+        if device != "cpu" and spec["key"] == "o2":
+            # The seed stage's first launch and the Newton stage's.
+            n_win = len(_distinct(problem, problem["t0s"]))
+            for batch in (n_win * (len(optimize._OFFS)
+                                   + len(optimize._GLOBAL)),
+                          n_win * (1 + optimize.NPOL)):
+                G, b = next(s for s in plain.systems if len(s[1]) == batch)
+                r = solves[batch] = time_solves(G, b)
+                r["bound_ms"], r["bound_by"] = bound_ms(batch, b.shape[-1])
+                r["bound_share"] = r["bound_ms"] / r["ms"]
+                log(f"solve on O2's {batch} systems (n={b.shape[-1]}) on "
+                    f"{gpu}: {r['ms']:.4f} ms, bound {r['bound_ms']:.3e} ms "
+                    f"({r['bound_by']}), plain {r['plain_ms']:.4f} ms, "
+                    f"torch.linalg {r['library_ms']:.4f} ms, backward error "
+                    f"{r['backward_err']:.3e}")
+                if not r["backward_err"] <= KERNEL_BWD_TOL:
+                    raise RuntimeError("O2: kernel backward error "
+                                       f"{r['backward_err']:.3e}")
+        if "grad_rel" in rec:
+            log(f"  gradient / Hessian kernel vs plain route, 0.01 off the "
+                f"optimum: {rec['grad_rel']:.3e} / {rec['hess_rel']:.3e} "
+                f"relative (bound {GRAD_RTOL:.0e}); at the optimum the "
+                f"gradient's difference as a step {rec['grad_step']:.3e}")
+        split = rec.get("split")
+        if split is not None:
+            log(f"  device-time split: warm wall {split['wall_ms']:.1f} ms "
+                f"unprofiled, {split['profiled_wall_ms']:.1f} ms profiled; "
+                f"busy {split['busy_ms']:.1f} ms, idle share "
+                f"{split['idle_share']:.3f}; peak memory "
+                f"{split['peak_gib']:.2f} GiB; {split['kernels']} kernels: "
+                f"products {split['products_ms']:.2f}, elementwise "
+                f"{split['elementwise_ms']:.2f}, solve "
+                f"{split['solve_ms']:.3f}, copies {split['copies_ms']:.2f}, "
+                f"rest {split['rest_ms']:.2f} ms")
+        records.append(rec)
+    wall = time.perf_counter() - t
+    log(f"phase 8: {len(records)} paths in {wall:.1f} s")
+    return records, solves, wall
+
+
+def _distinct(problem, x):
+    """x over every start time -> x over the distinct windows (the first
+    start time of each)."""
+    from qnmfits_tpu_torch import batched
+    dd = batched._window_dedup(problem["times"], problem["t0s"],
+                               np.full_like(problem["t0s"], problem["T"]))
+    return x if dd is None else x[dd[0]]
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1248,8 +1628,21 @@ def main():
         rec["dynamic_paths"] = {
             k: {x: r[x] for x in keys if x in r} for k, r in solves.items()
             if (r["n"] > chol_cuda.TEAM_MAX_N) == (rec is wide)}
-    print(json.dumps({"paths": paths + dynamic,
-                      "phase7_wall_s": phase7_wall}), flush=True)
+    optimisers, opt_solves, phase8_wall = run_optimisers(problem, device,
+                                                         gpu)
+    record["optimiser_paths"] = {
+        p["key"]: dict(launches=p["launches"],
+                       expected_launches=p["expected_launches"])
+        for p in optimisers}
+    record["optimiser_solves"] = {
+        b: {x: r[x] for x in keys if x in r} for b, r in opt_solves.items()}
+    # Profiler health over the whole run, phases 7 and 8 included.
+    wide.update(event_timings=len(EVENT_TIMINGS),
+                profiles_dropping=len(DROPPED),
+                records_dropped_max=max(DROPPED, default=0))
+    print(json.dumps({"paths": paths + dynamic + optimisers,
+                      "phase7_wall_s": phase7_wall,
+                      "phase8_wall_s": phase8_wall}), flush=True)
     print(json.dumps({"kernels": [record, wide]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

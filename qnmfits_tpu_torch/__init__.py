@@ -6,9 +6,12 @@ surface: the single fits (``ringdown_fit``, ``multimode_ringdown_fit``
 and their dynamic forms), ``mismatch_t0_array`` (static or with Mf/chif
 time tracks), ``mismatch_t0_mode_sets`` (windows 'geq' or 'closest', a
 remnant axis, width buckets, ``dynamic=True``), the (Mf, chif) and
-free-frequency grids, and the catalog event batch ``fit_events``.  Every
-batched Hermitian solve runs in the hand-written FP64 CUDA kernels
-(``ops/chol_cuda.py``, ``csrc/chol_solve.cu``).
+free-frequency grids, the catalog event batch ``fit_events``, and the
+optimisers (``calculate_epsilon``, ``free_frequency_fit`` and their
+every-start-time forms ``calculate_epsilon_array`` and
+``free_frequency_fit_array``).  Every batched Hermitian solve runs in the
+hand-written FP64 CUDA kernels (``ops/chol_cuda.py``,
+``csrc/chol_solve.cu``), forward and, for the optimisers, backward.
 
 Device and dtype policy:
 
@@ -48,7 +51,9 @@ def resolve_device(device="cuda") -> torch.device:
 
 
 from .fitting import (  # noqa: E402
+    calculate_epsilon,
     dynamic_multimode_ringdown_fit,
+    free_frequency_fit,
     dynamic_ringdown_fit,
     mismatch,
     mismatch_M_chi_grid,
@@ -61,6 +66,10 @@ from .fitting import (  # noqa: E402
     ringdown_fit,
 )
 from .batched import batch_fit_events as fit_events  # noqa: E402
+from .optimize import (  # noqa: E402
+    calculate_epsilon_array,
+    free_frequency_fit_array,
+)
 
 __all__ = [
     "CDTYPE", "RDTYPE", "resolve_device",
@@ -69,4 +78,6 @@ __all__ = [
     "multimode_ringdown_fit", "dynamic_multimode_ringdown_fit",
     "mismatch_t0_array", "mismatch_t0_mode_sets",
     "mismatch_M_chi_grid", "mismatch_omega_grid", "fit_events",
+    "calculate_epsilon", "free_frequency_fit", "calculate_epsilon_array",
+    "free_frequency_fit_array",
 ]

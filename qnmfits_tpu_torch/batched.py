@@ -26,7 +26,8 @@ from . import CDTYPE, RDTYPE, resolve_device
 from .engine import (SpectrumEvaluator, _window, cached_evaluator,
                      check_spin, chunk_bounds, dynamic_fit_systems,
                      fit_systems, solve_fits)
-from .engine_real import (sweep_t0_factored_real,
+from .engine_real import (sweep_omega_grid_bordered_real,
+                          sweep_t0_factored_real,
                           sweep_t0_modesets_factored_real)
 from .ref_impl import _delta_factor
 
@@ -34,7 +35,8 @@ __all__ = [
     "batch_fit_events", "batch_mismatch_t0", "batch_mismatch_t0_dynamic",
     "batch_mismatch_t0_fast", "batch_mismatch_t0_modesets",
     "batch_mismatch_t0_modesets_dynamic", "batch_mismatch_M_chi",
-    "batch_mismatch_omega", "sweep_events_real", "sweep_t0_core",
+    "batch_mismatch_omega", "batch_mismatch_omega_bordered",
+    "sweep_events_real", "sweep_t0_core",
     "sweep_t0_modesets", "sweep_t0_modesets_dynamic_real",
 ]
 
@@ -782,6 +784,16 @@ def batch_mismatch_M_chi(times, data, modes, Mf_minmax, chif_minmax, t0,
     return mm.reshape(res, res)
 
 
+def _omega_fixed(modes, Mf, chif):
+    """The fixed QNM frequencies of the free-frequency grids and fits
+    (batched.py:747): Mf = 1 and chif = 0 where None."""
+    if not len(modes):
+        return np.zeros(0, complex)
+    return cached_evaluator(_canon(modes)).omega(
+        float(chif) if chif is not None else 0.0,
+        float(Mf) if Mf is not None else 1.0)
+
+
 def batch_mismatch_omega(times, data, modes, Mf, chif, re_minmax, im_minmax,
                          t0, t0_method="geq", T=100, res=50, device="cuda",
                          solve=None):
@@ -795,13 +807,46 @@ def batch_mismatch_omega(times, data, modes, Mf, chif, re_minmax, im_minmax,
     RE, IM = np.meshgrid(np.linspace(*re_minmax, res),
                          np.linspace(*im_minmax, res), indexing="ij")
     wf = (RE + 1j * IM).ravel()
-    fixed = (cached_evaluator(_canon(modes)).omega(
-        float(chif) if chif is not None else 0.0,
-        float(Mf) if Mf is not None else 1.0) if len(modes)
-        else np.zeros(0, complex))
+    fixed = _omega_fixed(modes, Mf, chif)
     omegas = np.concatenate(
         [np.broadcast_to(fixed, (wf.shape[0], fixed.shape[0])), wf[:, None]],
         axis=1)
     mus = np.ones((wf.shape[0], 1, omegas.shape[1]), complex)
     mm = _grid_sweep(times, rows, omegas, mus, t0, T, t0_method, dev, solve)
     return mm.reshape(res, res).T
+
+
+def batch_mismatch_omega_bordered(times, data, modes, Mf, chif, re_minmax,
+                                  im_minmax, t0, t0_method="geq", T=100,
+                                  res=50, a_chunk=8, mesh=None,
+                                  return_amplitudes=False, device="cuda"):
+    """The free complex-frequency grid through the bordered fixed block
+    (batched.py:799): the fixed QNMs' Gram block is factored once and
+    each grid point is a bordered solve through L^-1, with closed-form
+    cross Grams on uniform time grids.  It solves no batched system, so
+    it launches no solve kernel.  mm is (res, res) indexed [im, re] like
+    the reference (qnmfits.py:1825); with return_amplitudes=True also C
+    (res, res, Jf + 1) in the same layout (fixed modes first, the free
+    mode last).  ``mesh`` is not ported."""
+    if mesh is not None:
+        _not_ported("mesh= (the sharded bordered grid)", "A.10")
+    check_spin(chif)
+    _check_t0_method(t0_method)
+    dev = resolve_device(device)
+    times, rows, _ = _prep(times, data, None)
+    _single_row(rows, "batch_mismatch_omega_bordered")
+    times_t = _real(times, dev)
+    t0_t = torch.tensor(float(t0), dtype=RDTYPE, device=dev)
+    w = _window(times_t, t0_t, float(T), t0_method)
+    C, mm = sweep_omega_grid_bordered_real(
+        times_t, _cplx(rows[0], dev),
+        _cplx(_omega_fixed(modes, Mf, chif), dev),
+        _real(np.linspace(*re_minmax, res), dev),
+        _real(np.linspace(*im_minmax, res), dev), t0_t, w, a_chunk=a_chunk,
+        analytic=_uniform_spacing(times))
+    mm = mm.cpu().numpy().reshape(res, res).T
+    if return_amplitudes:
+        # Kernel order is q = re_idx * res + im_idx; realign to mm's
+        # [im, re] layout.
+        return mm, C.cpu().numpy().reshape(res, res, -1).transpose(1, 0, 2)
+    return mm

@@ -61,7 +61,9 @@ def _cached_evaluator(modes, sph):
 
 class SpectrumEvaluator:
     """Packed spline coefficients for one mode set; ``omega`` and ``mu``
-    evaluate them at a scalar spin or a (Q,) array of spins."""
+    evaluate them in NumPy at a scalar spin or a (Q,) array of spins, and
+    ``omega_t`` / ``mu_t`` in torch at a tensor of spins, differentiably
+    (the JAX evaluator's jitted form, engine.py:125-183)."""
 
     def __init__(self, modes, spherical_modes=None,
                  tables: SpectrumTables | None = None):
@@ -89,6 +91,56 @@ class SpectrumEvaluator:
             self.mu_nonzero = nz.reshape(I, J)
         else:
             self.mu_coeffs = None
+        self._on_device = {}             # (name, device) -> tensor
+
+    def _const(self, name, device):
+        """The NumPy constant ``name`` as a tensor on ``device``, made once."""
+        key = (name, str(device))
+        if key not in self._on_device:
+            self._on_device[key] = torch.as_tensor(
+                np.asarray(getattr(self, name)), device=device)
+        return self._on_device[key]
+
+    def _spline_t(self, name, chif):
+        """Packed coefficients ``name`` (..., P-1, 4) at spins chif (N,):
+        the segment searchsorted(grid, chif, side='right') - 1, clipped to
+        the table, and Horner's rule in dx = chif - grid[i], so the
+        derivative is the cubic's on that segment.  Returns (..., N)."""
+        grid = self._const("chi_grid", chif.device)
+        i = torch.clamp(torch.searchsorted(grid, chif.detach(), right=True)
+                        - 1, 0, grid.shape[0] - 2)
+        dx = chif - grid[i]
+        c = self._const(name, chif.device)[..., i, :]
+        return ((c[..., 0] * dx + c[..., 1]) * dx + c[..., 2]) * dx + c[..., 3]
+
+    def omega_t(self, chif, Mf, delta_factor=None):
+        """(N, J) frequencies at spins chif (N,) and masses Mf (N,) or a
+        scalar, float64 tensors, differentiable in both; the mirror,
+        nonlinear-sum and (J,) perturbation-factor logic of ``omega``.
+        Spins are not range-checked (the callers clip them)."""
+        w = self._spline_t("omega_coeffs", chif)                # (J, Kc, N)
+        dev = chif.device
+        w = torch.where(self._const("signs", dev)[..., None] > 0, w,
+                        -w.conj())
+        w = torch.where(self._const("mask", dev)[..., None], w,
+                        torch.zeros((), dtype=w.dtype, device=dev)).sum(dim=1)
+        if delta_factor is not None:
+            df = torch.as_tensor(np.asarray(delta_factor, float), device=dev)
+            w = w * (df[:, None] if df.ndim else df)
+        return (w / Mf).T
+
+    def mu_t(self, chif):
+        """(N, I, J) mixing coefficients at spins chif (N,), a float64
+        tensor, differentiable; the logic of ``mu``."""
+        if self.mu_coeffs is None:
+            raise ValueError("no spherical_modes were compiled")
+        dev = chif.device
+        mu = self._spline_t("mu_coeffs", chif)                  # (I, J, N)
+        mu = torch.where(self._const("mu_signs", dev)[..., None] > 0, mu,
+                         self._const("mu_parity", dev)[..., None] * mu.conj())
+        mu = torch.where(self._const("mu_nonzero", dev)[..., None], mu,
+                         torch.zeros((), dtype=mu.dtype, device=dev))
+        return mu.permute(2, 0, 1)
 
     def _check(self, chif):
         if np.ndim(chif) == 0:

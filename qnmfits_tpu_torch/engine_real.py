@@ -17,10 +17,13 @@ import math
 import torch
 
 from .ops import chol_cuda
-from .ops.chol import complex_cholesky_solve_unrolled
+from .ops.chol import (complex_cholesky_factor,
+                       complex_cholesky_solve_unrolled, complex_lower_inverse)
+from .ops.cmath import damped_phase
 from .ops.windows import trapz_weights, window_geq
 
-__all__ = ["JOIN_BYTES", "join_groups", "sweep_t0_factored_real",
+__all__ = ["JOIN_BYTES", "RegularisedSolve", "join_groups",
+           "sweep_omega_grid_bordered_real", "sweep_t0_factored_real",
            "sweep_t0_modesets_factored_real"]
 
 # Most bytes of G and G2 (or G and G_tau) that a sweep joins for one solve
@@ -78,15 +81,53 @@ def join_groups(sizes, item_bytes):
     return groups
 
 
-def _regularised_solve(G, b):
-    """Batched equilibrated Hermitian solve (engine_real.py:109): G
-    (B, J, J), b (B, J) complex128 -> x (B, J).  CUDA tensors run the
-    hand-written kernel, CPU tensors its plain version."""
+def _solve_detached(G, b):
+    """The solve on tensors outside the autograd graph: the hand-written
+    kernel on CUDA tensors, its plain version on CPU ones."""
     if G.is_cuda:
         return chol_cuda.regularised_solve(G, b)
     if G.device.type == "cpu":
-        return _regularised_solve_plain(G, b)
+        with torch.no_grad():
+            return _regularised_solve_plain(G, b)
     raise ValueError(f"no solve for device {G.device}")
+
+
+class RegularisedSolve(torch.autograd.Function):
+    """The regularised solve as a twice-differentiable function of (G, b).
+
+    For Hermitian G the solve computes x = M^-1 b on the live columns and
+    0 on the dead ones, with M = G + f diag(Re G_jj) and f = 500 J eps
+    (the equilibration cancels).  M is Hermitian, so the gradient of b is
+    the same solve applied to the gradient of x, and that of G is
+    -gb x^H plus f times its real diagonal; dead rows and columns come
+    out zero, since x and gb are zero there.  The backward is written in
+    differentiable operations and this function itself, so a second
+    backward (a Hessian) launches the solve again.  Only G's lower
+    triangle is read: the gradient is that of the Hermitian G.
+    """
+
+    @staticmethod
+    def forward(ctx, G, b):
+        x = _solve_detached(G.detach(), b.detach())
+        ctx.save_for_backward(G, x)
+        return x
+
+    @staticmethod
+    def backward(ctx, gx):
+        G, x = ctx.saved_tensors
+        gb = RegularisedSolve.apply(G, gx)
+        gM = -gb[..., :, None] * x.conj()[..., None, :]
+        floor = 500.0 * G.shape[-1] * torch.finfo(G.real.dtype).eps
+        diag = torch.diagonal(gM, dim1=-2, dim2=-1).real
+        return gM + torch.diag_embed(floor * diag).to(gM.dtype), gb
+
+
+def _regularised_solve(G, b):
+    """Batched equilibrated Hermitian solve (engine_real.py:109): G
+    (B, J, J), b (B, J) complex128 -> x (B, J).  CUDA tensors run the
+    hand-written kernel, CPU tensors its plain version, forward and
+    backward (``RegularisedSolve``)."""
+    return RegularisedSolve.apply(G, b)
 
 
 def _fitted_step(times):
@@ -341,3 +382,190 @@ def sweep_t0_factored_real(times, data, omega, mu, t0s, Ts, col_mask=None,
         times, data, omega[None], mu[None], t0s, Ts, col_mask[None],
         chunk=chunk, analytic=analytic, solve=solve)
     return C[0], mm[0]
+
+
+# ---------------------------------------------------------------------------
+# The bordered free-frequency sweep (engine_real.py:1200-1501)
+# ---------------------------------------------------------------------------
+#
+# One free complex frequency is appended to Jf fixed QNMs: the fixed
+# columns are the same at every trial frequency, so each window's fixed
+# Gram block is assembled, dead-masked, equilibrated, floored and
+# factored once, and each trial frequency then costs its free column's
+# phases, one row of a cross-Gram product and an O(Jf) bordered solve
+# through the stored L^-1.  The bordered matrix [[A + floor, g~],
+# [g~^H, 1 + floor]] is the one the full solve factors; the two
+# deviations of the JAX kernel are kept (the dead threshold uses the
+# fixed block's largest diagonal, and the Schur pivot is clamped at the
+# floor).  Batched over a leading window axis N.
+
+def _window_scalars(times, w, t0):
+    """(s, m) of windows w (..., K) starting at t0 (...): the offset of
+    the first in-window sample from t0 (gathered from the grid) and the
+    sample count (engine_real.py:569).  Exact for 'geq' and 'closest'
+    windows."""
+    K = times.shape[0]
+    wint = (w > 0.5).to(torch.int64)
+    m = wint.sum(dim=-1)
+    a = (torch.cumsum(wint, dim=-1) == 0).sum(dim=-1)     # leading zeros
+    t_first = times[torch.clamp(a, 0, K - 1)]
+    return torch.where(m > 0, t_first - t0, torch.zeros_like(t_first)), m
+
+
+def _omega_border_prep(times, d, fixed, t0, w):
+    """The fixed-block quantities of windows (t0 (N,), w (N, K) binary)
+    on data d (K,) complex with fixed frequencies (Jf,) complex
+    (engine_real.py:1225).  Returns a dict consumed by
+    ``_omega_border_apply`` / ``_omega_border_solve``."""
+    Jf = fixed.shape[-1]
+    eps = torch.finfo(times.dtype).eps
+    tiny = torch.finfo(times.dtype).tiny
+    floor = 500.0 * (Jf + 1) * eps
+    tau = trapz_weights(times, w)                           # (N, K)
+    dt = (times - t0[:, None]) * w                          # clamped rows
+    phi = damped_phase(fixed, dt[..., None])                # (N, K, Jf)
+    phiw = phi * w[..., None]
+    phit = phi * tau[..., None]
+    dw = d * w                                              # (N, K)
+    dtau = d * tau
+    Gw = phiw.mH @ phiw                                     # (N, Jf, Jf)
+    Gt = phit.mH @ phi
+    rhs = (phiw.mH @ dw[..., None])[..., 0]                 # (N, Jf)
+    rt = (phit.mH @ d[:, None].to(phi.dtype))[..., 0]
+    data_norm = (tau * (d.real ** 2 + d.imag ** 2)).sum(dim=-1)
+
+    # Dead-mask, equilibrate and floor the fixed block once.
+    diag = torch.diagonal(Gw, dim1=-2, dim2=-1).real
+    maxdiag = (diag.amax(dim=-1) if Jf
+               else torch.zeros(dt.shape[0], dtype=dt.dtype, device=dt.device))
+    dead = diag <= maxdiag[:, None] * (1e3 * eps) ** 2
+    eye = torch.eye(Jf, dtype=Gw.dtype, device=Gw.device)
+    Gw = torch.where(dead[:, :, None] | dead[:, None, :], eye, Gw)
+    rhs = torch.where(dead, torch.zeros((), dtype=rhs.dtype,
+                                        device=rhs.device), rhs)
+    Di = 1.0 / torch.sqrt(torch.clamp(
+        torch.diagonal(Gw, dim1=-2, dim2=-1).real, min=tiny))
+    A = Gw * Di[:, :, None] * Di[:, None, :] + floor * eye
+
+    # The bordered solve goes through the triangular factor: its last
+    # pivot (1 + floor) - ||L^-1 g~||^2 cancels when the free column nears
+    # the fixed span, and the triangular route errs by sqrt(cond(A)) eps
+    # where a Hermitian inverse would err by cond(A) eps.
+    Linv = complex_lower_inverse(complex_cholesky_factor(A))
+    e = (Linv @ (rhs * Di)[..., None])[..., 0]              # L^-1 r~
+    y = (Linv.mH @ e[..., None])[..., 0]                    # A^-1 r~
+    # Right factor of the cross product: for free-column phases phif
+    # (N, Q, K), phif @ Mc gives the cross Grams with the window and
+    # trapezoid weights and the conjugated data projections.
+    Mc = torch.cat([phiw.conj(), phit.conj(), dw.conj()[..., None],
+                    dtau.conj()[..., None]], dim=-1)        # (N, K, 2Jf+2)
+    return dict(dt=dt, tau=tau, w=w, Mc=Mc, Di=Di, dead=dead,
+                maxdiag=maxdiag, floor=floor, Linv=Linv, e=e, y=y, rt=rt,
+                Gt=Gt, data_norm=data_norm)
+
+
+def _omega_border_apply(prep, phif, Ef2):
+    """Bordered solves and mismatches for free-column phases phif
+    (N, Q, K) complex with squared magnitudes Ef2 (N, Q, K)
+    (engine_real.py:1309).  Returns Cf (N, Q, Jf), c (N, Q), mm (N, Q)."""
+    Jf = prep["Di"].shape[-1]
+    Z = phif @ prep["Mc"]                                   # (N, Q, 2Jf+2)
+    gam = (Ef2 @ prep["w"][..., None])[..., 0]
+    gamt = (Ef2 @ prep["tau"][..., None])[..., 0]
+    return _omega_border_solve(prep, Z[..., :Jf], Z[..., Jf:2 * Jf],
+                               Z[..., 2 * Jf].conj(),
+                               Z[..., 2 * Jf + 1].conj(), gam, gamt)
+
+
+def _omega_border_solve(prep, g, gt, bet, btau, gam, gamt):
+    """The bordered block-elimination solve and mismatch from each trial
+    frequency's cross pieces (engine_real.py:1344): fixed-free cross
+    Grams g / gt (N, Q, Jf) (window and trapezoid weights), the free
+    column's data projections bet / btau (N, Q) and its norms gam / gamt
+    (N, Q).  Returns Cf (N, Q, Jf), c (N, Q), mm (N, Q)."""
+    eps = torch.finfo(gam.dtype).eps
+    tiny = torch.finfo(gam.dtype).tiny
+    Di, Linv, floor = prep["Di"], prep["Linv"], prep["floor"]
+    sf = 1.0 / torch.sqrt(torch.clamp(gam, min=tiny))
+    dead_f = gam <= prep["maxdiag"][:, None] * (1e3 * eps) ** 2
+    gte = torch.where(prep["dead"][:, None, :],
+                      torch.zeros((), dtype=g.dtype, device=g.device),
+                      g * (Di[:, None, :] * sf[..., None]))
+
+    # u = L^-1 g~ per trial: ||u||^2 and u^H e stand for g~^H A^-1 g~ and
+    # g~^H A^-1 r~ with sqrt(cond(A)) eps error.
+    u = gte @ Linv.transpose(-1, -2)
+    uu = (u.real ** 2 + u.imag ** 2).sum(dim=-1)
+    s = torch.clamp((1.0 + floor) - uu, min=floor)
+    ue = (u.conj() * prep["e"][:, None, :]).sum(dim=-1)
+    zero = torch.zeros((), dtype=bet.dtype, device=bet.device)
+    ct = torch.where(dead_f, zero, (bet * sf - ue) / s)
+
+    # v = L^-H u; C_f = (y - v c~) Di.
+    v = u @ Linv.conj()
+    Cf = (prep["y"][:, None, :] - v * ct[..., None]) * Di[:, None, :]
+    c = ct * sf
+
+    num = ((Cf * prep["rt"][:, None, :].conj()).real.sum(dim=-1)
+           + (c * btau.conj()).real)
+    GC = Cf @ prep["Gt"].transpose(-1, -2)
+    t_ff = (Cf.conj() * GC).real.sum(dim=-1)
+    cross = 2.0 * ((Cf.conj() * gt).sum(dim=-1) * c).real
+    t_bb = (c.real ** 2 + c.imag ** 2) * gamt
+    mm = 1.0 - num / torch.sqrt((t_ff + cross + t_bb)
+                                * prep["data_norm"][:, None])
+    return Cf, c, mm
+
+
+def sweep_omega_grid_bordered_real(times, d, fixed, re_axis, im_axis, t0, w,
+                                   a_chunk: int = 8, analytic: bool = False):
+    """The bordered sweep of one window (t0 scalar tensor, w (K,)) over a
+    separable (Re omega) x (Im omega) grid (engine_real.py:1406), in
+    chunks of ``a_chunk`` Re values (the JAX lax.map).  Grid order is
+    meshgrid(re, im, indexing='ij').ravel(): q = a * B + b.
+
+    The free column factorises, e^{Im_b dt} e^{-i Re_a dt}, so the
+    transcendentals are (A + B) K.  analytic=True (uniform time grids
+    only) takes the cross Grams and the free column's norms in closed
+    form (geometric series) and the data projections as separable
+    products, so no (Q, K) free-column phases are built.
+    Returns C (A * B, Jf + 1) complex (fixed modes first) and mm (A * B,).
+    """
+    prep = _omega_border_prep(times, d, fixed, t0.reshape(1), w[None])
+    dt, tau = prep["dt"][0], prep["tau"][0]
+    K, Jf, Bn = times.shape[0], fixed.shape[-1], im_axis.shape[0]
+    Ef = torch.exp(im_axis[:, None] * dt[None, :])          # (B, K)
+    if analytic:
+        s, m = _window_scalars(times, w, t0)
+        dlt = _fitted_step(times)
+        gam_b, gamt_b = (x.real for x in _geom_series_eval(
+            dlt, K, 2.0 * im_axis, torch.zeros_like(im_axis), s, m))
+        # Data projections: rows Ef_b * (w d) and Ef_b * (tau d).
+        Yw = (Ef * (d * w)).T.to(d.dtype)                  # (K, B)
+        Yt = (Ef * (d * tau)).T.to(d.dtype)
+    Cs, cs, mms = [], [], []
+    for lo in range(0, re_axis.shape[0], a_chunk):
+        ra = re_axis[lo:lo + a_chunk]
+        ac = ra.shape[0]
+        ph = ra[:, None] * dt[None, :]                      # (ac, K)
+        if analytic:
+            nu_re = (fixed.imag[None, :] + im_axis[:, None])[None]
+            nu_im = fixed.real[None, None, :] - ra[:, None, None]
+            g, gt = _geom_series_eval(dlt, K, nu_re, nu_im, s, m)
+            eia = torch.complex(torch.cos(ph), torch.sin(ph))
+            pieces = (g.reshape(1, ac * Bn, Jf), gt.reshape(1, ac * Bn, Jf),
+                      (eia @ Yw).reshape(1, -1), (eia @ Yt).reshape(1, -1),
+                      gam_b.expand(ac, Bn).reshape(1, -1),
+                      gamt_b.expand(ac, Bn).reshape(1, -1))
+            Cf, c, mm = _omega_border_solve(prep, *pieces)
+        else:
+            phif = torch.complex(torch.cos(ph)[:, None, :] * Ef[None],
+                                 -torch.sin(ph)[:, None, :] * Ef[None])
+            Ef2 = (Ef * Ef).expand(ac, Bn, K)
+            Cf, c, mm = _omega_border_apply(
+                prep, phif.reshape(1, ac * Bn, K), Ef2.reshape(1, ac * Bn, K))
+        Cs.append(Cf[0])
+        cs.append(c[0])
+        mms.append(mm[0])
+    C = torch.cat([torch.cat(Cs), torch.cat(cs)[:, None]], dim=1)
+    return C, torch.cat(mms)

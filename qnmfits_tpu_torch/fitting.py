@@ -35,6 +35,7 @@ __all__ = [
     "multimode_ringdown_fit", "dynamic_multimode_ringdown_fit",
     "mismatch_t0_array", "mismatch_t0_mode_sets",
     "mismatch_M_chi_grid", "mismatch_omega_grid",
+    "calculate_epsilon", "free_frequency_fit",
 ]
 
 
@@ -304,19 +305,20 @@ def mismatch_t0_mode_sets(times, data, mode_sets, Mf, chif, t0_array,
 
 
 _GRID_NOT_PORTED = {
-    "fast": "the split-complex grid kernels (ROADMAP A.4, B.3, B.4)",
+    "fast": "the split-complex grid kernels (ROADMAP A.4, B.3)",
     "fast-full": "the split-complex grid kernels (ROADMAP A.4, B.3)",
     "sharded": "a device mesh (ROADMAP A.10)",
 }
 
 
-def _grid_engine(engine, mesh):
-    if engine in _GRID_NOT_PORTED or mesh is not None:
+def _grid_engine(engine, mesh, ported=("batched", "loop")):
+    if mesh is not None:
+        engine = "sharded"
+    if engine not in ported and engine in _GRID_NOT_PORTED:
         raise NotImplementedError(
-            f"engine={engine!r}{' with mesh=' if mesh is not None else ''}"
-            f" is not ported to qnmfits_tpu_torch yet: "
-            f"{_GRID_NOT_PORTED.get(engine, _GRID_NOT_PORTED['sharded'])}")
-    if engine not in ("batched", "loop"):
+            f"engine={engine!r} is not ported to qnmfits_tpu_torch yet: "
+            f"{_GRID_NOT_PORTED[engine]}")
+    if engine not in ported:
         raise ValueError(f"unknown engine {engine!r}")
 
 
@@ -346,13 +348,56 @@ def mismatch_omega_grid(times, data, modes, Mf, chif, re_minmax, im_minmax,
                         device="cuda"):
     """Mismatch over a complex-frequency grid for one free mode on top of
     fixed QNMs (reference qnmfits.py:1679-1827), transposed like the
-    reference.  engine: 'batched' (default) or 'loop'."""
+    reference.  engine: 'batched' (default; one batched sweep through the
+    CUDA solve), 'fast' (the bordered fixed block, factored once, with a
+    bordered solve per grid point) or 'loop'."""
     _check_precision(precision)
-    _grid_engine(engine, mesh)
+    _grid_engine(engine, mesh, ("batched", "fast", "loop"))
     if engine == "loop":
         return ref_impl.mismatch_omega_grid(
             times, data, modes, Mf, chif, re_minmax, im_minmax, t0,
             t0_method, T, res)
+    if engine == "fast":
+        return batched.batch_mismatch_omega_bordered(
+            times, data, modes, Mf, chif, re_minmax, im_minmax, t0,
+            t0_method=t0_method, T=T, res=res, device=device)
     return batched.batch_mismatch_omega(
         times, data, modes, Mf, chif, re_minmax, im_minmax, t0,
         t0_method=t0_method, T=T, res=res, device=device)
+
+
+# ---------------------------------------------------------------------------
+# Optimisers (fitting.py:426-479)
+# ---------------------------------------------------------------------------
+
+def calculate_epsilon(times, data, modes, Mf, chif, t0, t0_method="geq",
+                      T=100, spherical_modes=None, min_method="gradient",
+                      delta=0.0, x0=None, device="cuda"):
+    """Best-fit remnant (Mf, chif) and its distance epsilon from the given
+    one (reference qnmfits.py:1418-1594).  min_method='gradient'
+    (default) runs L-BFGS-B on the differentiable mismatch on ``device``
+    (``optimize.calculate_epsilon_gradient``); any scipy method name runs
+    the NumPy oracle (``ref_impl.calculate_epsilon``) on the host."""
+    if min_method == "gradient":
+        from .optimize import calculate_epsilon_gradient
+        return calculate_epsilon_gradient(
+            times, data, modes, Mf, chif, t0, t0_method, T,
+            spherical_modes, delta, x0, device=device)
+    return ref_impl.calculate_epsilon(
+        times, data, modes, Mf, chif, t0, t0_method, T, spherical_modes,
+        min_method, delta, x0)
+
+
+def free_frequency_fit(times, data, t0, modes=[], Mf=None, chif=None,
+                       t0_method="geq", T=100, min_method="gradient",
+                       device="cuda"):
+    """Best free complex frequency on top of fixed QNMs (reference
+    qnmfits.py:1905-2043).  min_method='gradient' (default) runs L-BFGS-B
+    on the differentiable mismatch on ``device``; any scipy method name
+    runs the NumPy oracle on the host."""
+    if min_method == "gradient":
+        from .optimize import free_frequency_fit_gradient
+        return free_frequency_fit_gradient(
+            times, data, t0, modes, Mf, chif, t0_method, T, device=device)
+    return ref_impl.free_frequency_fit(
+        times, data, t0, modes, Mf, chif, t0_method, T, min_method)

@@ -164,8 +164,16 @@ def regularised_solve(G: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Launch a kernel: G (B, n, n) and b (B, n) complex128 on one CUDA
     device, any n >= 1 (the team kernel up to n = 16, the wide kernel
     above).  Returns x (B, n), the equilibrated, dead-column masked,
-    floored solution of G x = b (``_regularised_solve``)."""
+    floored solution of G x = b (``_regularised_solve``).  Tensors that
+    require grad raise: the result would be cut from the graph
+    (``engine_real.RegularisedSolve`` differentiates the solve)."""
     global launches, wide_launches
+    if G.requires_grad or b.requires_grad:
+        raise RuntimeError(
+            "regularised_solve writes its result through raw pointers, "
+            "outside the autograd graph: call it through "
+            "engine_real.RegularisedSolve (engine_real._regularised_solve) "
+            "with tensors that require grad")
     if not (G.is_cuda and b.is_cuda and G.device == b.device):
         raise ValueError("regularised_solve takes CUDA tensors on one device")
     if G.dtype != torch.complex128 or b.dtype != torch.complex128:

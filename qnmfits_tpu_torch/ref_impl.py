@@ -19,7 +19,8 @@ from .engine import SpectrumEvaluator
 __all__ = ["ringdown", "mismatch", "multimode_mismatch", "ringdown_fit",
            "dynamic_ringdown_fit", "multimode_ringdown_fit",
            "dynamic_multimode_ringdown_fit", "fit_dispatch",
-           "mismatch_t0_array", "mismatch_M_chi_grid", "mismatch_omega_grid"]
+           "mismatch_t0_array", "mismatch_M_chi_grid", "mismatch_omega_grid",
+           "calculate_epsilon", "free_frequency_fit"]
 
 
 def ringdown(time, start_time, complex_amplitudes, frequencies):
@@ -287,3 +288,47 @@ def mismatch_omega_grid(times, data, modes, Mf, chif, re_minmax, im_minmax,
         C, *_ = _lstsq(a, dm)
         mm[i] = mismatch(tm, a @ C, dm)
     return mm.reshape(res, res).T
+
+
+def calculate_epsilon(times, data, modes, Mf, chif, t0, t0_method="geq",
+                      T=100, spherical_modes=None, min_method="Nelder-Mead",
+                      delta=0.0, x0=None):
+    """Best-fit (Mf, chif) by mismatch minimisation with a scipy method;
+    epsilon distance from the true remnant (reference
+    qnmfits.py:1418-1594)."""
+    from scipy.optimize import minimize
+
+    def objective(x):
+        chif_x = min(max(x[1], 0.0), 0.99)
+        return fit_dispatch(times, data, modes, x[0], chif_x, t0, t0_method,
+                            T, spherical_modes, delta)["mismatch"]
+
+    res = minimize(objective, x0 if x0 is not None else [Mf, chif],
+                   method=min_method, bounds=[(0, 2.0), (0, 0.99)],
+                   options={"xatol": 1e-6, "disp": False})
+    Mf_bf, chif_bf = res.x
+    eps = np.sqrt((Mf_bf - Mf) ** 2 + (chif_bf - chif) ** 2)
+    return eps, Mf_bf, chif_bf
+
+
+def free_frequency_fit(times, data, t0, modes=[], Mf=None, chif=None,
+                       t0_method="geq", T=100, min_method="Nelder-Mead"):
+    """Best free complex frequency on top of fixed QNMs with a scipy
+    method (reference qnmfits.py:1905-2043)."""
+    from scipy.optimize import minimize
+
+    idx = mask_times(times, t0, T, t0_method)
+    tm, dm = np.asarray(times)[idx], np.asarray(data)[idx]
+    fixed = (SpectrumEvaluator(modes).omega(chif, Mf) if len(modes)
+             else np.zeros(0, complex))
+
+    def objective(x):
+        freqs = np.concatenate([fixed, [x[0] + 1j * x[1]]])
+        a = _design_matrix(tm, t0, freqs)
+        C, *_ = _lstsq(a, dm)
+        return mismatch(tm, a @ C, dm)
+
+    res = minimize(objective, [1, -0.5], method=min_method,
+                   bounds=[(0, 2), (-1, 0)],
+                   options={"xatol": 1e-8, "disp": False})
+    return res.x[0] + 1j * res.x[1]

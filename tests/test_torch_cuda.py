@@ -199,3 +199,79 @@ def test_events_through_kernel_match_plain(cuda):
         assert np.all(np.isfinite(mm_f))
         np.testing.assert_array_equal(mm_f, mm_b)
         np.testing.assert_array_equal(C_f, C_b)
+
+
+@pytest.mark.parametrize("n", [1, 5, 8, 16, 17])
+def test_solve_gradients_through_kernel_match_plain(cuda, n):
+    """RegularisedSolve on the card: the gradient and a Hessian-vector
+    product of a real loss of the solution through the kernel (one launch
+    forward, one in the first backward, two in the second) against
+    autograd through the plain solve, on random Hermitian batches with
+    dead columns and padding (n = 16 / 17: the team / wide switch)."""
+    G0, b0 = random_hermitian_systems(64, n, seed=n, n_pad=n // 4)
+    G0 = torch.as_tensor(G0, dtype=torch.complex128, device=cuda)
+    b0 = torch.as_tensor(b0, dtype=torch.complex128, device=cuda)
+    w = torch.linspace(0.5, 1.5, n, dtype=torch.float64, device=cuda)
+
+    def grads(solve, counts):
+        M = G0.clone().requires_grad_(True)
+        b = b0.clone().requires_grad_(True)
+        chol_cuda.launches = 0
+        x = solve((M + M.mH) / 2, b)
+        counts.append(chol_cuda.launches)
+        loss = (w * x.abs() ** 2).sum() + x.real.sum()
+        gM, gb = torch.autograd.grad(loss, (M, b), create_graph=True)
+        counts.append(chol_cuda.launches)
+        hv = torch.autograd.grad(gM.real.sum() + gb.imag.sum(), (M, b))
+        counts.append(chol_cuda.launches)
+        return [t.detach() for t in (gM, gb) + hv]
+
+    counts, plain_counts = [], []
+    got = grads(engine_real._regularised_solve, counts)
+    ref = grads(engine_real._regularised_solve_plain, plain_counts)
+    assert counts == [1, 2, 4] and plain_counts == [0, 0, 0]
+    for a, c in zip(got, ref):
+        assert float((a - c).abs().max()) <= 1e-10 * float(c.abs().max())
+
+
+def test_kernel_wrapper_refuses_grad_tensors(cuda):
+    G, b = random_hermitian_systems(4, 5, seed=3)
+    G = torch.as_tensor(G, dtype=torch.complex128, device=cuda)
+    b = torch.as_tensor(b, dtype=torch.complex128, device=cuda)
+    before = chol_cuda.launches
+    for args in ((G.clone().requires_grad_(True), b),
+                 (G, b.clone().requires_grad_(True))):
+        with pytest.raises(RuntimeError, match="RegularisedSolve"):
+            chol_cuda.regularised_solve(*args)
+    assert chol_cuda.launches == before
+
+
+@pytest.mark.parametrize("n", [1, 4, 8])
+def test_factor_and_inverse_on_card_match_cpu(cuda, n):
+    from qnmfits_tpu_torch.ops.chol import (complex_cholesky_factor,
+                                            complex_lower_inverse)
+    G, _ = random_hermitian_systems(513, n, seed=n)
+    d = np.sqrt(np.abs(np.diagonal(G, axis1=1, axis2=2)))
+    A = torch.as_tensor(G / d[:, :, None] / d[:, None, :]
+                        + 500 * (n + 1) * 2.2e-16 * np.eye(n))
+    L = complex_cholesky_factor(A)
+    X = complex_lower_inverse(L)
+    L_c = complex_cholesky_factor(A.to(cuda))
+    X_c = complex_lower_inverse(L_c)
+    assert _rel(L_c.reshape(513, -1).cpu(), L.reshape(513, -1)) <= 1e-13
+    assert _rel(X_c.reshape(513, -1).cpu(), X.reshape(513, -1)) <= 1e-13
+
+
+def test_optimiser_paths_through_kernel_match_plain(cuda):
+    """chip_smoke.py's phase 8 at a small size: O1-O3 and the one-window
+    L-BFGS-B paths, each with the launches derived from the code, held
+    against its plain route and its oracle, with O1's and O2's gradients
+    and Hessians through both routes."""
+    import chip_smoke
+    problem = chip_smoke.build_problem(**chip_smoke.SMALL)
+    paths, solves, _ = chip_smoke.run_optimisers(problem, "cuda")
+    assert [p["key"] for p in paths] == ["o1", "o2", "o3", "single"]
+    assert [p["launches"] == p["expected_launches"] for p in paths] == [
+        True] * 4
+    assert paths[2]["launches"] == 0 and paths[0]["launches"] > 0
+    assert solves

@@ -327,8 +327,7 @@ def test_grids_unported_and_bad_input_raise(single, multi):
         with pytest.raises(NotImplementedError, match=item):
             tq.mismatch_M_chi_grid(*args, (0.9, 1.0), (0.6, 0.8), t0=0.0,
                                    engine=engine, device="cpu")
-    for engine, item in (("fast", "B.4"), ("fast-full", "B.3"),
-                         ("sharded", "A.10")):
+    for engine, item in (("fast-full", "B.3"), ("sharded", "A.10")):
         with pytest.raises(NotImplementedError, match=item):
             tq.mismatch_omega_grid(*args, s["Mf"], s["chif"], (0.4, 0.6),
                                    (-0.2, -0.05), t0=0.0, engine=engine,

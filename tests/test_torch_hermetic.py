@@ -23,7 +23,7 @@ for name in ("jax", "jaxlib", "qnmfits_tpu"):
 sys.path.insert(0, {repo!r})
 import qnmfits_tpu_torch
 from qnmfits_tpu_torch import (batched, engine, engine_real, fitting,
-                               ref_impl, testing)
+                               optimize, ref_impl, testing)
 from qnmfits_tpu_torch.ops import chol, chol_cuda, cmath, solve, windows
 from qnmfits_tpu_torch.spectrum import tables
 import chip_smoke
@@ -33,7 +33,8 @@ out = chip_smoke.run_main_path(problem, "cpu")
 assert out["mm"].shape == (4, 64) and out["launches"] == 0
 paths = chip_smoke.run_paths(problem, "cpu")
 paths += chip_smoke.run_dynamic(problem, "cpu")[0]
-assert len(paths) == 18 and all(p["launches"] == 0 for p in paths)
+paths += chip_smoke.run_optimisers(problem, "cpu")[0]
+assert len(paths) == 22 and all(p["launches"] == 0 for p in paths)
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "qnmfits_tpu")
                 and sys.modules[m] is not None)
@@ -65,6 +66,7 @@ def test_port_and_smoke_run_without_jax():
     assert "oracle" in r.stdout            # the phases ran their checks
     assert "40-mode set" in r.stdout and "96-mode set" in r.stdout
     assert "D1 dynamic mode sets" in r.stdout and "D4 fit_events" in r.stdout
+    assert "O2 calculate_epsilon_array" in r.stdout and "phase 8" in r.stdout
     new = _listing() - before
     assert not new, f"files written into the repository: {sorted(new)}"
 
@@ -100,6 +102,14 @@ def test_entry_point_without_cuda_raises(monkeypatch):
                               t0s),
         lambda: tq.fit_events(times, np.stack([h, h]), modes, 0.952, 0.692,
                               t0s, engine="fast"),
+        lambda: tq.mismatch_omega_grid(times, h, modes, 0.952, 0.692,
+                                       (0.4, 0.5), (-0.2, -0.1), 0.0, res=2,
+                                       engine="fast"),
+        lambda: tq.free_frequency_fit_array(times, h, t0s),
+        lambda: tq.calculate_epsilon_array(times, h, modes, 0.952, 0.692,
+                                           t0s),
+        lambda: tq.free_frequency_fit(times, h, 0.0),
+        lambda: tq.calculate_epsilon(times, h, modes, 0.952, 0.692, 0.0),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="device='cpu'"):
