@@ -76,7 +76,26 @@ flushed line each with elapsed seconds:
    oracle (Nelder-Mead, the one-window path, or the NumPy grid); O1's and
    O2's gradients and Hessians through both routes, their device-time
    split, and the solve on O2's own systems;
-9. a JSON line of the paths, a JSON line describing each kernel, and
+9. the diagnostics and the stacked spectrum grids at the same width, each
+   through its public entry point with the launch counts read as in phase
+   6 and held to the count derived from the code: G1
+   ``mismatch_M_chi_grid(engine='fast')`` on both rows with the (2,2,n<8)
+   ladder at t0 = 10, Mf in (0.90, 1.00), chif in (0.60, 0.80), at res =
+   50 against the NumPy loop and at res = 200 (40000 fits, one launch)
+   against 'batched', and with the (2,2,n<4) set at res = 50 against both;
+   G2 ``mismatch_omega_grid(engine='fast-full')``, (2,2,n<4) fixed and a
+   free mode, res = 200, against 'batched' (and reported against the
+   bordered 'fast'); S1 ``amplitude_stability``, the ladder over the 8192
+   start times (one launch), its amplitudes against the oracle's fits at
+   8 windows; R1 ``orthonormal_t0_sweep`` over the same start times (no
+   launch), against ``orthonormal_decomposition`` at 8 windows; U1
+   ``amplitude_uncertainty`` and ``mode_selection`` over the ladder's 8
+   nested candidates at t0 = 10 on the data with white noise, against
+   the NumPy formulas here; F1 ``rational_filter`` on a two-mode series
+   (the FFT on the card) against the oracle.  Each path through the solve
+   is held against its plain-solve route; the solve is timed on G1's,
+   G2's and S1's own systems, and each path's device time split;
+10. a JSON line of the paths, a JSON line describing each kernel, and
    last the JSON ok line.
 
 Any failure raises and exits non-zero before the last line.
@@ -100,10 +119,11 @@ SPH = [(2, 2), (3, 2)]
 # CPU size.
 FULL = dict(t_range=(-50.0, 150.05), n_t0=8192, t0_range=(-5.0, 46.2),
             T=100.0, sets=tuple(range(16)), res=50, spins=8, events=8192,
-            event_t=(-5.0, 95.0), event_T=80.0, opt_maxiter=30)
+            event_t=(-5.0, 95.0), event_T=80.0, opt_maxiter=30,
+            grid_res=200)
 SMALL = dict(t_range=(-10.0, 30.05), n_t0=64, t0_range=(-2.0, 10.0),
              T=20.0, sets=(1, 3, 9, 13), res=6, spins=3, events=48,
-             event_t=(-5.0, 35.0), event_T=25.0, opt_maxiter=8)
+             event_t=(-5.0, 35.0), event_T=25.0, opt_maxiter=8, grid_res=8)
 STRATA = (-5.0, -1.0, 0.5, 2.5, 10.0, 25.0, 40.0)     # bench.py:160-179
 
 MAIN_TOL = 1e-11      # kernel path vs plain-solve path, |mismatch| abs
@@ -131,11 +151,12 @@ def log(msg):
 
 def build_problem(t_range, n_t0, t0_range, T, sets, res=6, spins=3,
                   events=48, event_t=(-5.0, 35.0), event_T=25.0,
-                  opt_maxiter=8):
+                  opt_maxiter=8, grid_res=8):
     """The bench problem: a synthetic (2,2,n<8) ringdown with mixing
     into (2,2) and (3,2), sampled at 0.1 M; with the grid resolution and
     the number of remnant spins of phase 6, the remnant tracks and the
-    catalog of phase 7, and the Newton steps of phase 8."""
+    catalog of phase 7, the Newton steps of phase 8 and the stacked grids'
+    resolution of phase 9."""
     from qnmfits_tpu_torch.testing import (bench_mode_sets,
                                            synthetic_multimode)
     times = np.arange(*t_range, 0.1)
@@ -151,7 +172,7 @@ def build_problem(t_range, n_t0, t0_range, T, sets, res=6, spins=3,
                 Mf_t=np.linspace(1.02 * MF, MF, K),
                 chif_t=np.linspace(0.60, CHIF, K),
                 catalog=build_catalog(events, event_t, event_T),
-                opt_maxiter=opt_maxiter)
+                opt_maxiter=opt_maxiter, grid_res=grid_res)
 
 
 EVENT_MODES = [(2, 2, n, 1) for n in range(4)]
@@ -829,9 +850,10 @@ def run_paths(problem, device):
 
 def run_specs(specs, device):
     """Drive each path spec through its public entry point, check its
-    launches, and hold it against the plain-solve route (MAIN_TOL for
-    t0 >= 0; the spec's pre_tol for t0 < 0, or else the kernel's backward
-    error KERNEL_BWD_TOL, which a spec with ``backward`` gates as well)
+    launches, and hold it against the plain-solve route (MAIN_TOL, or the
+    spec's ``route_tol``, for t0 >= 0; the spec's pre_tol for t0 < 0, or
+    else the kernel's backward error KERNEL_BWD_TOL, which a spec with
+    ``backward`` gates as well)
     and the NumPy oracle (ORACLE_TOL, or the spec's ``oracle_tol``, for
     t0 >= 0).  Returns one record per
     path, with the systems the plain route solved; raises on any failed
@@ -861,11 +883,13 @@ def run_specs(specs, device):
                                    f"{len(plain.systems)} times, the "
                                    f"kernel route launched {n}")
             pre_tol = spec.get("pre_tol", PRE_TOL)
-            if not (d_in <= MAIN_TOL
+            route_tol = spec.get("route_tol", MAIN_TOL)
+            if not (d_in <= route_tol
                     and (pre_tol is None or d_pre <= pre_tol)):
                 raise RuntimeError(f"{name}: kernel route and plain route "
-                                   f"disagree beyond {MAIN_TOL:.0e} "
-                                   f"(t0 >= 0) or {pre_tol} (t0 < 0)")
+                                   f"disagree: {d_in:.3e} (t0 >= 0, bound "
+                                   f"{route_tol:.0e}), {d_pre:.3e} (t0 < 0, "
+                                   f"bound {pre_tol})")
             if (pre_tol is None or spec.get("backward")) and device != "cpu":
                 from qnmfits_tpu_torch.ops import chol_cuda
                 bwd = max(backward_err(G, b, chol_cuda.regularised_solve(G, b))
@@ -1577,6 +1601,399 @@ def _distinct(problem, x):
     return x if dd is None else x[dd[0]]
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: the diagnostics and the stacked spectrum grids
+# ---------------------------------------------------------------------------
+
+G1_BOX = ((0.90, 1.00), (0.60, 0.80))        # (Mf, chif) box of G1
+# The 8-overtone ladder on the (Mf, chif) grid: off the remnant its Grams
+# are so ill-conditioned that the Gram path and the oracle's SVD part
+# (ROADMAP C.3), and so do two backward-stable solves.  At res = 20 on the
+# CPU the JAX package's own 'fast' grid reads 4.6e-8 from its NumPy loop
+# and 9.6e-10 from its 'batched' grid, the port's 4.6e-8 and 1.6e-9; at
+# res = 50 the plain solve and torch.linalg's Cholesky read 1.3e-10
+# apart.  The ladder's grids are held to these bounds (route and 'batched'
+# LADDER_GRID_ROUTE_TOL, with the kernel's backward error gated); the
+# (2,2,n<4) set (GRID_SET), well conditioned, to ORACLE_TOL and MAIN_TOL.
+LADDER_GRID_ORACLE_TOL = 1e-7
+LADDER_GRID_ROUTE_TOL = 1e-8
+# S1's amplitudes against the oracle's at 8 windows, largest |dC| over
+# largest |C| a window: the ladder's top overtones are fixed only to
+# ~kappa eps by the Gram path (1.0e-4 at t0 = 0 on the CPU); a wrong
+# rephasing reads ~0.1-1.
+STAB_C_RTOL = 1e-3
+U1_NOISE = 1e-4          # white complex noise a quadrature on U1's data
+U1_RTOL = 1e-9           # U1 vs the NumPy formula, relative (p: absolute)
+FILTER_TOL = 1e-12       # F1 vs the oracle, of max |data|
+FILTER_DROP = 1e4        # F1: the filtered mode's amplitude falls this much
+
+
+def window_samples(problem, t0):
+    t = problem["times"]
+    return int(np.count_nonzero((t >= t0) & (t < t0 + problem["T"])))
+
+
+def stacked_launches(n_points, J, K_window):
+    """Solve launches of a stacked grid of n_points fits of J modes on a
+    window of K_window samples, derived from the code: the join groups of
+    batched._run_spectra_sweep's default chunks."""
+    from qnmfits_tpu_torch import batched, engine_real
+    chunk = max(1, batched._BASIS_BYTES // (K_window * J * 16))
+    sizes = [min(chunk, n_points - lo) for lo in range(0, n_points, chunk)]
+    return len(engine_real.join_groups(sizes, 2 * J * J * 16))
+
+
+def stability_launches(problem, J):
+    """Solve launches of amplitude_stability on the problem's start times
+    with dedup, derived from the code: the join groups of
+    batched.sweep_t0_modesets's chunks over the distinct windows."""
+    from qnmfits_tpu_torch import batched, engine_real
+    n = len(_distinct(problem, problem["t0s"]))
+    per_t0 = len(problem["times"]) * J * 16
+    chunk = max(1, min(batched._CHUNK, batched._BASIS_BYTES // per_t0))
+    sizes = [min(chunk, n - lo) for lo in range(0, n, chunk)]
+    return len(engine_real.join_groups(sizes, 2 * J * J * 16))
+
+
+def numpy_uncertainty(times, data, modes, t0, T):
+    """The amplitude covariance of one multimode fit by the textbook
+    formula, in NumPy: the masked mixing-stacked design a, C =
+    lstsq(a, d), sigma^2 = RSS / (n_obs - J), cov = sigma^2 inv(a^H a).
+    Returns C, cov, RSS, n_obs and kappa(a)^2, the condition number of
+    a^H a."""
+    from qnmfits_tpu_torch.engine import SpectrumEvaluator
+    ev = SpectrumEvaluator(modes, SPH)
+    w, mu = ev.omega(CHIF, MF), ev.mu(CHIF)
+    sel = (times >= t0) & (times < t0 + T)
+    phi = np.exp(-1j * w[None, :] * (times[sel][:, None] - t0))
+    a = np.concatenate([m[None, :] * phi for m in mu])
+    d = np.concatenate([data[lm][sel] for lm in SPH])
+    C, _, _, sv = np.linalg.lstsq(a, d, rcond=None)
+    r = d - a @ C
+    rss = float(np.vdot(r, r).real)
+    cov = rss / (len(d) - len(modes)) * np.linalg.inv(a.conj().T @ a)
+    return C, cov, rss, len(d), float((sv[0] / sv[-1]) ** 2)
+
+
+def numpy_selection(rss, n_modes, n_obs):
+    """AIC, BIC and the consecutive nested F-tests' p-values of candidates
+    of n_modes modes with residuals rss (k = 2 J + 1 real parameters, N =
+    2 n_obs real observations)."""
+    from scipy import stats
+    rss, J = np.asarray(rss), np.asarray(n_modes)
+    N, k = 2 * n_obs, 2 * J + 1
+    logterm = N * np.log(np.maximum(rss, 1e-280) / N)
+    df1, df2 = 2 * np.diff(J), N - 2 * J[1:]
+    F = (np.maximum(rss[:-1] - rss[1:], 0.0) / df1
+         / (np.maximum(rss[1:], 1e-280) / df2))
+    return logterm + 2.0 * k, logterm + k * np.log(N), stats.f.sf(F, df1,
+                                                                  df2)
+
+
+def _rel_max(x, ref):
+    return float(np.max(np.abs(np.asarray(x) - ref)) / np.max(np.abs(ref)))
+
+
+def filter_signal():
+    """F1's input: (2,2,0) + (2,2,1) from t = 0 on [-300, 150] at dt = 0.1
+    (tests/test_filters.py:20-27)."""
+    from qnmfits_tpu_torch import ref_impl
+    from qnmfits_tpu_torch.engine import SpectrumEvaluator
+    w = SpectrumEvaluator([(2, 2, 0, 1), (2, 2, 1, 1)]).omega(CHIF, MF)
+    times = np.arange(-300.0, 150.0, 0.1)
+    return times, ref_impl.ringdown(times, 0.0, [0.8 * np.exp(0.3j),
+                                                 2.1 * np.exp(-1.1j)], w)
+
+
+FILTER_CALLS = (([(2, 2, 0, 1)], False), ([(2, 2, 0, 1), (2, 2, 1, 1)], True))
+
+
+def diagnostic_specs(problem, device):
+    """The paths of phase 9, as ``path_specs`` describes them: G1 (the
+    ladder at res 50 against the NumPy loop, and at grid_res against
+    'batched'; GRID_SET at res 50 against both), G2, S1, R1, U1 and F1."""
+    import qnmfits_tpu_torch as tq
+    from qnmfits_tpu_torch import batched, fitting, ref_impl
+    from qnmfits_tpu_torch.testing import bench_mode_sets
+    times, data, t0s, T = (problem[k] for k in ("times", "data", "t0s", "T"))
+    res, gres = problem["res"], problem["grid_res"]
+    deep, row = bench_mode_sets()[DEEPEST], data[(2, 2)]
+    k_win = window_samples(problem, GRID_T0)
+    oracle_idx = _nearest(t0s, OPT_ORACLE_T0S)
+    specs, found = [], {}
+
+    def m_chi(key, name, ms, r, check, tol):
+        kw = dict(T=T, res=r, spherical_modes=SPH, device=device)
+        args = (times, data, ms, *G1_BOX, GRID_T0)
+        route = (dict(route_tol=LADDER_GRID_ROUTE_TOL, backward=True)
+                 if ms == deep else {})
+        specs.append(dict(
+            key=key, name=name, pre=None, oracle_tol=tol, **route,
+            expect=(stacked_launches(r * r, len(ms), k_win), 0),
+            kernel=lambda: fitting.mismatch_M_chi_grid(*args, engine="fast",
+                                                       **kw),
+            plain=lambda solve: batched.batch_mismatch_M_chi_fast(
+                *args, solve=solve, **kw),
+            oracle=lambda mm: check(mm, args, kw)))
+
+    def vs_loop(mm, args, kw):
+        return _diff(mm, ref_impl.mismatch_M_chi_grid(
+            *args, T=T, res=kw["res"], spherical_modes=SPH), None)
+
+    def vs_batched(mm, args, kw):
+        t_b = time.perf_counter()
+        mm_b = fitting.mismatch_M_chi_grid(*args, **kw)
+        found[f"batched_wall_{kw['res']}_{len(args[2])}"] = \
+            time.perf_counter() - t_b
+        return _diff(mm, mm_b, None)
+
+    def both(mm, args, kw):
+        d_b = vs_batched(mm, args, kw)[0]
+        if not d_b <= MAIN_TOL:
+            raise RuntimeError(f"G1 (2,2,n<4): 'fast' {d_b:.3e} from "
+                               "'batched'")
+        log(f"G1 (2,2,n<4) res={kw['res']}: 'fast' vs 'batched' {d_b:.3e} "
+            f"(bound {MAIN_TOL:.0e})")
+        return vs_loop(mm, args, kw)
+
+    ladder = f"(2,2,n<{len(deep)}) both rows"
+    m_chi("g1_oracle", f"G1 mismatch_M_chi_grid 'fast' res={res}, {ladder}, "
+          "vs the NumPy loop", deep, res, vs_loop, LADDER_GRID_ORACLE_TOL)
+    m_chi("g1", f"G1 mismatch_M_chi_grid 'fast' res={gres}, {ladder}, vs "
+          "'batched'", deep, gres, vs_batched, LADDER_GRID_ROUTE_TOL)
+    m_chi("g1_set", f"G1 mismatch_M_chi_grid 'fast' res={res}, (2,2,n<4) "
+          "both rows, vs 'batched' and the NumPy loop",
+          bench_mode_sets()[GRID_SET], res, both, ORACLE_TOL)
+
+    omega_args = (times, row, deep[:4], MF, CHIF, *OMEGA_BOX, GRID_T0)
+    omega_kw = dict(T=T, res=gres, device=device)
+
+    def g2_check(mm):
+        walls = {}
+        for engine in ("batched", "fast"):
+            t_e = time.perf_counter()
+            walls[engine] = (fitting.mismatch_omega_grid(
+                *omega_args, engine=engine, **omega_kw),
+                time.perf_counter() - t_e)
+        d_f = found["g2_vs_bordered"] = _diff(mm, walls["fast"][0], None)[0]
+        found["g2_walls"] = {k: v[1] for k, v in walls.items()}
+        log(f"G2: 'fast-full' vs 'fast' (the bordered grid) {d_f:.3e} "
+            f"(reported); first-call walls 'batched' "
+            f"{walls['batched'][1]:.3f} s, 'fast' {walls['fast'][1]:.3f} s")
+        return _diff(mm, walls["batched"][0], None)
+
+    specs.append(dict(
+        key="g2", name=f"G2 mismatch_omega_grid 'fast-full' res={gres}, "
+        "(2,2,n<4) fixed + a free mode, vs 'batched'", pre=None,
+        expect=(stacked_launches(gres * gres, 5, k_win), 0),
+        oracle_tol=MAIN_TOL,
+        kernel=lambda: fitting.mismatch_omega_grid(
+            *omega_args, engine="fast-full", **omega_kw),
+        plain=lambda solve: batched.batch_mismatch_omega_fast(
+            *omega_args, solve=solve, **omega_kw),
+        oracle=g2_check))
+
+    stab_kw = dict(T_array=T, spherical_modes=SPH, device=device)
+
+    def s1(solve=None):
+        out = tq.amplitude_stability(times, data, deep, MF, CHIF, t0s,
+                                     solve=solve, **stab_kw)
+        if solve is None:
+            found["s1"] = out
+        return out["mm"]
+
+    def s1_check(mm):
+        out, d_c, d_mm = found["s1"], 0.0, 0.0
+        for i in oracle_idx:
+            ref = ref_impl.multimode_ringdown_fit(
+                times, data, deep, MF, CHIF, float(t0s[i]), T=T,
+                spherical_modes=SPH)
+            d_c = max(d_c, _rel_max(out["C"][i], ref["C"]))
+            d_mm = max(d_mm, abs(float(mm[i]) - ref["mismatch"]))
+        found["s1_C"] = d_c
+        log(f"S1: amplitudes vs the oracle at {len(oracle_idx)} windows "
+            f"(t0 >= 0): {d_c:.3e} relative (bound {STAB_C_RTOL:.0e})")
+        if not d_c <= STAB_C_RTOL:
+            raise RuntimeError("S1: amplitudes disagree with the oracle")
+        return d_mm, 0.0
+
+    specs.append(dict(
+        key="s1", name=f"S1 amplitude_stability, {ladder}, {len(t0s)} start "
+        "times", pre=t0s < 0, expect=(stability_launches(problem, len(deep)),
+                                      0),
+        kernel=s1, plain=s1, oracle=s1_check))
+
+    def r1():
+        out = found["r1"] = tq.orthonormal_t0_sweep(
+            times, data, deep, MF, CHIF, t0s, **stab_kw)
+        return out["mismatch"]
+
+    def r1_check(mm):
+        out = found["r1"]
+        if not np.all(out["ok"]):
+            raise RuntimeError(f"R1: {np.sum(~out['ok'])} windows not ok")
+        d = 0.0
+        for i in oracle_idx:
+            one = tq.orthonormal_decomposition(
+                times, data, deep, MF, CHIF, float(t0s[i]), T=T,
+                spherical_modes=SPH, device=device)
+            d = max(d, float(np.max(np.abs(out["power"][i] - one["power"]))
+                             / one["data_norm"]))
+        return d, 0.0
+
+    specs.append(dict(
+        key="r1", name=f"R1 orthonormal_t0_sweep, {ladder}, {len(t0s)} start "
+        "times", pre=None, expect=(0, 0), plain=None, kernel=r1,
+        oracle=r1_check, oracle_tol=1e-10))
+
+    rng = np.random.default_rng(17)
+    noisy = {lm: h + U1_NOISE * (rng.standard_normal(len(times))
+                                 + 1j * rng.standard_normal(len(times)))
+             for lm, h in data.items()}
+    cands = bench_mode_sets()[:len(deep)]
+
+    def u1():
+        found["u1"] = [tq.amplitude_uncertainty(
+            times, noisy, ms, MF, CHIF, GRID_T0, T=T, spherical_modes=SPH,
+            device=device) for ms in cands]
+        sel = found["u1_sel"] = tq.mode_selection(
+            times, noisy, cands, MF, CHIF, GRID_T0, T=T, spherical_modes=SPH,
+            device=device)
+        return sel["aic"]
+
+    def u1_check(_):
+        d_c, cov_rel, cov_bound, rss = 0.0, [], [], []
+        for ms, out in zip(cands, found["u1"]):
+            C, cov, r2, n_obs, kappa = numpy_uncertainty(times, noisy, ms,
+                                                         GRID_T0, T)
+            rss.append(r2)
+            d_c = max(d_c, _rel_max(out["C"], C))
+            # inv(a^H a) is itself fixed only to ~kappa eps.
+            cov_bound.append(max(U1_RTOL, 10 * kappa * np.finfo(float).eps))
+            cov_rel.append(_rel_max(out["cov"], cov))
+        sel = found["u1_sel"]
+        aic, bic, p = numpy_selection(rss, [len(ms) for ms in cands], n_obs)
+        d_sel = max(_rel_max(sel["rss"], rss), _rel_max(sel["aic"], aic),
+                    _rel_max(sel["bic"], bic))
+        d_p = float(np.max(np.abs(sel["pvalue"] - p)))
+        found["u1_gaps"] = dict(C=d_c, cov=cov_rel, cov_bound=cov_bound,
+                                criteria=d_sel, pvalue=d_p,
+                                best_bic=sel["best_bic"])
+        log(f"U1 vs the NumPy formula: C {d_c:.3e}, rss/aic/bic {d_sel:.3e} "
+            f"relative; p-values {d_p:.3e}; cov by candidate "
+            f"{[f'{x:.1e}' for x in cov_rel]} (bounds "
+            f"{[f'{x:.0e}' for x in cov_bound]}); best BIC candidate "
+            f"{sel['best_bic']}")
+        if not all(r <= b for r, b in zip(cov_rel, cov_bound)):
+            raise RuntimeError("U1: cov disagrees with the NumPy formula")
+        if not (d_c <= U1_RTOL and d_sel <= U1_RTOL and d_p <= U1_RTOL):
+            raise RuntimeError(f"U1: {found['u1_gaps']}")
+        return d_c, 0.0
+
+    specs.append(dict(
+        key="u1", name=f"U1 amplitude_uncertainty + mode_selection, "
+        f"{len(cands)} nested candidates, t0={GRID_T0}", pre=None,
+        expect=(0, 0), plain=None, kernel=u1, oracle=u1_check,
+        oracle_tol=U1_RTOL))
+
+    f_times, f_data = filter_signal()
+    f_scale = float(np.max(np.abs(f_data)))
+
+    def f1():
+        found["f1"] = [fitting.rational_filter(
+            f_times, f_data, modes, MF, CHIF, t_start=-300.0,
+            align_inspiral=align, device=device) for modes, align
+            in FILTER_CALLS]
+        return np.concatenate([d for _, d in found["f1"]])
+
+    def f1_check(_):
+        d = 0.0
+        for (modes, align), (t_u, d_f) in zip(FILTER_CALLS, found["f1"]):
+            t_o, d_o = ref_impl.rational_filter(
+                f_times, f_data, modes, MF, CHIF, t_start=-300.0,
+                align_inspiral=align)
+            if not np.array_equal(t_u, t_o):
+                raise RuntimeError("F1: the uniform grids differ")
+            d = max(d, float(np.max(np.abs(d_f - d_o))) / f_scale)
+        pair = [(2, 2, 0, 1), (2, 2, 1, 1)]
+        t_u, d_f = found["f1"][0]
+        before = ref_impl.ringdown_fit(f_times, f_data, pair, MF, CHIF, 10.0,
+                                       T=80.0)["C"]
+        after = ref_impl.ringdown_fit(t_u, d_f, pair, MF, CHIF, 10.0,
+                                      T=80.0)["C"]
+        drop = found["f1_drop"] = abs(before[0]) / abs(after[0])
+        log(f"F1: (2,2,0)'s refit amplitude falls {drop:.3e}x (bound "
+            f">= {FILTER_DROP:.0e})")
+        if not drop >= FILTER_DROP:
+            raise RuntimeError("F1: the filter leaves (2,2,0) in the data")
+        return d, 0.0
+
+    specs.append(dict(
+        key="f1", name=f"F1 rational_filter, {len(f_times)} samples, "
+        "(2,2,0) then (2,2,0) + (2,2,1)", pre=None, expect=(0, 0),
+        plain=None, kernel=f1, oracle=f1_check, oracle_tol=FILTER_TOL))
+    return specs, found
+
+
+def run_diagnostics(problem, device, gpu=None):
+    """Phase 9: ``run_specs`` on the paths of ``diagnostic_specs``; on the
+    card also the solve on G1's (at grid_res), G2's and S1's own systems
+    beside its bound, its plain version and torch.linalg (its backward
+    error gated), and each path's device-time split.  Returns the path
+    records, the solve records by path key and the phase's wall."""
+    t = time.perf_counter()
+    specs, found = diagnostic_specs(problem, device)
+    records = run_specs(specs, device)
+    solves = {}
+    for spec, rec in zip(specs, records):
+        systems = rec.pop("systems", None)
+        if systems:
+            rec["systems"] = sum(b.shape[0] for _, b in systems)
+            rec["n"] = max(b.shape[-1] for _, b in systems)
+        if rec["key"] == "g1":
+            rec["batched_wall_s"] = found[
+                f"batched_wall_{problem['grid_res']}_{rec['n']}"]
+        if rec["key"] == "g2":
+            rec["vs_bordered"] = found["g2_vs_bordered"]
+            rec["other_walls_s"] = found["g2_walls"]
+        if rec["key"] == "u1":
+            rec.update(found["u1_gaps"])
+        if device == "cpu":
+            continue
+        if rec["key"] in ("g1", "g2", "s1"):
+            G, b = systems[0]
+            r = solves[rec["key"]] = time_solves(G, b)
+            r["n"], r["launches"] = rec["n"], rec["launches"]
+            r["bound_ms"], r["bound_by"] = bound_ms(r["batch"], rec["n"])
+            r["bound_share"] = r["bound_ms"] / r["ms"]
+            log(f"{rec['name']} on {gpu}: solve {r['ms']:.4f} ms on its "
+                f"{r['batch']} systems (n={rec['n']}), bound "
+                f"{r['bound_ms']:.3e} ms ({r['bound_by']}), plain "
+                f"{r['plain_ms']:.4f} ms, torch.linalg "
+                f"{r['library_ms']:.4f} ms, backward error "
+                f"{r['backward_err']:.3e}")
+            if not r["backward_err"] <= KERNEL_BWD_TOL:
+                raise RuntimeError(f"{rec['name']}: kernel backward error "
+                                   f"{r['backward_err']:.3e}")
+        split = rec["split"] = device_split(spec["kernel"])
+        if split is None:
+            log(f"  {rec['key']} device-time split: torch.profiler recorded "
+                "no device time (not measured)")
+            continue
+        log(f"  {rec['key']} device-time split: warm wall "
+            f"{split['wall_ms']:.2f} ms unprofiled, "
+            f"{split['profiled_wall_ms']:.2f} ms profiled; busy "
+            f"{split['busy_ms']:.2f} ms, idle share {split['idle_share']:.3f}"
+            f"; peak {split['peak_gib']:.2f} GiB; {split['kernels']} kernels "
+            f"and {split['copies']} copies: products "
+            f"{split['products_ms']:.2f}, elementwise "
+            f"{split['elementwise_ms']:.2f}, solve {split['solve_ms']:.4f}, "
+            f"copies {split['copies_ms']:.2f}, rest {split['rest_ms']:.2f} ms")
+    wall = time.perf_counter() - t
+    log(f"phase 9: {len(records)} paths in {wall:.1f} s")
+    return records, solves, wall
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1636,13 +2053,18 @@ def main():
         for p in optimisers}
     record["optimiser_solves"] = {
         b: {x: r[x] for x in keys if x in r} for b, r in opt_solves.items()}
-    # Profiler health over the whole run, phases 7 and 8 included.
+    diagnostics, diag_solves, phase9_wall = run_diagnostics(problem, device,
+                                                            gpu)
+    record["diagnostic_paths"] = {
+        k: {x: r[x] for x in keys if x in r} for k, r in diag_solves.items()}
+    # Profiler health over the whole run, phases 7 to 9 included.
     wide.update(event_timings=len(EVENT_TIMINGS),
                 profiles_dropping=len(DROPPED),
                 records_dropped_max=max(DROPPED, default=0))
-    print(json.dumps({"paths": paths + dynamic + optimisers,
+    print(json.dumps({"paths": paths + dynamic + optimisers + diagnostics,
                       "phase7_wall_s": phase7_wall,
-                      "phase8_wall_s": phase8_wall}), flush=True)
+                      "phase8_wall_s": phase8_wall,
+                      "phase9_wall_s": phase9_wall}), flush=True)
     print(json.dumps({"kernels": [record, wide]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -6,12 +6,16 @@ surface: the single fits (``ringdown_fit``, ``multimode_ringdown_fit``
 and their dynamic forms), ``mismatch_t0_array`` (static or with Mf/chif
 time tracks), ``mismatch_t0_mode_sets`` (windows 'geq' or 'closest', a
 remnant axis, width buckets, ``dynamic=True``), the (Mf, chif) and
-free-frequency grids, the catalog event batch ``fit_events``, and the
-optimisers (``calculate_epsilon``, ``free_frequency_fit`` and their
-every-start-time forms ``calculate_epsilon_array`` and
-``free_frequency_fit_array``).  Every batched Hermitian solve runs in the
-hand-written FP64 CUDA kernels (``ops/chol_cuda.py``,
-``csrc/chol_solve.cu``), forward and, for the optimisers, backward.
+free-frequency grids ('batched', the stacked 'fast' / 'fast-full', the
+bordered 'fast'), the catalog event batch ``fit_events``, the optimisers
+(``calculate_epsilon``, ``free_frequency_fit`` and their every-start-time
+forms ``calculate_epsilon_array`` and ``free_frequency_fit_array``), and
+the diagnostics: ``rational_filter``, ``amplitude_stability``,
+``orthonormal_decomposition``, ``orthonormal_t0_sweep``,
+``amplitude_uncertainty`` and ``mode_selection``.  Every batched
+Hermitian solve runs in the hand-written FP64 CUDA kernels
+(``ops/chol_cuda.py``, ``csrc/chol_solve.cu``), forward and, for the
+optimisers, backward.
 
 Device and dtype policy:
 
@@ -62,6 +66,7 @@ from .fitting import (  # noqa: E402
     mismatch_t0_mode_sets,
     multimode_mismatch,
     multimode_ringdown_fit,
+    rational_filter,
     ringdown,
     ringdown_fit,
 )
@@ -70,6 +75,12 @@ from .optimize import (  # noqa: E402
     calculate_epsilon_array,
     free_frequency_fit_array,
 )
+from .stability import amplitude_stability  # noqa: E402
+from .orthonormal import (  # noqa: E402
+    orthonormal_decomposition,
+    orthonormal_t0_sweep,
+)
+from .uncertainty import amplitude_uncertainty, mode_selection  # noqa: E402
 
 __all__ = [
     "CDTYPE", "RDTYPE", "resolve_device",
@@ -79,5 +90,7 @@ __all__ = [
     "mismatch_t0_array", "mismatch_t0_mode_sets",
     "mismatch_M_chi_grid", "mismatch_omega_grid", "fit_events",
     "calculate_epsilon", "free_frequency_fit", "calculate_epsilon_array",
-    "free_frequency_fit_array",
+    "free_frequency_fit_array", "rational_filter", "amplitude_stability",
+    "orthonormal_decomposition", "orthonormal_t0_sweep",
+    "amplitude_uncertainty", "mode_selection",
 ]

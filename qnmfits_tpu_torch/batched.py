@@ -7,8 +7,10 @@ as in the JAX package; the sweeps run in torch on the requested device.
 Sweep engines: the factored kernel
 (``engine_real.sweep_t0_modesets_factored_real``; 'geq' windows, start
 times sorted); the complex window sweep over ``engine.fit_core`` (any
-window method, and the spectrum-batched grids); the dynamic-spectrum
-sweep (``sweep_t0_modesets_dynamic_real``) and the event batch
+window method, and the spectrum-batched grids' 'batched' engine); the
+stacked spectrum sweep (``engine_real.sweep_spectra_stacked_real``, the
+grids' 'fast' and 'fast-full' engines); the dynamic-spectrum sweep
+(``sweep_t0_modesets_dynamic_real``) and the event batch
 (``sweep_events_real``), both over the complex fit cores of ``engine``.
 Each builds its systems chunk
 by chunk and solves them in as few calls of the batched Hermitian solve
@@ -27,7 +29,7 @@ from .engine import (SpectrumEvaluator, _window, cached_evaluator,
                      check_spin, chunk_bounds, dynamic_fit_systems,
                      fit_systems, solve_fits)
 from .engine_real import (sweep_omega_grid_bordered_real,
-                          sweep_t0_factored_real,
+                          sweep_spectra_stacked_real, sweep_t0_factored_real,
                           sweep_t0_modesets_factored_real)
 from .ref_impl import _delta_factor
 
@@ -35,7 +37,8 @@ __all__ = [
     "batch_fit_events", "batch_mismatch_t0", "batch_mismatch_t0_dynamic",
     "batch_mismatch_t0_fast", "batch_mismatch_t0_modesets",
     "batch_mismatch_t0_modesets_dynamic", "batch_mismatch_M_chi",
-    "batch_mismatch_omega", "batch_mismatch_omega_bordered",
+    "batch_mismatch_M_chi_fast", "batch_mismatch_omega",
+    "batch_mismatch_omega_bordered", "batch_mismatch_omega_fast",
     "sweep_events_real", "sweep_t0_core",
     "sweep_t0_modesets", "sweep_t0_modesets_dynamic_real",
 ]
@@ -762,17 +765,41 @@ def _grid_sweep(times, rows, omegas, mus, t0, T, t0_method, dev, solve):
     return mm.cpu().numpy()
 
 
-def batch_mismatch_M_chi(times, data, modes, Mf_minmax, chif_minmax, t0,
-                         t0_method="geq", T=100, res=50,
-                         spherical_modes=None, delta=0.0, device="cuda",
-                         solve=None):
-    """The (Mf, chif) grid as one batched sweep (batched.py:247):
-    res x res fits, row-major over Mf rows and chif columns like the
-    reference (qnmfits.py:1413)."""
+def _run_spectra_sweep(times, rows, omegas, mus, t0, T, t0_method, dev,
+                       solve=None, chunk=None):
+    """mm (Q,) of the fits of Q spectra on one window (batched.py:666).
+
+    On a uniform time grid with a contiguous window the data is sliced to
+    the window on the host and the stacked engine
+    (``engine_real.sweep_spectra_stacked_real``: closed-form Grams and one
+    solve for the whole grid) runs; ``chunk`` grid points' phases at a
+    time, by default as many as _BASIS_BYTES of (chunk, K, J) phases
+    hold.  Elsewhere the summed-Gram sweep ``_grid_sweep`` runs, which is
+    what the JAX package's per-item fallback computes with
+    ``sweep_spectra_real(analytic=False)``: its per-item closed form is
+    taken only on an accelerator there, and the port has none (a per-item
+    closed form measured slower on the H100, PERF.md section 6)."""
+    w = _window(torch.as_tensor(times), float(t0), float(T),
+                t0_method).numpy()
+    idx = np.nonzero(w > 0.5)[0]
+    contiguous = idx.size > 0 and idx[-1] - idx[0] + 1 == idx.size
+    if not (_uniform_spacing(times) and contiguous):
+        return _grid_sweep(times, rows, omegas, mus, t0, T, t0_method, dev,
+                           solve)
+    sl = slice(int(idx[0]), int(idx[-1]) + 1)
+    if chunk is None:
+        chunk = max(1, _BASIS_BYTES // (idx.size * omegas.shape[1] * 16))
+    _, mm = sweep_spectra_stacked_real(
+        _real(times[sl], dev), _cplx(rows[:, sl], dev), _cplx(omegas, dev),
+        _cplx(mus, dev), float(t0), chunk=chunk, solve=solve)
+    return mm.cpu().numpy()
+
+
+def _M_chi_spectra(modes, sph, Mf_minmax, chif_minmax, res, delta):
+    """omegas (res^2, J) and mus (res^2, I, J) of the (Mf, chif) grid,
+    row-major over Mf rows and chif columns (qnmfits.py:1413)."""
     check_spin(float(chif_minmax[0]))
     check_spin(float(chif_minmax[1]))
-    dev = resolve_device(device)
-    times, rows, sph = _prep(times, data, spherical_modes)
     MM, CC = np.meshgrid(np.linspace(*Mf_minmax, res),
                          np.linspace(*chif_minmax, res), indexing="ij")
     ev = cached_evaluator(_canon(modes), sph)
@@ -780,7 +807,41 @@ def batch_mismatch_M_chi(times, data, modes, Mf_minmax, chif_minmax, t0,
     omegas = ev.omega(CC.ravel(), MM.ravel(), df).T           # (Q, J)
     mus = (np.ones((omegas.shape[0], 1, omegas.shape[1]), complex)
            if sph is None else np.moveaxis(ev.mu(CC.ravel()), -1, 0))
+    return omegas, mus
+
+
+def batch_mismatch_M_chi(times, data, modes, Mf_minmax, chif_minmax, t0,
+                         t0_method="geq", T=100, res=50,
+                         spherical_modes=None, delta=0.0, device="cuda",
+                         solve=None):
+    """The (Mf, chif) grid as one batched sweep (batched.py:247):
+    res x res fits, row-major over Mf rows and chif columns like the
+    reference (qnmfits.py:1413)."""
+    dev = resolve_device(device)
+    times, rows, sph = _prep(times, data, spherical_modes)
+    omegas, mus = _M_chi_spectra(modes, sph, Mf_minmax, chif_minmax, res,
+                                 delta)
     mm = _grid_sweep(times, rows, omegas, mus, t0, T, t0_method, dev, solve)
+    return mm.reshape(res, res)
+
+
+def batch_mismatch_M_chi_fast(times, data, modes, Mf_minmax, chif_minmax, t0,
+                              t0_method="geq", T=100, res=50,
+                              spherical_modes=None, delta=0.0, chunk=None,
+                              mesh=None, device="cuda", solve=None):
+    """The (Mf, chif) grid on the stacked engine (batched.py:710): the
+    spectrum of every grid point evaluated on the host at once, then
+    ``_run_spectra_sweep``, one solve launch for the grid.  The layout of
+    ``batch_mismatch_M_chi``.  ``mesh`` is not ported."""
+    if mesh is not None:
+        _not_ported("mesh= (the sharded (Mf, chif) grid)", "A.10")
+    _check_t0_method(t0_method)
+    dev = resolve_device(device)
+    times, rows, sph = _prep(times, data, spherical_modes)
+    omegas, mus = _M_chi_spectra(modes, sph, Mf_minmax, chif_minmax, res,
+                                 delta)
+    mm = _run_spectra_sweep(times, rows, omegas, mus, t0, T, t0_method, dev,
+                            solve, chunk)
     return mm.reshape(res, res)
 
 
@@ -794,6 +855,20 @@ def _omega_fixed(modes, Mf, chif):
         float(Mf) if Mf is not None else 1.0)
 
 
+def _omega_spectra(modes, Mf, chif, re_minmax, im_minmax, res):
+    """omegas (res^2, J) and mus (res^2, 1, J) of the free-frequency grid:
+    the fixed QNMs, then the free frequency of each grid point, in
+    meshgrid(re, im, indexing='ij') order."""
+    RE, IM = np.meshgrid(np.linspace(*re_minmax, res),
+                         np.linspace(*im_minmax, res), indexing="ij")
+    wf = (RE + 1j * IM).ravel()
+    fixed = _omega_fixed(modes, Mf, chif)
+    omegas = np.concatenate(
+        [np.broadcast_to(fixed, (wf.shape[0], fixed.shape[0])), wf[:, None]],
+        axis=1)
+    return omegas, np.ones((wf.shape[0], 1, omegas.shape[1]), complex)
+
+
 def batch_mismatch_omega(times, data, modes, Mf, chif, re_minmax, im_minmax,
                          t0, t0_method="geq", T=100, res=50, device="cuda",
                          solve=None):
@@ -804,15 +879,30 @@ def batch_mismatch_omega(times, data, modes, Mf, chif, re_minmax, im_minmax,
     dev = resolve_device(device)
     times, rows, _ = _prep(times, data, None)
     _single_row(rows, "batch_mismatch_omega")
-    RE, IM = np.meshgrid(np.linspace(*re_minmax, res),
-                         np.linspace(*im_minmax, res), indexing="ij")
-    wf = (RE + 1j * IM).ravel()
-    fixed = _omega_fixed(modes, Mf, chif)
-    omegas = np.concatenate(
-        [np.broadcast_to(fixed, (wf.shape[0], fixed.shape[0])), wf[:, None]],
-        axis=1)
-    mus = np.ones((wf.shape[0], 1, omegas.shape[1]), complex)
+    omegas, mus = _omega_spectra(modes, Mf, chif, re_minmax, im_minmax, res)
     mm = _grid_sweep(times, rows, omegas, mus, t0, T, t0_method, dev, solve)
+    return mm.reshape(res, res).T
+
+
+def batch_mismatch_omega_fast(times, data, modes, Mf, chif, re_minmax,
+                              im_minmax, t0, t0_method="geq", T=100, res=50,
+                              chunk=None, mesh=None, device="cuda",
+                              solve=None):
+    """The free complex-frequency grid on the stacked engine
+    (batched.py:765): fixed QNMs plus one free frequency per grid point,
+    every grid point a full fit, one solve launch for the grid
+    (``_run_spectra_sweep``).  Transposed like the reference
+    (qnmfits.py:1825).  ``mesh`` is not ported."""
+    if mesh is not None:
+        _not_ported("mesh= (the sharded free-frequency grid)", "A.10")
+    _check_t0_method(t0_method)
+    check_spin(chif)
+    dev = resolve_device(device)
+    times, rows, _ = _prep(times, data, None)
+    _single_row(rows, "batch_mismatch_omega_fast")
+    omegas, mus = _omega_spectra(modes, Mf, chif, re_minmax, im_minmax, res)
+    mm = _run_spectra_sweep(times, rows, omegas, mus, t0, T, t0_method, dev,
+                            solve, chunk)
     return mm.reshape(res, res).T
 
 

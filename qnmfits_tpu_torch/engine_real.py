@@ -23,8 +23,8 @@ from .ops.cmath import damped_phase
 from .ops.windows import trapz_weights, window_geq
 
 __all__ = ["JOIN_BYTES", "RegularisedSolve", "join_groups",
-           "sweep_omega_grid_bordered_real", "sweep_t0_factored_real",
-           "sweep_t0_modesets_factored_real"]
+           "sweep_omega_grid_bordered_real", "sweep_spectra_stacked_real",
+           "sweep_t0_factored_real", "sweep_t0_modesets_factored_real"]
 
 # Most bytes of G and G2 (or G and G_tau) that a sweep joins for one solve
 # call: S * B systems of J^2 complex128 each would otherwise grow without
@@ -382,6 +382,63 @@ def sweep_t0_factored_real(times, data, omega, mu, t0s, Ts, col_mask=None,
         times, data, omega[None], mu[None], t0s, Ts, col_mask[None],
         chunk=chunk, analytic=analytic, solve=solve)
     return C[0], mm[0]
+
+
+# ---------------------------------------------------------------------------
+# The stacked spectrum sweep: many spectra, one window (engine_real.py:405)
+# ---------------------------------------------------------------------------
+
+def sweep_spectra_stacked_real(times, data, omegas, mus, t0, chunk: int = 64,
+                               solve=None):
+    """Fits of Q spectra on one pre-sliced contiguous window of a uniform
+    grid (engine_real.py:405): the (Mf, chif) and free-frequency grids.
+
+    The caller slices times (K,) and data (I, K) to the in-window samples
+    (every fit quantity is a window sum, so the slice is exact); omegas
+    (Q, J), mus (Q, I, J) complex; t0 a float, the amplitudes' anchor (the
+    first sample may lie before it, as with 'closest' windows).  The
+    window's trapezoid weights and data norm are made once; the Grams of
+    every grid point come in closed form from one geometric-series
+    evaluation over (Q, J, J); the projections are built ``chunk`` grid
+    points at a time, as one (2I, K) @ (K, chunk J) product of the data
+    rows (plain and trapezoid-weighted) with the chunk's conjugate phases;
+    and the grid points are solved in one call of ``solve`` (by default
+    ``_regularised_solve``) per run whose G and G_tau stay within
+    ``JOIN_BYTES``.  Returns C (Q, J) complex and mm (Q,).
+    """
+    from .engine import fit_mismatch
+    solve = _regularised_solve if solve is None else solve
+    K, (Q, J), I = times.shape[0], omegas.shape, data.shape[0]
+    tau = trapz_weights(times, torch.ones_like(times))
+    Dstack = torch.cat([data, data * tau]).to(omegas.dtype)       # (2I, K)
+    dnorm = (tau * (data.real ** 2 + data.imag ** 2)).sum()
+    dt = times - t0
+    s = dt[0]
+    m = torch.tensor(K, device=times.device)
+    dlt = _fitted_step(times)
+
+    Cs, mms = [], []
+    bounds = [(lo, min(lo + chunk, Q)) for lo in range(0, Q, chunk)]
+    for g0, g1 in join_groups([hi - lo for lo, hi in bounds],
+                              2 * J * J * 16):
+        lo_g, hi_g = bounds[g0][0], bounds[g1 - 1][1]
+        om, mu = omegas[lo_g:hi_g], mus[lo_g:hi_g]
+        wr, wi = om.real, om.imag
+        Gt, Gtau = _geom_series_eval(dlt, K, wi[:, :, None] + wi[:, None, :],
+                                     wr[:, :, None] - wr[:, None, :], s, m)
+        proj = []
+        for lo, hi in bounds[g0:g1]:
+            phi = damped_phase(omegas[None, lo:hi], dt[:, None, None])
+            X = Dstack @ phi.reshape(K, -1).conj()           # (2I, c J)
+            proj.append(X.reshape(2 * I, hi - lo, J).transpose(0, 1))
+        P = torch.cat(proj)                                  # (q, 2I, J)
+        M = mu.mH @ mu                                       # (q, J, J)
+        rhs = (mu.conj() * P[:, :I]).sum(dim=1)
+        rt = (mu.conj() * P[:, I:]).sum(dim=1)
+        C = solve(M * Gt, rhs)
+        Cs.append(C)
+        mms.append(fit_mismatch(C, M * Gtau, rt, dnorm))
+    return torch.cat(Cs), torch.cat(mms)
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,7 @@
 """Public fitting entry points (port of qnmfits_tpu/fitting.py): the
-single fits, their dynamic forms, and the start-time, mode-set, (Mf, chif)
-and free-frequency sweeps, static or with time-dependent spectra.
+single fits, their dynamic forms, the start-time, mode-set, (Mf, chif)
+and free-frequency sweeps, static or with time-dependent spectra, the
+optimisers and the rational filter.
 
 Every entry point takes ``device=`` ("cuda" by default, raising when
 there is none; "cpu" runs the plain PyTorch path).  The single fits solve
@@ -34,7 +35,7 @@ __all__ = [
     "ringdown_fit", "dynamic_ringdown_fit",
     "multimode_ringdown_fit", "dynamic_multimode_ringdown_fit",
     "mismatch_t0_array", "mismatch_t0_mode_sets",
-    "mismatch_M_chi_grid", "mismatch_omega_grid",
+    "mismatch_M_chi_grid", "mismatch_omega_grid", "rational_filter",
     "calculate_epsilon", "free_frequency_fit",
 ]
 
@@ -304,20 +305,9 @@ def mismatch_t0_mode_sets(times, data, mode_sets, Mf, chif, t0_array,
         t0_method=t0_method, bucket=bucket, dedup=dedup, device=device)
 
 
-_GRID_NOT_PORTED = {
-    "fast": "the split-complex grid kernels (ROADMAP A.4, B.3)",
-    "fast-full": "the split-complex grid kernels (ROADMAP A.4, B.3)",
-    "sharded": "a device mesh (ROADMAP A.10)",
-}
-
-
-def _grid_engine(engine, mesh, ported=("batched", "loop")):
-    if mesh is not None:
-        engine = "sharded"
-    if engine not in ported and engine in _GRID_NOT_PORTED:
-        raise NotImplementedError(
-            f"engine={engine!r} is not ported to qnmfits_tpu_torch yet: "
-            f"{_GRID_NOT_PORTED[engine]}")
+def _grid_engine(engine, mesh, ported):
+    if mesh is not None or engine == "sharded":
+        _not_ported("engine='sharded' or mesh= (a device mesh)", "A.10")
     if engine not in ported:
         raise ValueError(f"unknown engine {engine!r}")
 
@@ -328,18 +318,22 @@ def mismatch_M_chi_grid(times, data, modes, Mf_minmax, chif_minmax, t0,
                         precision="x64", mesh=None, device="cuda"):
     """Mismatch over an (Mf, chif) grid (reference qnmfits.py:1304-1415),
     row-major over Mf rows and chif columns.  engine: 'batched' (default;
-    one batched sweep through the CUDA solve) or 'loop' (the reference-
-    style NumPy loop)."""
+    chunks of summed-Gram fits, one launch of the CUDA solve), 'fast' (the
+    stacked engine: closed-form Grams on the shared window and one solve
+    for the whole grid, on uniform time grids) or 'loop' (the
+    reference-style NumPy loop).  engine='sharded' and ``mesh`` are not
+    ported."""
     _check_precision(precision)
-    _grid_engine(engine, mesh)
+    _grid_engine(engine, mesh, ("batched", "fast", "loop"))
     if engine == "loop":
         return ref_impl.mismatch_M_chi_grid(
             times, data, modes, Mf_minmax, chif_minmax, t0, t0_method, T,
             res, spherical_modes, delta)
-    return batched.batch_mismatch_M_chi(
-        times, data, modes, Mf_minmax, chif_minmax, t0, t0_method=t0_method,
-        T=T, res=res, spherical_modes=spherical_modes, delta=delta,
-        device=device)
+    grid = (batched.batch_mismatch_M_chi_fast if engine == "fast"
+            else batched.batch_mismatch_M_chi)
+    return grid(times, data, modes, Mf_minmax, chif_minmax, t0,
+                t0_method=t0_method, T=T, res=res,
+                spherical_modes=spherical_modes, delta=delta, device=device)
 
 
 def mismatch_omega_grid(times, data, modes, Mf, chif, re_minmax, im_minmax,
@@ -350,20 +344,41 @@ def mismatch_omega_grid(times, data, modes, Mf, chif, re_minmax, im_minmax,
     fixed QNMs (reference qnmfits.py:1679-1827), transposed like the
     reference.  engine: 'batched' (default; one batched sweep through the
     CUDA solve), 'fast' (the bordered fixed block, factored once, with a
-    bordered solve per grid point) or 'loop'."""
+    bordered solve per grid point), 'fast-full' (the stacked engine of
+    the (Mf, chif) grid, every grid point a full fit) or 'loop'.
+    engine='sharded' and ``mesh`` are not ported."""
     _check_precision(precision)
-    _grid_engine(engine, mesh, ("batched", "fast", "loop"))
+    _grid_engine(engine, mesh, ("batched", "fast", "fast-full", "loop"))
     if engine == "loop":
         return ref_impl.mismatch_omega_grid(
             times, data, modes, Mf, chif, re_minmax, im_minmax, t0,
             t0_method, T, res)
-    if engine == "fast":
-        return batched.batch_mismatch_omega_bordered(
-            times, data, modes, Mf, chif, re_minmax, im_minmax, t0,
-            t0_method=t0_method, T=T, res=res, device=device)
-    return batched.batch_mismatch_omega(
-        times, data, modes, Mf, chif, re_minmax, im_minmax, t0,
-        t0_method=t0_method, T=T, res=res, device=device)
+    grid = {"fast": batched.batch_mismatch_omega_bordered,
+            "fast-full": batched.batch_mismatch_omega_fast,
+            "batched": batched.batch_mismatch_omega}[engine]
+    return grid(times, data, modes, Mf, chif, re_minmax, im_minmax, t0,
+                t0_method=t0_method, T=T, res=res, device=device)
+
+
+def rational_filter(times, data, modes, Mf, chif, t_start=-300, t_end=None,
+                    dt=None, t_taper=100, align_inspiral=True,
+                    engine="torch", device="cuda"):
+    """Frequency-domain removal of QNM content, Ma et al. arXiv:2207.10870
+    (reference qnmfits.py:2046-2152).  engine='torch' (default) runs the
+    taper, FFT, filter and inverse FFT in torch on ``device``
+    (``filters.rational_filter_torch``); engine='numpy' is the NumPy
+    oracle on the host.  Both agree to <= 1e-12 of max |data|.  Returns
+    (uniform_times, filtered_data)."""
+    if engine == "numpy":
+        return ref_impl.rational_filter(
+            times, data, modes, Mf, chif, t_start, t_end, dt, t_taper,
+            align_inspiral)
+    if engine != "torch":
+        raise ValueError(f"unknown engine {engine!r} ('torch' or 'numpy')")
+    from .filters import rational_filter_torch
+    return rational_filter_torch(
+        times, data, modes, Mf, chif, t_start, t_end, dt, t_taper,
+        align_inspiral, device=device)
 
 
 # ---------------------------------------------------------------------------

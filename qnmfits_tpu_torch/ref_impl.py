@@ -7,7 +7,8 @@ squares (np.linalg.lstsq, rcond=None) and trapezoid mismatches, as the
 reference fitting engine computes them (qnmfits.py:142-911).  Frequencies
 and mixing coefficients come from ``engine.SpectrumEvaluator``.  It shares
 no code with the sweeps it checks beyond the spectrum.  The serial loops
-are the ``engine='loop'`` paths of the public sweeps.
+are the ``engine='loop'`` paths of the public sweeps, and
+``rational_filter`` the oracle of the torch filter.
 """
 
 from __future__ import annotations
@@ -20,7 +21,8 @@ __all__ = ["ringdown", "mismatch", "multimode_mismatch", "ringdown_fit",
            "dynamic_ringdown_fit", "multimode_ringdown_fit",
            "dynamic_multimode_ringdown_fit", "fit_dispatch",
            "mismatch_t0_array", "mismatch_M_chi_grid", "mismatch_omega_grid",
-           "calculate_epsilon", "free_frequency_fit"]
+           "calculate_epsilon", "free_frequency_fit",
+           "rational_filter"]
 
 
 def ringdown(time, start_time, complex_amplitudes, frequencies):
@@ -332,3 +334,50 @@ def free_frequency_fit(times, data, t0, modes=[], Mf=None, chif=None,
                    bounds=[(0, 2), (-1, 0)],
                    options={"xatol": 1e-8, "disp": False})
     return res.x[0] + 1j * res.x[1]
+
+
+def rational_filter(times, data, modes, Mf, chif, t_start=-300, t_end=None,
+                    dt=None, t_taper=100, align_inspiral=True):
+    """Frequency-domain removal of QNM content, Ma et al. arXiv:2207.10870
+    (reference qnmfits.py:2046-2152): cubic interpolation onto a uniform
+    grid, an early-time cosine taper, the product over modes of
+    (2 pi f + w) / (2 pi f + conj w) and, with align_inspiral, the
+    accumulated phase and time shift.  Returns (uniform_times,
+    filtered_data)."""
+    from scipy.interpolate import interp1d
+
+    times = np.asarray(times)
+    data = np.asarray(data)
+    if t_end is None:
+        t_end = times[-1]
+    if dt is None:
+        dt = float(np.min(np.diff(times)))
+
+    t_u = np.arange(t_start, t_end, dt)
+    d_u = interp1d(times, data.real, kind="cubic")(t_u) \
+        + 1j * interp1d(times, data.imag, kind="cubic")(t_u)
+
+    # Cosine taper at early times.
+    taper_sel = t_u < (t_start + t_taper)
+    n_taper = int(taper_sel.sum())
+    arg = np.pi * np.arange(n_taper)[::-1] / max(n_taper, 1)
+    d_u[taper_sel] *= (np.cos(arg) + 1) / 2
+
+    freqs = np.fft.fftfreq(len(d_u), d=dt)
+    spec = np.fft.fft(d_u)
+
+    omegas = (SpectrumEvaluator([tuple(m) for m in modes]).omega(chif, Mf)
+              if len(modes) else np.zeros(0, complex))
+    filt = np.ones_like(spec)
+    phase_shift = 0.0
+    time_shift = 0.0
+    for w in omegas:
+        filt *= (2 * np.pi * freqs + w) / (2 * np.pi * freqs + np.conj(w))
+        phase_shift += np.angle(w / np.conj(w))
+        time_shift += np.abs(2 * np.imag(w) / np.conj(w) ** 2)
+    spec *= filt
+
+    if align_inspiral:
+        spec *= np.exp(-2j * np.pi * freqs * time_shift - 1j * phase_shift)
+
+    return t_u, np.fft.ifft(spec)

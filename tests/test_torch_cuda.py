@@ -275,3 +275,91 @@ def test_optimiser_paths_through_kernel_match_plain(cuda):
         True] * 4
     assert paths[2]["launches"] == 0 and paths[0]["launches"] > 0
     assert solves
+
+
+SPH_CUDA = [(2, 2), (3, 2)]
+
+
+def test_stacked_grid_through_kernel_matches_plain(cuda):
+    """The stacked spectrum sweep on the card: one launch for the grid (two
+    with a join budget of half the grid), the kernel route against the
+    plain solve on the same systems."""
+    import qnmfits_tpu_torch as tq
+    from qnmfits_tpu_torch.testing import synthetic_multimode
+    rng = np.random.default_rng(3)
+    Q, J, I, K = 257, 6, 2, 301
+    times = torch.arange(K, dtype=torch.float64, device=cuda) * 0.1 + 0.7
+    data = torch.as_tensor(rng.standard_normal((I, K))
+                           + 1j * rng.standard_normal((I, K)), device=cuda)
+    omegas = torch.as_tensor((0.5 + rng.random((Q, J)))
+                             - 1j * (0.05 + 0.3 * rng.random((Q, J))),
+                             device=cuda)
+    mus = torch.as_tensor(rng.standard_normal((Q, I, J))
+                          + 1j * rng.standard_normal((Q, I, J)), device=cuda)
+    args = (times, data, omegas, mus, 0.74)
+    for budget, launches in ((engine_real.JOIN_BYTES, 1),
+                             (128 * 2 * J * J * 16, 3)):
+        old = engine_real.JOIN_BYTES
+        engine_real.JOIN_BYTES = budget
+        try:
+            chol_cuda.launches = 0
+            C, mm = engine_real.sweep_spectra_stacked_real(*args, chunk=64)
+            assert chol_cuda.launches == launches
+        finally:
+            engine_real.JOIN_BYTES = old
+        C_p, mm_p = engine_real.sweep_spectra_stacked_real(
+            *args, chunk=64, solve=engine_real._regularised_solve_plain)
+        assert float((mm - mm_p).abs().max()) <= 1e-11
+        assert _rel(C, C_p) <= 1e-9
+
+    syn = synthetic_multimode(modes=[(2, 2, n, 1) for n in range(3)],
+                              times=np.arange(-10.0, 30.05, 0.1), seed=4)
+    args = (syn["times"], syn["data_dict"], syn["modes"], (0.9, 1.0),
+            (0.6, 0.8), 0.74)
+    for method in ("geq", "closest"):
+        kw = dict(t0_method=method, T=20.0, res=12, spherical_modes=SPH_CUDA)
+        chol_cuda.launches = 0
+        mm = tq.mismatch_M_chi_grid(*args, engine="fast", **kw)
+        assert chol_cuda.launches == 1
+        mm_p = tq.mismatch_M_chi_grid(*args, engine="fast", device="cpu",
+                                      **kw)
+        mm_b = tq.mismatch_M_chi_grid(*args, **kw)
+        assert np.max(np.abs(mm - mm_p)) <= 1e-11
+        assert np.max(np.abs(mm - mm_b)) <= 1e-11
+
+
+def test_amplitude_stability_through_kernel_matches_plain(cuda):
+    """amplitude_stability on the card: one launch (dedup on), the kernel
+    route against the plain-solve route and the CPU."""
+    import qnmfits_tpu_torch as tq
+    from qnmfits_tpu_torch.testing import synthetic_multimode
+    syn = synthetic_multimode(modes=[(2, 2, n, 1) for n in range(3)],
+                              times=np.arange(-10.0, 30.05, 0.1), seed=4)
+    t0s = np.linspace(-2.0, 10.0, 241)
+    args = (syn["times"], syn["data_dict"], syn["modes"], 0.952, 0.692, t0s)
+    kw = dict(T_array=20.0, spherical_modes=SPH_CUDA)
+    chol_cuda.launches = 0
+    out = tq.amplitude_stability(*args, **kw)
+    assert chol_cuda.launches == 1
+    plain = tq.amplitude_stability(
+        *args, solve=engine_real._regularised_solve_plain, **kw)
+    cpu = tq.amplitude_stability(*args, device="cpu", **kw)
+    keep = t0s >= 0
+    for ref in (plain, cpu):
+        assert np.max(np.abs(out["mm"] - ref["mm"])[keep]) <= 1e-11
+        for key in ("C", "A", "rel_std", "scatter", "phase_std"):
+            assert (np.max(np.abs(out[key] - ref[key]))
+                    <= 1e-9 * np.max(np.abs(ref[key]))), key
+
+
+def test_diagnostic_paths_through_kernel_match_plain(cuda):
+    """chip_smoke.py's phase 9 at a small size: G1, G2 and S1 with the
+    launches derived from the code, R1, U1 and F1 without a launch, each
+    held against its plain route and its oracle."""
+    import chip_smoke
+    problem = chip_smoke.build_problem(**chip_smoke.SMALL)
+    paths, solves, _ = chip_smoke.run_diagnostics(problem, "cuda")
+    assert [p["key"] for p in paths] == ["g1_oracle", "g1", "g1_set", "g2",
+                                         "s1", "r1", "u1", "f1"]
+    assert [p["launches"] for p in paths] == [1, 1, 1, 1, 1, 0, 0, 0]
+    assert sorted(solves) == ["g1", "g2", "s1"]

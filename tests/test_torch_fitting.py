@@ -323,15 +323,13 @@ def test_omega_grid_matches_jax(single, n_fixed, engine):
 def test_grids_unported_and_bad_input_raise(single, multi):
     s = single
     args = (s["times"], s["data"], s["modes"][:2])
-    for engine, item in (("fast", "B.3"), ("sharded", "A.10")):
-        with pytest.raises(NotImplementedError, match=item):
+    for kw in (dict(engine="sharded"), dict(mesh="auto")):
+        with pytest.raises(NotImplementedError, match="A.10"):
             tq.mismatch_M_chi_grid(*args, (0.9, 1.0), (0.6, 0.8), t0=0.0,
-                                   engine=engine, device="cpu")
-    for engine, item in (("fast-full", "B.3"), ("sharded", "A.10")):
-        with pytest.raises(NotImplementedError, match=item):
+                                   device="cpu", **kw)
+        with pytest.raises(NotImplementedError, match="A.10"):
             tq.mismatch_omega_grid(*args, s["Mf"], s["chif"], (0.4, 0.6),
-                                   (-0.2, -0.05), t0=0.0, engine=engine,
-                                   device="cpu")
+                                   (-0.2, -0.05), t0=0.0, device="cpu", **kw)
     with pytest.raises(ValueError, match="single data series"):
         tq.mismatch_omega_grid(multi["times"], multi["data_dict"],
                                s["modes"][:1], s["Mf"], s["chif"],

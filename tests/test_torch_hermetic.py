@@ -22,8 +22,9 @@ for name in ("jax", "jaxlib", "qnmfits_tpu"):
     sys.modules[name] = None          # any import of them now fails
 sys.path.insert(0, {repo!r})
 import qnmfits_tpu_torch
-from qnmfits_tpu_torch import (batched, engine, engine_real, fitting,
-                               optimize, ref_impl, testing)
+from qnmfits_tpu_torch import (batched, engine, engine_real, filters,
+                               fitting, optimize, orthonormal, ref_impl,
+                               stability, testing, uncertainty)
 from qnmfits_tpu_torch.ops import chol, chol_cuda, cmath, solve, windows
 from qnmfits_tpu_torch.spectrum import tables
 import chip_smoke
@@ -34,7 +35,8 @@ assert out["mm"].shape == (4, 64) and out["launches"] == 0
 paths = chip_smoke.run_paths(problem, "cpu")
 paths += chip_smoke.run_dynamic(problem, "cpu")[0]
 paths += chip_smoke.run_optimisers(problem, "cpu")[0]
-assert len(paths) == 22 and all(p["launches"] == 0 for p in paths)
+paths += chip_smoke.run_diagnostics(problem, "cpu")[0]
+assert len(paths) == 30 and all(p["launches"] == 0 for p in paths)
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "qnmfits_tpu")
                 and sys.modules[m] is not None)
@@ -67,6 +69,7 @@ def test_port_and_smoke_run_without_jax():
     assert "40-mode set" in r.stdout and "96-mode set" in r.stdout
     assert "D1 dynamic mode sets" in r.stdout and "D4 fit_events" in r.stdout
     assert "O2 calculate_epsilon_array" in r.stdout and "phase 8" in r.stdout
+    assert "S1 amplitude_stability" in r.stdout and "phase 9" in r.stdout
     new = _listing() - before
     assert not new, f"files written into the repository: {sorted(new)}"
 
@@ -110,6 +113,20 @@ def test_entry_point_without_cuda_raises(monkeypatch):
                                            t0s),
         lambda: tq.free_frequency_fit(times, h, 0.0),
         lambda: tq.calculate_epsilon(times, h, modes, 0.952, 0.692, 0.0),
+        lambda: tq.mismatch_M_chi_grid(times, h, modes, (0.9, 1.0),
+                                       (0.6, 0.7), 0.0, res=2, engine="fast"),
+        lambda: tq.mismatch_omega_grid(times, h, modes, 0.952, 0.692,
+                                       (0.4, 0.5), (-0.2, -0.1), 0.0, res=2,
+                                       engine="fast-full"),
+        lambda: tq.rational_filter(times, h, modes, 0.952, 0.692,
+                                   t_start=0.0),
+        lambda: tq.amplitude_stability(times, h, modes, 0.952, 0.692, t0s),
+        lambda: tq.orthonormal_decomposition(times, h, modes, 0.952, 0.692,
+                                             0.0),
+        lambda: tq.orthonormal_t0_sweep(times, h, modes, 0.952, 0.692, t0s),
+        lambda: tq.amplitude_uncertainty(times, h, modes, 0.952, 0.692, 0.0),
+        lambda: tq.mode_selection(times, h, [modes, modes + [(2, 2, 1, 1)]],
+                                  0.952, 0.692, 0.0),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="device='cpu'"):
