@@ -95,7 +95,27 @@ flushed line each with elapsed seconds:
    (the FFT on the card) against the oracle.  Each path through the solve
    is held against its plain-solve route; the solve is timed on G1's,
    G2's and S1's own systems, and each path's device time split;
-10. a JSON line of the paths, a JSON line describing each kernel, and
+10. the spatial mapping at the same grid (K = 2001, 8192 start times,
+   T = 100) on data from seed 11 over the (l, 4) spheres l = 4..8: linear
+   (4,4,n<4) and (5,4,0) mixed by mu, (2,2,0)x(3,2,0) mixed by Qmu_B (the
+   s = 0 table), (2,2,0)^2 with its own amplitude a sphere, white noise of
+   1e-4 of max |h|.  M1 (J = 11, the team kernel): the linear modes, the
+   unmapped (2,2,0)x(3,2,0) and the mapped (2,2,0)^2 through
+   ``spatial.mapping_mismatch_t0_array`` 'fast' with and without dedup
+   and 'batched'; M2 (J = 18, the wide kernel): (4,4,n=1..3) with
+   (4,4,0), (5,4,0) and (2,2,0)^2 mapped, 'fast' with dedup.  Each is
+   held to the launches derived from the code (``mapping_launches``), its
+   plain-solve route, the kernel's backward error on its systems, and the
+   'loop' engine (serial SVD fits) at 32 start times with t0 >= 0.  Q1:
+   Qmu_A/B/D/C on the (l, 4) ladder of the (2,2,0)^2 map at l_max = 8 and
+   200 spins in [0, 0.95] against the loop oracle at 5 of them, and Qmu_C
+   against its quadrature at one; SKY: M1's fit at t0 = 10 against
+   np.linalg.lstsq, its four sky maps and spatial mismatches; U2:
+   ``amplitude_uncertainty`` and ``mode_selection`` with
+   ``mapping_modes=`` on M1's design at t0 = 10 against the NumPy
+   formulas.  The solve is timed on M1's and M2's own systems, and each
+   path's device time split;
+11. a JSON line of the paths, a JSON line describing each kernel, and
    last the JSON ok line.
 
 Any failure raises and exits non-zero before the last line.
@@ -120,10 +140,11 @@ SPH = [(2, 2), (3, 2)]
 FULL = dict(t_range=(-50.0, 150.05), n_t0=8192, t0_range=(-5.0, 46.2),
             T=100.0, sets=tuple(range(16)), res=50, spins=8, events=8192,
             event_t=(-5.0, 95.0), event_T=80.0, opt_maxiter=30,
-            grid_res=200)
+            grid_res=200, qmu_spins=200, map_loop=32)
 SMALL = dict(t_range=(-10.0, 30.05), n_t0=64, t0_range=(-2.0, 10.0),
              T=20.0, sets=(1, 3, 9, 13), res=6, spins=3, events=48,
-             event_t=(-5.0, 35.0), event_T=25.0, opt_maxiter=8, grid_res=8)
+             event_t=(-5.0, 35.0), event_T=25.0, opt_maxiter=8, grid_res=8,
+             qmu_spins=8, map_loop=8)
 STRATA = (-5.0, -1.0, 0.5, 2.5, 10.0, 25.0, 40.0)     # bench.py:160-179
 
 MAIN_TOL = 1e-11      # kernel path vs plain-solve path, |mismatch| abs
@@ -151,12 +172,13 @@ def log(msg):
 
 def build_problem(t_range, n_t0, t0_range, T, sets, res=6, spins=3,
                   events=48, event_t=(-5.0, 35.0), event_T=25.0,
-                  opt_maxiter=8, grid_res=8):
+                  opt_maxiter=8, grid_res=8, qmu_spins=8, map_loop=8):
     """The bench problem: a synthetic (2,2,n<8) ringdown with mixing
     into (2,2) and (3,2), sampled at 0.1 M; with the grid resolution and
     the number of remnant spins of phase 6, the remnant tracks and the
-    catalog of phase 7, the Newton steps of phase 8 and the stacked grids'
-    resolution of phase 9."""
+    catalog of phase 7, the Newton steps of phase 8, the stacked grids'
+    resolution of phase 9, and phase 10's spins of the Qmu axis and start
+    times of the 'loop' oracle."""
     from qnmfits_tpu_torch.testing import (bench_mode_sets,
                                            synthetic_multimode)
     times = np.arange(*t_range, 0.1)
@@ -172,7 +194,8 @@ def build_problem(t_range, n_t0, t0_range, T, sets, res=6, spins=3,
                 Mf_t=np.linspace(1.02 * MF, MF, K),
                 chif_t=np.linspace(0.60, CHIF, K),
                 catalog=build_catalog(events, event_t, event_T),
-                opt_maxiter=opt_maxiter, grid_res=grid_res)
+                opt_maxiter=opt_maxiter, grid_res=grid_res,
+                qmu_spins=qmu_spins, map_loop=map_loop)
 
 
 EVENT_MODES = [(2, 2, n, 1) for n in range(4)]
@@ -1655,23 +1678,26 @@ def stability_launches(problem, J):
     return len(engine_real.join_groups(sizes, 2 * J * J * 16))
 
 
-def numpy_uncertainty(times, data, modes, t0, T):
+def numpy_uncertainty(times, data, modes, t0, T, design=None):
     """The amplitude covariance of one multimode fit by the textbook
     formula, in NumPy: the masked mixing-stacked design a, C =
     lstsq(a, d), sigma^2 = RSS / (n_obs - J), cov = sigma^2 inv(a^H a).
-    Returns C, cov, RSS, n_obs and kappa(a)^2, the condition number of
-    a^H a."""
+    ``design`` = (omega (J,), mu (I, J), spherical modes) replaces the
+    spectrum of ``modes`` on SPH.  Returns C, cov, RSS, n_obs and
+    kappa(a)^2, the condition number of a^H a."""
     from qnmfits_tpu_torch.engine import SpectrumEvaluator
-    ev = SpectrumEvaluator(modes, SPH)
-    w, mu = ev.omega(CHIF, MF), ev.mu(CHIF)
+    if design is None:
+        ev = SpectrumEvaluator(modes, SPH)
+        design = (ev.omega(CHIF, MF), ev.mu(CHIF), SPH)
+    w, mu, sph = design
     sel = (times >= t0) & (times < t0 + T)
     phi = np.exp(-1j * w[None, :] * (times[sel][:, None] - t0))
     a = np.concatenate([m[None, :] * phi for m in mu])
-    d = np.concatenate([data[lm][sel] for lm in SPH])
+    d = np.concatenate([data[lm][sel] for lm in sph])
     C, _, _, sv = np.linalg.lstsq(a, d, rcond=None)
     r = d - a @ C
     rss = float(np.vdot(r, r).real)
-    cov = rss / (len(d) - len(modes)) * np.linalg.inv(a.conj().T @ a)
+    cov = rss / (len(d) - len(w)) * np.linalg.inv(a.conj().T @ a)
     return C, cov, rss, len(d), float((sv[0] / sv[-1]) ** 2)
 
 
@@ -1994,6 +2020,346 @@ def run_diagnostics(problem, device, gpu=None):
     return records, solves, wall
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: spatial mapping of linear and quadratic QNMs
+# ---------------------------------------------------------------------------
+
+# The (l, 4) spheres, linear modes mixed into them, and the quadratic modes
+# (tests/test_spatial.py:57-80 at this width).  M1 maps the (2,2,0)^2 mode
+# and fits the (2,2,0)x(3,2,0) mode through Qmu_B (the s = 0 table): J = 5
+# + 1 + 5 = 11, the team kernel.  M2 maps (4,4,0), (5,4,0) and (2,2,0)^2:
+# J = 3 + 3 * 5 = 18, the wide kernel.
+MAP_SPH = [(l, 4) for l in range(4, 9)]
+MAP_LINEAR = [(4, 4, n, 1) for n in range(4)] + [(5, 4, 0, 1)]
+QUAD_UNMAPPED = (2, 2, 0, 1, 3, 2, 0, 1)
+QUAD_MAPPED = (2, 2, 0, 1, 2, 2, 0, 1)
+MAP_MODELS = {
+    "m1": (MAP_LINEAR + [QUAD_UNMAPPED, QUAD_MAPPED], [QUAD_MAPPED]),
+    "m2": (MAP_LINEAR[1:4] + [(4, 4, 0, 1), (5, 4, 0, 1), QUAD_MAPPED],
+           [(4, 4, 0, 1), (5, 4, 0, 1), QUAD_MAPPED]),
+}
+MAP_NOISE = 1e-4         # white complex noise, of max |h| a sphere
+MAP_T0 = 10.0            # start time of the single fit, the sky and U2
+QMU_LADDER = [(i, 4) + QUAD_MAPPED for i in range(4, 9)]
+QMU_L_MAX = 8
+QMU_LOOP_TOL = 1e-13     # Qmu_A/B/D/C vs the loop oracle
+QMU_QUAD_TOL = 1e-6      # Qmu_C coefficients vs quadrature (test_spatial.py)
+QMU_LOOP_SPINS = 5       # spins of Q1 held against the loop oracle
+
+
+def build_mapping(times, seed=11):
+    """Phase 10's data on ``times``: each (l, 4) sphere holds the linear
+    modes mixed by mu, the (2,2,0)x(3,2,0) mode mixed by Qmu_B, the
+    (2,2,0)^2 mode with its own amplitude a sphere, all from t = 0, and
+    complex white noise of MAP_NOISE of the sphere's max |h|, from
+    ``seed``."""
+    from qnmfits_tpu_torch.qnm_api import get_qnm
+    from qnmfits_tpu_torch.ref_impl import ringdown
+    from qnmfits_tpu_torch.spatial import Qmu_B
+    q = get_qnm()
+    rng = np.random.default_rng(seed)
+    I, n_lin = len(MAP_SPH), len(MAP_LINEAR)
+    a_lin = rng.standard_normal(n_lin) + 1j * rng.standard_normal(n_lin)
+    a_quad = rng.standard_normal() + 1j * rng.standard_normal()
+    a_map = rng.standard_normal(I) + 1j * rng.standard_normal(I)
+    w_lin = np.array(q.omega_list(MAP_LINEAR, CHIF, MF))
+    w_quad, w_map = q.omega_list([QUAD_UNMAPPED, QUAD_MAPPED], CHIF, MF)
+    alphas = Qmu_B([lm + QUAD_UNMAPPED for lm in MAP_SPH], CHIF, QMU_L_MAX)
+    data = {}
+    for i, lm in enumerate(MAP_SPH):
+        mu = np.array(q.mu_list([lm + m for m in MAP_LINEAR], CHIF))
+        h = (ringdown(times, 0.0, mu * a_lin, w_lin)
+             + ringdown(times, 0.0, [alphas[i] * a_quad, a_map[i]],
+                        [w_quad, w_map]))
+        scale = MAP_NOISE * np.max(np.abs(h))
+        data[lm] = h + scale * (rng.standard_normal(len(times))
+                                + 1j * rng.standard_normal(len(times)))
+    return data
+
+
+def mapping_launches(problem, key, engine, dedup):
+    """Solve launches of a mapping sweep on the problem's start times,
+    derived from the code: the join groups of the chunks the sweep makes
+    ('fast': _safe_chunk over the design's largest |Im omega|; 'batched':
+    the complex sweep's default chunk) over the distinct windows."""
+    from qnmfits_tpu_torch import batched, engine_real
+    from qnmfits_tpu_torch.spatial_engine import mapping_design
+    modes, mapped = MAP_MODELS[key]
+    _, omega, _ = mapping_design(MAP_SPH, modes, mapped, CHIF, MF)
+    t0s = _distinct(problem, problem["t0s"]) if dedup else problem["t0s"]
+    J, n = len(omega), len(t0s)
+    if engine == "fast":
+        chunk = batched._safe_chunk(t0s, float(np.max(np.abs(omega.imag))),
+                                    128)
+    else:
+        chunk = max(1, min(batched._CHUNK, batched._BASIS_BYTES
+                           // (len(problem["times"]) * J * 16)))
+    sizes = [min(chunk, n - lo) for lo in range(0, n, chunk)]
+    return len(engine_real.join_groups(sizes, 2 * J * J * 16))
+
+
+def _stratified(t0s, n):
+    """n start times with t0 >= 0, spread evenly over them (indices)."""
+    first = int(np.searchsorted(t0s, 0.0))
+    return np.unique(np.linspace(first, len(t0s) - 1, n).round().astype(int))
+
+
+def mapping_specs(problem, device):
+    """The paths of phase 10, as ``path_specs`` describes them: M1's
+    sweeps ('fast' with and without dedup, 'batched'), M2's 'fast' sweep,
+    Q1 (the Qmu predictions on a spin axis), SKY (M1's fit at MAP_T0, its
+    sky predictions and spatial mismatches) and U2 (the uncertainty and
+    mode selection of M1's design)."""
+    from qnmfits_tpu_torch import spatial
+    from qnmfits_tpu_torch.spatial_engine import mapping_design
+    import qnmfits_tpu_torch as tq
+    times, t0s, T = problem["times"], problem["t0s"], problem["T"]
+    data = build_mapping(times)
+    loop_idx = _stratified(t0s, problem["map_loop"])
+    kw = dict(T_array=T, spherical_modes=MAP_SPH, device=device)
+    specs, found = [], {}
+
+    def loop_oracle(key):
+        """The 'loop' engine (serial SVD fits) at the stratified start
+        times, once per model."""
+        if key not in found:
+            modes, mapped = MAP_MODELS[key]
+            found[key] = spatial.mapping_mismatch_t0_array(
+                times, data, modes, MF, CHIF, t0s[loop_idx], mapped,
+                engine="loop", **kw)
+        return found[key]
+
+    def sweep(key, engine, dedup, name):
+        modes, mapped = MAP_MODELS[key]
+        n = mapping_launches(problem, key, engine, dedup)
+        J = len(modes) - len(mapped) + len(mapped) * len(MAP_SPH)
+        wide = n if J > 16 else 0
+
+        def run(solve=None):
+            return spatial.mapping_mismatch_t0_array(
+                times, data, modes, MF, CHIF, t0s, mapped, engine=engine,
+                dedup=dedup, solve=solve, **kw)
+
+        specs.append(dict(
+            key=f"{key}_{engine}" + ("" if dedup else "_nodedup"),
+            name=f"{key.upper()} mapping_mismatch_t0_array '{engine}' "
+            f"(J={J}, {'dedup' if dedup else 'no dedup'}), {name}",
+            kernel=run, plain=run, pre=t0s < 0, backward=True,
+            expect=(n, wide),
+            oracle=lambda mm: _diff(mm[loop_idx], loop_oracle(key), None)))
+
+    sweep("m1", "fast", True, "team kernel")
+    sweep("m1", "fast", False, "team kernel")
+    sweep("m1", "batched", True, "team kernel")
+    sweep("m2", "fast", True, "wide kernel")
+
+    spins = np.linspace(0.0, 0.95, problem["qmu_spins"])
+    loop_q = np.unique(np.linspace(0, len(spins) - 1,
+                                   QMU_LOOP_SPINS).round().astype(int))
+    preds = {"A": (spatial.Qmu_A, -2, -2, None),
+             "B": (spatial.Qmu_B, -2, 0, None),
+             "D": (spatial.Qmu_D, -2, -2,
+                   lambda i: np.sqrt((i + 4) * (i - 3) * (i + 3) * (i - 2)))}
+
+    def q1():
+        out = {k: np.array(f(QMU_LADDER, spins, QMU_L_MAX, s1=s1, s2=s2))
+               for k, (f, s1, s2, _) in preds.items()}
+        out["C"] = np.array(spatial.Qmu_C(QMU_LADDER, spins))
+        found["q1"] = out
+        return np.stack(list(out.values()))
+
+    def q1_check(_):
+        out, d = found["q1"], 0.0
+        for qi in loop_q:
+            c = float(spins[qi])
+            for k, (_, s1, s2, extra) in preds.items():
+                ref = spatial._Qmu_sum_loop(QMU_LADDER, c, QMU_L_MAX, s1, s2,
+                                            extra=extra)
+                d = max(d, float(np.max(np.abs(out[k][:, qi] - ref))))
+            ref_c = spatial.Qmu_C(QMU_LADDER, c)
+            d = max(d, float(np.max(np.abs(out["C"][:, qi] - ref_c))))
+        mid = float(spins[len(spins) // 2])
+        quad = spatial.Qmu_C(QMU_LADDER, mid, method="quadrature",
+                             n_quad=48)
+        d_q = found["q1_quadrature"] = float(np.max(np.abs(
+            np.array(spatial.Qmu_C(QMU_LADDER, mid)) - quad)))
+        log(f"Q1: Qmu_C coefficients vs quadrature at chif = {mid:.4f}: "
+            f"{d_q:.3e} (bound {QMU_QUAD_TOL:.0e})")
+        if not d_q <= QMU_QUAD_TOL:
+            raise RuntimeError("Q1: Qmu_C disagrees with its quadrature")
+        return d, 0.0
+
+    specs.append(dict(
+        key="q1", name=f"Q1 Qmu_A/B/D/C, (l, 4) ladder of the (2,2,0)^2 map, "
+        f"l_max={QMU_L_MAX}, {len(spins)} spins in [0, 0.95], vs the loop "
+        f"at {QMU_LOOP_SPINS}", pre=None, expect=(0, 0), plain=None,
+        kernel=q1, oracle=q1_check, oracle_tol=QMU_LOOP_TOL))
+
+    m1_modes, m1_mapped = MAP_MODELS["m1"]
+    th, ph = np.meshgrid(np.linspace(0.1, np.pi - 0.1, 24),
+                         np.linspace(0.0, 2 * np.pi, 25), indexing="ij")
+
+    def sky():
+        fit = spatial.mapping_multimode_ringdown_fit(
+            times, data, m1_modes, MF, CHIF, MAP_T0, m1_mapped, T=T,
+            spherical_modes=MAP_SPH, device=device)
+        maps = [spatial.spatial_reconstruction(th, ph, fit, QUAD_MAPPED,
+                                               QMU_L_MAX),
+                spatial.spatial_prediction_linear(th, ph, MAP_LINEAR[0],
+                                                  QMU_L_MAX, CHIF),
+                spatial.spatial_prediction_quadratic(
+                    th, ph, QUAD_MAPPED, QMU_L_MAX, CHIF, spatial.Qmu_B),
+                spatial.spatial_prediction_C(th, ph, QUAD_MAPPED, CHIF)]
+        sm = [spatial.spatial_mismatch_quadratic(fit, QUAD_MAPPED, QMU_L_MAX,
+                                                 CHIF, f)[0]
+              for f in (spatial.Qmu_A, spatial.Qmu_B, spatial.Qmu_C,
+                        spatial.Qmu_D)]
+        found["sky"] = dict(fit=fit, peaks=[float(np.max(np.abs(m)))
+                                            for m in maps],
+                            spatial_mismatch=dict(zip("ABCD", sm)))
+        return np.concatenate([np.ravel(m) for m in maps]
+                              + [[fit["mismatch"]], sm])
+
+    def sky_check(_):
+        """The device fit against np.linalg.lstsq on the same design."""
+        from qnmfits_tpu_torch.ref_impl import mask_times, multimode_mismatch
+        out = found["sky"]
+        fit = out["fit"]
+        _, omega, mu = mapping_design(MAP_SPH, m1_modes, m1_mapped, CHIF, MF)
+        idx = mask_times(times, MAP_T0, T, "geq")
+        tm = times[idx]
+        phi = np.exp(-1j * omega[None, :] * (tm - MAP_T0)[:, None])
+        a = np.concatenate([m[None, :] * phi for m in mu])
+        d = np.concatenate([data[lm][idx] for lm in MAP_SPH])
+        C = np.linalg.lstsq(a, d, rcond=None)[0]
+        model = (a @ C).reshape(len(MAP_SPH), -1)
+        ref = multimode_mismatch(
+            tm, dict(zip(MAP_SPH, model)),
+            {lm: data[lm][idx] for lm in MAP_SPH})
+        sm = ", ".join(f"{k} {v:.4e}"
+                       for k, v in out["spatial_mismatch"].items())
+        log(f"SKY: M1 fit at t0 = {MAP_T0}: mismatch {fit['mismatch']:.6e}; "
+            f"spatial mismatch of (2,2,0)^2 against Qmu {sm}; map peaks "
+            f"{out['peaks']} (each 1 by normalisation)")
+        if not np.allclose(out["peaks"], 1.0, rtol=0, atol=1e-12):
+            raise RuntimeError("SKY: a sky map is not peak-normalised")
+        return abs(fit["mismatch"] - ref), 0.0
+
+    specs.append(dict(
+        key="sky", name=f"SKY mapping_multimode_ringdown_fit (M1, t0="
+        f"{MAP_T0}), sky maps on 24x25 points, spatial mismatches, vs "
+        "np.linalg.lstsq", pre=None, expect=(0, 0), plain=None,
+        kernel=sky, oracle=sky_check))
+
+    cands = [MAP_LINEAR[:1] + [QUAD_MAPPED], MAP_LINEAR[:4] + [QUAD_MAPPED],
+             MAP_LINEAR + [QUAD_UNMAPPED, QUAD_MAPPED]]
+    u_kw = dict(T=T, spherical_modes=MAP_SPH, mapping_modes=m1_mapped,
+                device=device)
+
+    def u2():
+        found["u2"] = [tq.amplitude_uncertainty(times, data, ms, MF, CHIF,
+                                                MAP_T0, **u_kw)
+                       for ms in cands]
+        sel = found["u2_sel"] = tq.mode_selection(times, data, cands, MF,
+                                                  CHIF, MAP_T0, **u_kw)
+        return sel["aic"]
+
+    def u2_check(_):
+        d_c, cov_rel, cov_bound, rss, n_modes = 0.0, [], [], [], []
+        for ms, out in zip(cands, found["u2"]):
+            _, omega, mu = mapping_design(MAP_SPH, ms, m1_mapped, CHIF, MF)
+            C, cov, r2, n_obs, kappa = numpy_uncertainty(
+                times, data, None, MAP_T0, T, design=(omega, mu, MAP_SPH))
+            rss.append(r2)
+            n_modes.append(len(omega))
+            d_c = max(d_c, _rel_max(out["C"], C))
+            cov_bound.append(max(U1_RTOL, 10 * kappa * np.finfo(float).eps))
+            cov_rel.append(_rel_max(out["cov"], cov))
+        sel = found["u2_sel"]
+        aic, bic, p = numpy_selection(rss, n_modes, n_obs)
+        d_sel = max(_rel_max(sel["rss"], rss), _rel_max(sel["aic"], aic),
+                    _rel_max(sel["bic"], bic))
+        d_p = float(np.max(np.abs(sel["pvalue"] - p)))
+        found["u2_gaps"] = dict(C=d_c, cov=cov_rel, cov_bound=cov_bound,
+                                criteria=d_sel, pvalue=d_p,
+                                best_bic=sel["best_bic"], n_modes=n_modes)
+        log(f"U2 vs the NumPy formula: C {d_c:.3e}, rss/aic/bic {d_sel:.3e} "
+            f"relative; p-values {d_p:.3e}; cov by candidate "
+            f"{[f'{x:.1e}' for x in cov_rel]} (bounds "
+            f"{[f'{x:.0e}' for x in cov_bound]}); J by candidate {n_modes}, "
+            f"best BIC candidate {sel['best_bic']}")
+        if not all(r <= b for r, b in zip(cov_rel, cov_bound)):
+            raise RuntimeError("U2: cov disagrees with the NumPy formula")
+        if not (d_c <= U1_RTOL and d_sel <= U1_RTOL and d_p <= U1_RTOL):
+            raise RuntimeError(f"U2: {found['u2_gaps']}")
+        return d_c, 0.0
+
+    specs.append(dict(
+        key="u2", name=f"U2 amplitude_uncertainty + mode_selection with "
+        f"mapping_modes=, {len(cands)} nested candidates, t0={MAP_T0}",
+        pre=None, expect=(0, 0), plain=None, kernel=u2, oracle=u2_check,
+        oracle_tol=U1_RTOL))
+    return specs, found
+
+
+def run_mapping(problem, device, gpu=None):
+    """Phase 10: ``run_specs`` on the paths of ``mapping_specs``; on the
+    card also the solve on M1's ('fast', dedup) and M2's own systems
+    beside its bound, its plain version and torch.linalg (its backward
+    error gated), and each path's device-time split.  Returns the path
+    records, the solve records by path key and the phase's wall."""
+    t = time.perf_counter()
+    specs, found = mapping_specs(problem, device)
+    records = run_specs(specs, device)
+    solves = {}
+    for spec, rec in zip(specs, records):
+        systems = rec.pop("systems", None)
+        if systems:
+            rec["systems"] = sum(b.shape[0] for _, b in systems)
+            rec["n"] = max(b.shape[-1] for _, b in systems)
+        if rec["key"] == "q1":
+            rec["quadrature"] = found["q1_quadrature"]
+        if rec["key"] == "sky":
+            rec["spatial_mismatch"] = found["sky"]["spatial_mismatch"]
+            rec["fit_mismatch"] = found["sky"]["fit"]["mismatch"]
+        if rec["key"] == "u2":
+            rec.update(found["u2_gaps"])
+        if device == "cpu":
+            continue
+        if rec["key"] in ("m1_fast", "m2_fast"):
+            G, b = systems[0]
+            r = solves[rec["key"]] = time_solves(G, b)
+            r["n"], r["launches"] = rec["n"], rec["launches"]
+            r["bound_ms"], r["bound_by"] = bound_ms(r["batch"], rec["n"])
+            r["bound_share"] = r["bound_ms"] / r["ms"]
+            log(f"{rec['name']} on {gpu}: solve {r['ms']:.4f} ms on its "
+                f"{r['batch']} systems (n={rec['n']}), bound "
+                f"{r['bound_ms']:.3e} ms ({r['bound_by']}), share "
+                f"{r['bound_share']:.3f}, plain {r['plain_ms']:.4f} ms, "
+                f"torch.linalg {r['library_ms']:.4f} ms, backward error "
+                f"{r['backward_err']:.3e}")
+            if not r["backward_err"] <= KERNEL_BWD_TOL:
+                raise RuntimeError(f"{rec['name']}: kernel backward error "
+                                   f"{r['backward_err']:.3e}")
+        split = rec["split"] = device_split(spec["kernel"])
+        if split is None:
+            log(f"  {rec['key']} device-time split: torch.profiler recorded "
+                "no device time (not measured)")
+            continue
+        log(f"  {rec['key']} device-time split: warm wall "
+            f"{split['wall_ms']:.2f} ms unprofiled, "
+            f"{split['profiled_wall_ms']:.2f} ms profiled; busy "
+            f"{split['busy_ms']:.2f} ms, idle share {split['idle_share']:.3f}"
+            f"; peak {split['peak_gib']:.2f} GiB; {split['kernels']} kernels "
+            f"and {split['copies']} copies: products "
+            f"{split['products_ms']:.2f}, elementwise "
+            f"{split['elementwise_ms']:.2f}, solve {split['solve_ms']:.4f}, "
+            f"copies {split['copies_ms']:.2f}, rest {split['rest_ms']:.2f} ms")
+    wall = time.perf_counter() - t
+    log(f"phase 10: {len(records)} paths in {wall:.1f} s")
+    return records, solves, wall
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2057,14 +2423,22 @@ def main():
                                                             gpu)
     record["diagnostic_paths"] = {
         k: {x: r[x] for x in keys if x in r} for k, r in diag_solves.items()}
-    # Profiler health over the whole run, phases 7 to 9 included.
+    mapping, map_solves, phase10_wall = run_mapping(problem, device, gpu)
+    for rec in (record, wide):
+        rec["mapping_paths"] = {
+            k: {x: r[x] for x in keys if x in r}
+            for k, r in map_solves.items()
+            if (r["n"] > chol_cuda.TEAM_MAX_N) == (rec is wide)}
+    # Profiler health over the whole run, phases 7 to 10 included.
     wide.update(event_timings=len(EVENT_TIMINGS),
                 profiles_dropping=len(DROPPED),
                 records_dropped_max=max(DROPPED, default=0))
-    print(json.dumps({"paths": paths + dynamic + optimisers + diagnostics,
+    print(json.dumps({"paths": paths + dynamic + optimisers + diagnostics
+                      + mapping,
                       "phase7_wall_s": phase7_wall,
                       "phase8_wall_s": phase8_wall,
-                      "phase9_wall_s": phase9_wall}), flush=True)
+                      "phase9_wall_s": phase9_wall,
+                      "phase10_wall_s": phase10_wall}), flush=True)
     print(json.dumps({"kernels": [record, wide]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -12,7 +12,13 @@ bordered 'fast'), the catalog event batch ``fit_events``, the optimisers
 forms ``calculate_epsilon_array`` and ``free_frequency_fit_array``), and
 the diagnostics: ``rational_filter``, ``amplitude_stability``,
 ``orthonormal_decomposition``, ``orthonormal_t0_sweep``,
-``amplitude_uncertainty`` and ``mode_selection``.  Every batched
+``amplitude_uncertainty`` and ``mode_selection`` (with ``mapping_modes=``
+too); and the spatial mapping of linear and quadratic QNMs, the submodule
+``spatial`` (the mapping fit ``mapping_multimode_ringdown_fit``, its
+start-time sweep ``mapping_mismatch_t0_array``, the Qmu predictions A-D,
+the sky predictions and spatial mismatches), with what it needs:
+``harmonics``, ``spectrum.angular``, the s = 0 and s = -1 tables and the
+``qnm`` class (``qnm_api``).  Every batched
 Hermitian solve runs in the hand-written FP64 CUDA kernels
 (``ops/chol_cuda.py``, ``csrc/chol_solve.cu``), forward and, for the
 optimisers, backward.
@@ -81,6 +87,7 @@ from .orthonormal import (  # noqa: E402
     orthonormal_t0_sweep,
 )
 from .uncertainty import amplitude_uncertainty, mode_selection  # noqa: E402
+from . import spatial  # noqa: E402
 
 __all__ = [
     "CDTYPE", "RDTYPE", "resolve_device",
@@ -92,5 +99,5 @@ __all__ = [
     "calculate_epsilon", "free_frequency_fit", "calculate_epsilon_array",
     "free_frequency_fit_array", "rational_filter", "amplitude_stability",
     "orthonormal_decomposition", "orthonormal_t0_sweep",
-    "amplitude_uncertainty", "mode_selection",
+    "amplitude_uncertainty", "mode_selection", "spatial",
 ]

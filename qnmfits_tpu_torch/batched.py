@@ -696,8 +696,9 @@ def batch_mismatch_t0_modesets_dynamic(times, data, mode_sets, Mf, chif,
 
 
 def batch_fit_events(times, data, modes, Mf, chif, t0, T=100,
-                     t0_method="geq", mesh=None, engine="batched",
-                     chunk=None, device="cuda", solve=None):
+                     t0_method="geq", precision="x64", mesh=None,
+                     engine="batched", chunk=None, device="cuda",
+                     solve=None):
     """One mode model fitted to many events (batched.py:1291): E series on
     a shared time grid, each with its own remnant (Mf_e, chif_e) and
     window (t0_e, T_e); the reference fits them one call at a time
@@ -709,9 +710,12 @@ def batch_fit_events(times, data, modes, Mf, chif, t0, T=100,
     Gram branch like the JAX package's 'fast' one measured slower on the
     H100 (PERF.md, section 6).
     ``chunk`` events are built at a time (by default as many as
-    _BASIS_BYTES of basis hold).  Returns mm (E,) and C (E, J) complex.
+    _BASIS_BYTES of basis hold).  precision='x64' is the only precision
+    (``fitting._check_precision``).  Returns mm (E,) and C (E, J) complex.
     """
+    from .fitting import _check_precision
     _check_t0_method(t0_method)
+    _check_precision(precision)
     if mesh is not None:
         _not_ported("mesh= (the sharded event batch)", "A.10")
     if engine not in ("batched", "fast"):

@@ -1,12 +1,14 @@
 """Kerr-spectrum tables: QNM frequencies and mixing coefficients as
 cubic splines in the remnant spin (port of qnmfits_tpu/spectrum/tables.py).
 
-The artifact is the JAX package's tracked ``qnm_tables_s-2.npz``, read in
-place with ``np.load`` -- the port keeps no copy of it.  Splines are fitted
-in memory, only for the table rows that requested modes use, and cached
-on the ``SpectrumTables`` instance; nothing is written to disk.  A mode
-missing from the table raises (the JAX package solves such modes on
-demand; that solver is not ported).
+The artifacts are the JAX package's tracked ``qnm_tables_s{s}.npz`` (spin
+weights s = -2, -1 and 0), read in place with ``np.load`` -- the port
+keeps no copy of them.  Splines are fitted in memory, only for the table
+rows that requested modes use, and cached on the ``SpectrumTables``
+instance; nothing is written to disk (the JAX package's ``.spl.npz``
+sidecars are neither read nor written).  A mode missing from the table
+raises (the JAX package solves such modes on demand; that solver is not
+ported).
 
 Semantics kept from the reference (qnm.py file:line as in the JAX module):
 mirror modes (sign=-1) look up m -> -m and map omega -> -conj(omega),
@@ -22,8 +24,13 @@ from pathlib import Path
 
 import numpy as np
 
-DEFAULT_TABLE = (Path(__file__).resolve().parents[2] / "qnmfits_tpu" / "data"
-                 / "qnm_tables_s-2.npz")
+DATA_DIR = Path(__file__).resolve().parents[2] / "qnmfits_tpu" / "data"
+DEFAULT_TABLE = DATA_DIR / "qnm_tables_s-2.npz"
+
+
+def table_path(s: int) -> Path:
+    """The tracked artifact of spin weight s."""
+    return DATA_DIR / f"qnm_tables_s{int(s)}.npz"
 
 
 def _fit_cubic_coeffs(x: np.ndarray, y: np.ndarray) -> np.ndarray:
@@ -143,6 +150,8 @@ class SpectrumTables:
     def mu_coeffs(self, rows: np.ndarray, comps: np.ndarray) -> np.ndarray:
         """Spline coefficients (N, P-1, 4) of mixing component comps[i]
         at table row rows[i]."""
+        if len(rows) == 0:
+            return np.zeros((0, len(self.chi) - 1, 4), complex)
         self._fit_rows(rows)
         return np.stack([self._mu_c[int(r)][int(c)]
                          for r, c in zip(rows, comps)])
@@ -192,6 +201,53 @@ class SpectrumTables:
         return (np.array(rows, np.int64), np.array(comps, np.int64),
                 np.array(signs, np.float64), np.array(parity, np.float64),
                 np.array(nonzero, bool))
+
+
+    def _check_chif(self, chif):
+        """Spins outside the table grid [0, chi_max] raise (tables.py:
+        219): cubic extrapolation past the grid is silently unphysical."""
+        c = np.asarray(chif, float)
+        hi = float(self.chi[-1])
+        # Negated form so NaN (all comparisons False) also raises.
+        if c.size and not (float(np.min(c)) >= 0.0
+                           and float(np.max(c)) <= hi
+                           and not np.any(np.isnan(c))):
+            raise ValueError(
+                f"chif must be in [0, {hi}] (got range "
+                f"[{float(np.min(c))}, {float(np.max(c))}]); retrograde "
+                f"modes are selected by the mode's m/sign, not a "
+                f"negative spin")
+
+    def omega_np(self, mode_set: ModeIndexSet, chif, Mf=1.0):
+        """Frequencies of a compiled mode set at spin(s) chif (tables.py:
+        239): (J,) for scalar chif, (J, Q) for chif (Q,); an array Mf with
+        a scalar chif broadcasts to (J, Q)."""
+        self._check_chif(chif)
+        rows = mode_set.rows_np()            # (J, Kmax)
+        signs = mode_set.signs_np()
+        mask = mode_set.mask_np()
+        w = eval_spline_np(self.chi, self.omega_coeffs(rows), chif)
+        if w.ndim == 3:
+            signs = signs[..., None]
+            mask = mask[..., None]
+        w = np.where(signs > 0, w, -np.conj(w))
+        w = np.where(mask, w, 0.0).sum(axis=1)
+        Mf = np.asarray(Mf)
+        if Mf.ndim and w.ndim == 1:
+            return w[:, None] / Mf[None, :]
+        return w / Mf
+
+    def mu_np(self, indices, chif):
+        """Mixing coefficients of (l, m, l', m', n', sign) tuples at spin(s)
+        chif (tables.py:266): (N,) or (N, Q)."""
+        self._check_chif(chif)
+        rows, comps, signs, parity, nonzero = self.compile_mu_indices(indices)
+        mu = eval_spline_np(self.chi, self.mu_coeffs(rows, comps), chif)
+        if mu.ndim == 2:
+            signs = signs[:, None]; parity = parity[:, None]
+            nonzero = nonzero[:, None]
+        mu = np.where(signs > 0, mu, parity * np.conj(mu))
+        return np.where(nonzero, mu, 0.0)
 
 
 @lru_cache(maxsize=1)

@@ -25,18 +25,19 @@ from . import RDTYPE, resolve_device
 
 __all__ = ["amplitude_uncertainty", "mode_selection"]
 
-_NO_MAPPING = ("mapping_modes= (the mapping-fit design) is not ported to "
-               "qnmfits_tpu_torch yet (ROADMAP A.8)")
-
 
 def _masked_design(times, data, modes, Mf, chif, t0, t0_method, T,
-                   spherical_modes, dev):
+                   spherical_modes, dev, mapping_modes=None):
     """(a (I * Km, J), d (I * Km,), omega) on ``dev``: the lstsq system one
     fit solves (uncertainty.py:40; reference design matrix
     qnmfits.py:280-283 single-mode, :628-631 multimode stacking).  Array
     Mf/chif route the dynamic design mu(t_k) exp(-i omega(t_k) (t_k - t0))
     (reference qnmfits.py:438-444, 863-864), and ``omega`` is then the
-    (Km, J) frequency track over the masked window."""
+    (Km, J) frequency track over the masked window.  ``mapping_modes``
+    routes the identity-block design of spatial.mapping_multimode_
+    ringdown_fit (spatial_engine.mapping_design; reference
+    spatial_mapping_functions.py:212-248), with ``omega`` (J,) over the
+    expanded column list."""
     from .batched import _canon, _prep, _spectrum
     from .engine import _window, cached_evaluator, check_spin
 
@@ -50,6 +51,21 @@ def _masked_design(times, data, modes, Mf, chif, t0, t0_method, T,
     d = torch.as_tensor(rows[:, mask].reshape(-1), dtype=torch.complex128,
                         device=dev)
     canon = _canon(modes)
+
+    if mapping_modes is not None:
+        if dynamic:
+            raise ValueError(
+                "mapping fits take a static (scalar) remnant")
+        if sph is None:
+            raise ValueError(
+                "mapping fits need dict data over spherical modes")
+        check_spin(chif)
+        from .spatial_engine import mapping_design
+
+        _, omega, mu = mapping_design(
+            list(sph), list(canon), [tuple(m) for m in mapping_modes],
+            float(chif), float(Mf))
+        return _static_design(omega, mu, tm, t0, d, dev)
 
     if dynamic:
         K = times.shape[0]
@@ -79,6 +95,12 @@ def _masked_design(times, data, modes, Mf, chif, t0, t0_method, T,
         raise ValueError(
             f"data has {rows.shape[0]} spherical-mode rows but the "
             f"mixing matrix expects {mu.shape[0]}")
+    return _static_design(omega, mu, tm, t0, d, dev)
+
+
+def _static_design(omega, mu, tm, t0, d, dev):
+    """The design a (I * Km, J) of a static spectrum, omega (J,) and mu
+    (I, J), on the masked times tm; returns (a, d, omega)."""
     om = torch.as_tensor(omega, device=dev)
     dt = torch.as_tensor(tm - float(t0), dtype=RDTYPE, device=dev)
     phi = torch.exp(-1j * om[None, :] * dt[:, None])          # (Km, J)
@@ -104,19 +126,19 @@ def amplitude_uncertainty(times, data, modes, Mf, chif, t0,
 
     Arguments as ``ringdown_fit`` (array data) / ``multimode_ringdown_fit``
     (dict data); array Mf/chif route the dynamic design (omega is then the
-    (Km, J) track).  ``sigma``, if given, is the known per-sample complex
-    noise standard deviation; otherwise it is estimated from the residual.
-    ``mapping_modes`` is not ported (ROADMAP A.8).
+    (Km, J) track), ``mapping_modes`` the mapping fit's design (dict data,
+    static remnant; omega over its expanded columns).  ``sigma``, if
+    given, is the known per-sample complex noise standard deviation;
+    otherwise it is estimated from the residual.
 
     Returns a dict: omega, C (J,) the fit's amplitudes, cov (J, J),
     sigma_C (J,) = sqrt(diag cov), corr (J, J), snr (J,) = |C| / sigma_C,
     sigma2, n_obs (I * Km), dof (n_obs - J).
     """
-    if mapping_modes is not None:
-        raise NotImplementedError(_NO_MAPPING)
     dev = resolve_device(device)
     a, d, omega = _masked_design(times, data, modes, Mf, chif, t0,
-                                 t0_method, T, spherical_modes, dev)
+                                 t0_method, T, spherical_modes, dev,
+                                 mapping_modes)
     J = a.shape[1]
     C, rank, rss = _lstsq(a, d)
     if rank < J:
@@ -182,15 +204,14 @@ def mode_selection(times, data, models, Mf, chif, t0, t0_method="geq",
     real observations: AIC = N ln(RSS/N) + 2k, BIC = N ln(RSS/N) + k ln N.
     Consecutive candidates where the earlier set is a subset of the later
     get the extra-sum-of-squares F statistic and its p-value; other pairs
-    NaN.  ``mapping_modes`` is not ported (ROADMAP A.8).
+    NaN.  ``mapping_modes`` fits every candidate with the mapping
+    design, as ``amplitude_uncertainty`` does.
 
     Returns a dict over the candidates: models, n_modes, n_params, rss,
     aic, bic, delta_aic, delta_bic, best_aic, best_bic, fstat, pvalue
     ((len(models) - 1,)), n_obs.  On noiseless data RSS is rounding noise
     and the criteria degenerate.
     """
-    if mapping_modes is not None:
-        raise NotImplementedError(_NO_MAPPING)
     if len(models) < 2:
         raise ValueError("mode_selection needs at least two candidate "
                          "mode sets to compare")
@@ -198,7 +219,8 @@ def mode_selection(times, data, models, Mf, chif, t0, t0_method="geq",
     rss, n_par, n_modes, n_obs = [], [], [], None
     for ci, modes in enumerate(models):
         a, d, _ = _masked_design(times, data, modes, Mf, chif, t0,
-                                 t0_method, T, spherical_modes, dev)
+                                 t0_method, T, spherical_modes, dev,
+                                 mapping_modes)
         J = a.shape[1]
         _, rank, r2 = _lstsq(a, d)
         if rank < J:

@@ -363,3 +363,55 @@ def test_diagnostic_paths_through_kernel_match_plain(cuda):
                                          "s1", "r1", "u1", "f1"]
     assert [p["launches"] for p in paths] == [1, 1, 1, 1, 1, 0, 0, 0]
     assert sorted(solves) == ["g1", "g2", "s1"]
+
+
+def test_mapping_paths_through_kernel_match_plain(cuda):
+    """chip_smoke.py's phase 10 at a small size: M1 (J = 11, the team
+    kernel) and M2 (J = 18, the wide kernel) with the launches derived
+    from the code, each within 1e-11 of its plain route for t0 >= 0 and
+    with the kernel's backward error gated; Q1, SKY and U2 launch
+    nothing."""
+    import chip_smoke
+    problem = chip_smoke.build_problem(**chip_smoke.SMALL)
+    paths, solves, _ = chip_smoke.run_mapping(problem, "cuda")
+    assert [p["key"] for p in paths] == ["m1_fast", "m1_fast_nodedup",
+                                         "m1_batched", "m2_fast", "q1",
+                                         "sky", "u2"]
+    sweeps = [("m1", "fast", True), ("m1", "fast", False),
+              ("m1", "batched", True), ("m2", "fast", True)]
+    for p, (key, engine, dedup) in zip(paths, sweeps):
+        n = chip_smoke.mapping_launches(problem, key, engine, dedup)
+        assert (p["launches"], p["wide_launches"]) == (
+            n, n if key == "m2" else 0)
+        assert p["plain_in"] <= 1e-11
+        assert p["backward_err"] <= chip_smoke.KERNEL_BWD_TOL
+    assert [p["launches"] for p in paths[4:]] == [0, 0, 0]
+    assert sorted(solves) == ["m1_fast", "m2_fast"]
+
+
+@pytest.mark.parametrize("engine", ["fast", "batched"])
+def test_mapping_sweep_launches_one_per_join_group(cuda, monkeypatch,
+                                                   engine):
+    """With the join budget cut, the J = 18 mapping sweep makes one wide
+    launch per join group, as chip_smoke.mapping_launches derives them,
+    and still matches the plain route; called without device= it runs
+    on the card."""
+    import chip_smoke
+    from qnmfits_tpu_torch import spatial
+    problem = chip_smoke.build_problem(**dict(chip_smoke.SMALL, n_t0=512))
+    monkeypatch.setattr(engine_real, "JOIN_BYTES", 150 * 2 * 18 * 18 * 16)
+    modes, mapped = chip_smoke.MAP_MODELS["m2"]
+    data = chip_smoke.build_mapping(problem["times"])
+    args = (problem["times"], data, modes, chip_smoke.MF, chip_smoke.CHIF,
+            problem["t0s"], mapped)
+    kw = dict(T_array=problem["T"], spherical_modes=chip_smoke.MAP_SPH,
+              engine=engine, dedup=False)
+    n = chip_smoke.mapping_launches(problem, "m2", engine, False)
+    assert n > 1
+    chol_cuda.launches = chol_cuda.wide_launches = 0
+    mm = spatial.mapping_mismatch_t0_array(*args, **kw)
+    assert (chol_cuda.launches, chol_cuda.wide_launches) == (n, n)
+    mm_plain = spatial.mapping_mismatch_t0_array(
+        *args, solve=engine_real._regularised_solve_plain, **kw)
+    keep = problem["t0s"] >= 0
+    assert np.max(np.abs(mm - mm_plain)[keep]) <= 1e-11

@@ -432,8 +432,8 @@ def test_mode_selection_matches_jax(single, multi, kind):
 
 def test_uncertainty_errors(single, multi):
     """The degenerate (text matched as JAX's tests match it), empty-window,
-    too-few-candidates and no-residual errors; mapping_modes= names
-    ROADMAP A.8."""
+    too-few-candidates and no-residual errors; mapping_modes= with array
+    data or a remnant track raises the JAX package's errors."""
     s = single
     args = (s["times"], s["data"])
     dup = [s["modes"][0], s["modes"][0]]
@@ -454,14 +454,14 @@ def test_uncertainty_errors(single, multi):
         with pytest.raises(ValueError, match="at least two"):
             fn(*args, models[:1], s["Mf"], s["chif"], 0.0, **kw)
     m = multi
-    for call in (
-            lambda: tq.amplitude_uncertainty(
-                m["times"], m["data_dict"], m["modes"], m["Mf"], m["chif"],
-                0.0, spherical_modes=SPH, mapping_modes=[(2, 2, 0, 1)],
-                device="cpu"),
-            lambda: tq.mode_selection(
+    track = np.full(len(m["times"]), m["chif"])
+    for call, match in (
+            (lambda: tq.amplitude_uncertainty(
+                s["times"], s["data"], s["modes"], s["Mf"], s["chif"], 0.0,
+                mapping_modes=[(2, 2, 0, 1)], device="cpu"), "dict data"),
+            (lambda: tq.mode_selection(
                 m["times"], m["data_dict"], [m["modes"][:1], m["modes"]],
-                m["Mf"], m["chif"], 0.0, spherical_modes=SPH,
-                mapping_modes=[(2, 2, 0, 1)], device="cpu")):
-        with pytest.raises(NotImplementedError, match="A.8"):
+                m["Mf"], track, 0.0, spherical_modes=SPH,
+                mapping_modes=[(2, 2, 0, 1)], device="cpu"), "static")):
+        with pytest.raises(ValueError, match=match):
             call()

@@ -378,6 +378,24 @@ def test_fast_engine_is_the_batched_sweep(problem, catalog, entry):
     np.testing.assert_array_equal(C_f, C)
 
 
+@pytest.mark.parametrize("precision", ["x64", "f32"])
+def test_fit_events_precision(catalog, precision):
+    """fit_events takes the JAX signature's precision=: 'x64' gives the
+    call without it exactly, anything else raises."""
+    c = catalog
+    args = (c["times"], c["rows"], MODES, c["Mfs"], c["chifs"], c["t0s"])
+    if precision != "x64":
+        with pytest.raises(NotImplementedError, match="x64"):
+            tq.fit_events(*args, T=25.0, precision=precision, device="cpu")
+        return
+    mm, C = tq.fit_events(*args, T=25.0, precision=precision, device="cpu")
+    mm0, C0 = tq.fit_events(*args, T=25.0, device="cpu")
+    np.testing.assert_array_equal(mm, mm0)
+    np.testing.assert_array_equal(C, C0)
+    mm_j, _ = jb.batch_fit_events(*args, T=25.0, precision=precision)
+    np.testing.assert_allclose(mm, np.asarray(mm_j), rtol=0, atol=MM_TOL)
+
+
 def test_fit_events_raises(catalog):
     c = catalog
     args = (c["times"], c["rows"], MODES, c["Mfs"])

@@ -23,10 +23,11 @@ for name in ("jax", "jaxlib", "qnmfits_tpu"):
 sys.path.insert(0, {repo!r})
 import qnmfits_tpu_torch
 from qnmfits_tpu_torch import (batched, engine, engine_real, filters,
-                               fitting, optimize, orthonormal, ref_impl,
+                               fitting, harmonics, optimize, orthonormal,
+                               qnm_api, ref_impl, spatial, spatial_engine,
                                stability, testing, uncertainty)
 from qnmfits_tpu_torch.ops import chol, chol_cuda, cmath, solve, windows
-from qnmfits_tpu_torch.spectrum import tables
+from qnmfits_tpu_torch.spectrum import angular, tables
 import chip_smoke
 
 problem = chip_smoke.build_problem(**chip_smoke.SMALL)
@@ -36,7 +37,8 @@ paths = chip_smoke.run_paths(problem, "cpu")
 paths += chip_smoke.run_dynamic(problem, "cpu")[0]
 paths += chip_smoke.run_optimisers(problem, "cpu")[0]
 paths += chip_smoke.run_diagnostics(problem, "cpu")[0]
-assert len(paths) == 30 and all(p["launches"] == 0 for p in paths)
+paths += chip_smoke.run_mapping(problem, "cpu")[0]
+assert len(paths) == 37 and all(p["launches"] == 0 for p in paths)
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "qnmfits_tpu")
                 and sys.modules[m] is not None)
@@ -70,6 +72,8 @@ def test_port_and_smoke_run_without_jax():
     assert "D1 dynamic mode sets" in r.stdout and "D4 fit_events" in r.stdout
     assert "O2 calculate_epsilon_array" in r.stdout and "phase 8" in r.stdout
     assert "S1 amplitude_stability" in r.stdout and "phase 9" in r.stdout
+    assert "M2 mapping_mismatch_t0_array" in r.stdout
+    assert "U2 amplitude_uncertainty" in r.stdout and "phase 10" in r.stdout
     new = _listing() - before
     assert not new, f"files written into the repository: {sorted(new)}"
 
@@ -127,6 +131,16 @@ def test_entry_point_without_cuda_raises(monkeypatch):
         lambda: tq.amplitude_uncertainty(times, h, modes, 0.952, 0.692, 0.0),
         lambda: tq.mode_selection(times, h, [modes, modes + [(2, 2, 1, 1)]],
                                   0.952, 0.692, 0.0),
+        lambda: tq.spatial.mapping_multimode_ringdown_fit(
+            times, {(2, 2): h}, modes, 0.952, 0.692, 0.0, modes),
+        lambda: tq.spatial.mapping_mismatch_t0_array(
+            times, {(2, 2): h}, modes, 0.952, 0.692, t0s, modes),
+        lambda: tq.spatial.mapping_mismatch_t0_array(
+            times, {(2, 2): h}, modes, 0.952, 0.692, t0s, modes,
+            engine="fast"),
+        lambda: tq.spatial.mapping_mismatch_t0_array(
+            times, {(2, 2): h}, modes, 0.952, 0.692, t0s, modes,
+            engine="loop"),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="device='cpu'"):
