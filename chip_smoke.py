@@ -115,7 +115,28 @@ flushed line each with elapsed seconds:
    ``mapping_modes=`` on M1's design at t0 = 10 against the NumPy
    formulas.  The solve is timed on M1's and M2's own systems, and each
    path's device time split;
-11. a JSON line of the paths, a JSON line describing each kernel, and
+11. the waveform layer feeding the fits: W1, the BBH fixture
+   (tests/data/fixture_bbh_waveform.npz, K = 5001) through
+   ``waveforms.SXS(8888, zero_time=(2, 2))`` from an SXS-format cache in a
+   temporary directory (where h5py is installed; without it, through the
+   loader's `sxs`-package branch with the fixture played back); W2, the
+   NRSur7dq4 recording (tests/data/fixture_surrogate.npz, 21 modes, a
+   tilted remnant spin) through ``Custom`` with transform='rotation' and
+   'dynamic_rotation'; W3, every mode to ellMax = 8 (77) on K = 20001
+   samples, Kerr QNMs from seed 11 tilted by a known rotation, through
+   ``Custom`` both ways, its 'rotation' gated against the untilted modes.
+   Each loader stage's host seconds are reported.  Then on the card: W1's
+   main path (the (2,2,n<N) ladders, N = 1..8, 8192 start times, with and
+   without dedup), its dynamic sweep on its own Moft / chioft tracks, its
+   dynamic, multimode and epsilon fits at t0 = 10 against the JAX
+   package's pins; W2's main path (the 16 bench sets on the rotated rows);
+   W3's 18-mode sweep on the rotated (2,2), (3,2), (4,2) rows (the wide
+   kernel).  Each with its derived launches, against its plain-solve
+   route and the oracle (each window held to the larger of the usual
+   bound and the normal equations' error at its conditioning, ROADMAP
+   C.3: ``gram_bound``), the kernel's backward error gated, and its
+   device-time split;
+12. a JSON line of the paths, a JSON line describing each kernel, and
    last the JSON ok line.
 
 Any failure raises and exits non-zero before the last line.
@@ -140,11 +161,13 @@ SPH = [(2, 2), (3, 2)]
 FULL = dict(t_range=(-50.0, 150.05), n_t0=8192, t0_range=(-5.0, 46.2),
             T=100.0, sets=tuple(range(16)), res=50, spins=8, events=8192,
             event_t=(-5.0, 95.0), event_T=80.0, opt_maxiter=30,
-            grid_res=200, qmu_spins=200, map_loop=32)
+            grid_res=200, qmu_spins=200, map_loop=32, wave_t0=8192,
+            wave_dyn_t0=513, w3_ell=8, w3_K=20001)
 SMALL = dict(t_range=(-10.0, 30.05), n_t0=64, t0_range=(-2.0, 10.0),
              T=20.0, sets=(1, 3, 9, 13), res=6, spins=3, events=48,
              event_t=(-5.0, 35.0), event_T=25.0, opt_maxiter=8, grid_res=8,
-             qmu_spins=8, map_loop=8)
+             qmu_spins=8, map_loop=8, wave_t0=64, wave_dyn_t0=17, w3_ell=4,
+             w3_K=2001)
 STRATA = (-5.0, -1.0, 0.5, 2.5, 10.0, 25.0, 40.0)     # bench.py:160-179
 
 MAIN_TOL = 1e-11      # kernel path vs plain-solve path, |mismatch| abs
@@ -172,13 +195,16 @@ def log(msg):
 
 def build_problem(t_range, n_t0, t0_range, T, sets, res=6, spins=3,
                   events=48, event_t=(-5.0, 35.0), event_T=25.0,
-                  opt_maxiter=8, grid_res=8, qmu_spins=8, map_loop=8):
+                  opt_maxiter=8, grid_res=8, qmu_spins=8, map_loop=8,
+                  wave_t0=64, wave_dyn_t0=17, w3_ell=4, w3_K=2001):
     """The bench problem: a synthetic (2,2,n<8) ringdown with mixing
     into (2,2) and (3,2), sampled at 0.1 M; with the grid resolution and
     the number of remnant spins of phase 6, the remnant tracks and the
     catalog of phase 7, the Newton steps of phase 8, the stacked grids'
-    resolution of phase 9, and phase 10's spins of the Qmu axis and start
-    times of the 'loop' oracle."""
+    resolution of phase 9, phase 10's spins of the Qmu axis and start
+    times of the 'loop' oracle, and phase 11's start times (of the main
+    paths, and of the dynamic and wide sweeps) and W3's ellMax and
+    samples."""
     from qnmfits_tpu_torch.testing import (bench_mode_sets,
                                            synthetic_multimode)
     times = np.arange(*t_range, 0.1)
@@ -195,7 +221,8 @@ def build_problem(t_range, n_t0, t0_range, T, sets, res=6, spins=3,
                 chif_t=np.linspace(0.60, CHIF, K),
                 catalog=build_catalog(events, event_t, event_T),
                 opt_maxiter=opt_maxiter, grid_res=grid_res,
-                qmu_spins=qmu_spins, map_loop=map_loop)
+                qmu_spins=qmu_spins, map_loop=map_loop, wave_t0=wave_t0,
+                wave_dyn_t0=wave_dyn_t0, w3_ell=w3_ell, w3_K=w3_K)
 
 
 EVENT_MODES = [(2, 2, n, 1) for n in range(4)]
@@ -698,6 +725,24 @@ def _diff(a, b, pre):
             float(np.max(d[..., pre], initial=0.0)))
 
 
+def _held(a, b, pre, tol_in, tol_pre):
+    """Whether |a - b| holds tol_in for t0 >= 0 and tol_pre for t0 < 0
+    (None: not held there); pre marks t0 < 0 along the last axis (None
+    when every fit starts in the ringdown), and each bound is a scalar or
+    one per set (S,), the first axis of a."""
+    d = np.abs(np.asarray(a, float) - np.asarray(b, float))
+    pre = np.zeros(d.shape[-1], bool) if pre is None else pre
+
+    def ok(sel, tol):
+        if tol is None or not sel.any():
+            return True
+        t = np.asarray(tol, float)
+        t = t.reshape(t.shape + (1,) * (d.ndim - t.ndim))
+        return bool(np.all(d[..., sel] <= t))
+
+    return ok(~pre, tol_in) and ok(pre, tol_pre)
+
+
 def remnant_groups(problem):
     """The join groups a remnant sweep without dedup must make, computed
     from the spectrum and the budget: (R*S sets, chunk sizes) ->
@@ -888,11 +933,14 @@ def run_specs(specs, device):
         name = spec["name"]
         if not np.all(np.isfinite(mm)):
             raise RuntimeError(f"{name}: non-finite mismatches")
-        if device != "cpu" and (n, n_wide) != spec["expect"]:
+        expect = (spec["expect"]() if callable(spec["expect"])
+                  else spec["expect"])
+        if device != "cpu" and (n, n_wide) != expect:
             raise RuntimeError(f"{name}: {n} kernel launches ({n_wide} of "
-                               f"the wide kernel), expected {spec['expect']}")
+                               f"the wide kernel), expected {expect}")
         rec = dict(key=spec["key"], name=name, launches=n,
-                   wide_launches=n_wide, wall_s=wall)
+                   wide_launches=n_wide, expected_launches=expect[0],
+                   wall_s=wall)
         msg = f"{name}: mm {mm.shape}, launches {n} (wide {n_wide})"
         if spec["plain"] is not None:
             plain = PlainSolve()
@@ -907,12 +955,19 @@ def run_specs(specs, device):
                                    f"kernel route launched {n}")
             pre_tol = spec.get("pre_tol", PRE_TOL)
             route_tol = spec.get("route_tol", MAIN_TOL)
-            if not (d_in <= route_tol
-                    and (pre_tol is None or d_pre <= pre_tol)):
+            if np.ndim(route_tol):
+                d = np.abs(mm - mm_p)
+                rec.update(
+                    plain_in_by_set=np.max(d[:, ~spec["pre"]], axis=1,
+                                           initial=0.0).tolist(),
+                    route_tol_by_set=np.asarray(route_tol).tolist())
+            if not _held(mm, mm_p, spec["pre"], route_tol, pre_tol):
+                bound_pre = (None if pre_tol is None
+                             else f"{np.max(pre_tol):.1e}")
                 raise RuntimeError(f"{name}: kernel route and plain route "
                                    f"disagree: {d_in:.3e} (t0 >= 0, bound "
-                                   f"{route_tol:.0e}), {d_pre:.3e} (t0 < 0, "
-                                   f"bound {pre_tol})")
+                                   f"{np.max(route_tol):.1e}), {d_pre:.3e} "
+                                   f"(t0 < 0, bound {bound_pre})")
             if (pre_tol is None or spec.get("backward")) and device != "cpu":
                 from qnmfits_tpu_torch.ops import chol_cuda
                 bwd = max(backward_err(G, b, chol_cuda.regularised_solve(G, b))
@@ -923,8 +978,12 @@ def run_specs(specs, device):
                     raise RuntimeError(f"{name}: kernel backward error "
                                        f"{bwd:.3e} > {KERNEL_BWD_TOL:.0e}")
         if spec["oracle"] is not None:
-            o_in, o_pre = spec["oracle"](mm)
-            o_tol = spec.get("oracle_tol", ORACLE_TOL)
+            found = spec["oracle"](mm)
+            o_in, o_pre = found[:2]
+            # An oracle that bounds each window itself returns the largest
+            # of its bounds third.
+            o_tol = (found[2] if len(found) > 2
+                     else spec.get("oracle_tol", ORACLE_TOL))
             rec.update(oracle_in=o_in, oracle_pre=o_pre, oracle_tol=o_tol)
             msg += f"; vs oracle {o_in:.3e} (t0 >= 0), {o_pre:.3e} (t0 < 0)"
             if not o_in <= o_tol:
@@ -2360,6 +2419,534 @@ def run_mapping(problem, device, gpu=None):
     return records, solves, wall
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: the waveform layer feeding the fits
+# ---------------------------------------------------------------------------
+
+FIXTURES = os.path.join(ROOT, "tests", "data")
+W1_ID = 8888
+W1_T, W1_DYN_T, W1_T0 = 90.0, 80.0, 10.0     # tests/test_sxs_fixture.py
+W1_LADDERS = [[(2, 2, n, 1) for n in range(N)] for N in range(1, 9)]
+W1_EPS_MODES = [(2, 2, 0, 1), (2, 2, 1, 1)]
+# The JAX package's pins on the fixture (tests/test_sxs_fixture.py:153,
+# 114, 127): value and relative bound.
+W1_PINS = {"dynamic_ringdown_fit": (2.79778014e-06, 1e-3),
+           "calculate_epsilon": (0.0122058, 1e-3),
+           "multimode_ringdown_fit": (0.00110481, 1e-2)}
+W2_T = 80.0              # the recording ends at t = 130
+W3_SPH = [(2, 2), (3, 2), (4, 2)]
+W3_SET = _m2(2, 8) + _m2(3, 5) + _m2(4, 5)              # J = 18, wide kernel
+W3_TILT = (0.7, 1.1)     # (theta, phi) of the remnant spin in W3's frame
+W3_T0 = (0.0, 51.2)      # W3's data start at t = 0
+ROTATION_TOL = 1e-10     # 'rotation' undoes W3's tilt, of max |h|
+
+
+GRAM_EVERY = 128         # every 128th start time sets a sweep's route bounds
+
+
+def gram_bound(fit, J):
+    """First-order error of a mismatch that the normal equations give at
+    one window: 2 J sqrt(mm) eps kappa(A)^2, kappa(A) the window design's
+    condition number (from the oracle fit's singular values ``s``).  Two
+    backward-stable Gram solves, or a Gram solve and the oracle's SVD,
+    differ by up to this much where the design is ill-conditioned
+    (ROADMAP C.3): deep overtone ladders on data the model does not fit
+    exactly, as a waveform's near its peak."""
+    s = np.asarray(fit["s"])
+    return (2 * J * np.sqrt(max(fit["mismatch"], 0.0))
+            * np.finfo(float).eps * (s[0] / s[-1]) ** 2)
+
+
+def _oracle_fit(wprob, ms, sph, Mf, chif, t0):
+    from qnmfits_tpu_torch import ref_impl
+    return ref_impl.fit_dispatch(wprob["times"], wprob["data"], ms, Mf, chif,
+                                 float(t0), "geq", wprob["T"], sph)
+
+
+def gram_oracle(wprob, mm, sets, sph, Mf, chif):
+    """mm (S, B) against the oracle over the sets x the t0 STRATA: the
+    largest gap for t0 >= 0 and for t0 < 0, and the largest bound the
+    t0 >= 0 windows were held to, each max(ORACLE_TOL, gram_bound).
+    Raises on a window past its bound."""
+    t0s = wprob["t0s"]
+    mm = np.asarray(mm).reshape(len(sets), -1)
+    d_in = d_pre = tol_in = 0.0
+    for si, ms in enumerate(sets):
+        for t0_val in STRATA:
+            if not t0s[0] <= t0_val <= t0s[-1]:
+                continue
+            i = int(np.argmin(np.abs(t0s - t0_val)))
+            ref = _oracle_fit(wprob, ms, sph, Mf, chif, t0s[i])
+            d = abs(float(mm[si, i]) - ref["mismatch"])
+            if t0s[i] < 0:
+                d_pre = max(d_pre, d)
+                continue
+            tol = max(ORACLE_TOL, gram_bound(ref, len(ms)))
+            if not d <= tol:
+                raise RuntimeError(f"set {ms} at t0 = {t0s[i]}: {d:.3e} "
+                                   f"from the oracle, bound {tol:.3e}")
+            d_in, tol_in = max(d_in, d), max(tol_in, tol)
+    return d_in, d_pre, tol_in
+
+
+def gram_route_tols(wprob, sets, sph, Mf, chif):
+    """Per-set bounds (S,) of the kernel route against the plain one for
+    t0 >= 0 and for t0 < 0: MAIN_TOL and PRE_TOL, or the largest
+    gram_bound over every GRAM_EVERY-th start time on that side."""
+    t0s = wprob["t0s"]
+    tols = np.array([[MAIN_TOL, PRE_TOL]] * len(sets))
+    for si, ms in enumerate(sets):
+        for side, idx in enumerate((np.nonzero(t0s >= 0)[0],
+                                    np.nonzero(t0s < 0)[0])):
+            for i in idx[::GRAM_EVERY]:
+                fit = _oracle_fit(wprob, ms, sph, Mf, chif, t0s[i])
+                tols[si, side] = max(tols[si, side],
+                                     gram_bound(fit, len(ms)))
+    return tols[:, 0], tols[:, 1]
+
+
+def fixture_metadata(fix):
+    """The SXS metadata of the BBH fixture (tests/test_sxs_fixture.py:36-52):
+    the remnant from the fixture, the rest a plausible binary."""
+    return {
+        "simulation_name": f"SXS:BBH:{W1_ID}/Lev3",
+        "reference_time": 100.0,
+        "reference_mass1": 0.54,
+        "reference_mass2": 0.46,
+        "reference_dimensionless_spin1": [0.0, 0.0, 0.1],
+        "reference_dimensionless_spin2": [0.0, 0.0, -0.2],
+        "reference_position1": [5.0, 0.0, 0.0],
+        "reference_position2": [-5.8, 0.0, 0.0],
+        "reference_orbital_frequency": [0.0, 0.0, 0.016],
+        "common_horizon_time": float(fix["t_peak"]),
+        "number_of_orbits": 8.0,
+        "remnant_mass": float(fix["Mf"]),
+        "remnant_dimensionless_spin": [0.0, 0.0, float(fix["chif"])],
+        "remnant_velocity": [1e-4, 0.0, 0.0],
+    }
+
+
+def fixture_modes(fix):
+    """The fixture's (l, m) modes, l = 2, 3, zero where it has none."""
+    times = fix["times"]
+    return {(l, m): fix[f"h_{l}_{m}"] if f"h_{l}_{m}" in fix.files
+            else np.zeros(len(times), complex)
+            for l in (2, 3) for m in range(-l, l + 1)}
+
+
+def write_sxs_cache(root, fix):
+    """The fixture as an SXS-format cache entry under ``root``: metadata.json
+    and rhOverM_Asymptotic_GeometricUnits_CoM.h5 with Extrapolated_N2.dir/
+    Y_l{l}_m{m}.dat datasets (tests/test_sxs_fixture.py:31-66)."""
+    import h5py
+    sim = os.path.join(root, f"SXS_BBH_{W1_ID}", "Lev3")
+    os.makedirs(sim)
+    with open(os.path.join(sim, "metadata.json"), "w") as f:
+        json.dump(fixture_metadata(fix), f)
+    times = fix["times"]
+    with h5py.File(os.path.join(
+            sim, "rhOverM_Asymptotic_GeometricUnits_CoM.h5"), "w") as f:
+        grp = f.create_group("Extrapolated_N2.dir")
+        for (l, m), h in fixture_modes(fix).items():
+            grp.create_dataset(f"Y_l{l}_m{m}.dat",
+                               data=np.stack([times, h.real, h.imag], 1))
+
+
+def sxs_playback(fix):
+    """An `sxs` module that serves the fixture through the calls the
+    loader's `sxs`-package branch makes (sxs.load of the metadata and of
+    rhOverM, data.t, data.ell_max, data.index, data[:, i]), and refuses
+    any other simulation.  For machines without h5py, where the local
+    SXS-format cache cannot be read; the arrays are the cache's."""
+    import types
+    md = fixture_metadata(fix)
+    modes = fixture_modes(fix)
+
+    class Modes:
+        t = fix["times"]
+        ell_max = 3
+
+        def __init__(self):
+            self.cols = np.stack([modes[l, m] for l in range(2, 4)
+                                  for m in range(-l, l + 1)], 1)
+
+        @staticmethod
+        def index(l, m):
+            return l * l + l + m - 4
+
+        def __getitem__(self, key):
+            return self.cols[key]
+
+    def load(path, extrapolation_order=2):
+        if path == f"SXS:BBH:{W1_ID}/Lev/metadata.json":
+            return dict(md)
+        if (path == f"SXS:BBH:{W1_ID}/Lev3/rhOverM"
+                and extrapolation_order == 2):
+            return Modes()
+        raise KeyError(f"the fixture holds no {path!r} "
+                       f"(extrapolation_order={extrapolation_order})")
+
+    mod = types.ModuleType("sxs")
+    mod.load = load
+    return mod
+
+
+def load_w1():
+    """W1: the BBH fixture through ``SXS(8888, zero_time=(2, 2))``.  Where
+    h5py is installed, from an SXS-format cache written into a temporary
+    directory (SXS_CACHE_DIR; `sxs` blocked, so nothing is downloaded);
+    without it, through the `sxs`-package branch served by
+    ``sxs_playback``.  Returns the waveform and the branch's name."""
+    import tempfile
+    from unittest import mock
+    from qnmfits_tpu_torch.waveforms import SXS
+    fix = np.load(os.path.join(FIXTURES, "fixture_bbh_waveform.npz"))
+    try:
+        import h5py  # noqa: F401
+        have_h5py = True
+    except ImportError:
+        have_h5py = False
+    had_sxs, prev_sxs = "sxs" in sys.modules, sys.modules.get("sxs")
+    write_s = 0.0
+    with tempfile.TemporaryDirectory() as root, \
+            mock.patch.dict(os.environ, {"SXS_CACHE_DIR": root}):
+        try:
+            if have_h5py:
+                t = time.perf_counter()
+                write_sxs_cache(root, fix)
+                write_s = time.perf_counter() - t
+                sys.modules["sxs"] = None
+                branch = "local SXS-format cache (h5py)"
+            else:
+                sys.modules["sxs"] = sxs_playback(fix)
+                branch = "sxs-package API, fixture playback (no h5py)"
+            wf = SXS(W1_ID, zero_time=(2, 2))
+        finally:
+            if had_sxs:
+                sys.modules["sxs"] = prev_sxs
+            else:
+                sys.modules.pop("sxs", None)
+    wf.stage_seconds["cache_write"] = write_s
+    return wf, branch
+
+
+def load_w2():
+    """W2: the NRSur7dq4 recording (21 modes, l <= 4, a tilted remnant
+    spin) through ``Custom``, once with transform='rotation' and once with
+    'dynamic_rotation'."""
+    from qnmfits_tpu_torch.waveforms import Custom
+    rec = np.load(os.path.join(FIXTURES, "fixture_surrogate.npz"))
+    modes = {(int(l), int(m)): rec[f"sur_h_{l}_{m}"]
+             for l, m in rec["sur_keys"]}
+    md = {"remnant_mass": float(rec["sur_Mf"]),
+          "remnant_dimensionless_spin": np.asarray(rec["sur_chif"], float)}
+    return {tr: Custom(rec["times"], modes, md, transform=tr)
+            for tr in ("rotation", "dynamic_rotation")}
+
+
+def build_w3(ell_max, K, seed=11):
+    """W3: every (l, m) mode to ``ell_max`` on K samples at 0.1 M from
+    t = 0, each a sum of the port's Kerr QNMs (l, m, n < 3) at (MF, CHIF)
+    with amplitudes from ``seed`` falling 10x an l, in the remnant frame;
+    then tilted so that the remnant spin points along W3_TILT.  Returns
+    times, the untilted and the tilted modes, and the metadata."""
+    from qnmfits_tpu_torch.harmonics import (quat_from_axis_angle,
+                                             rotate_mode_dict)
+    from qnmfits_tpu_torch.qnm_api import get_qnm
+    q = get_qnm()
+    rng = np.random.default_rng(seed)
+    times = np.arange(K) * 0.1
+    h0 = {}
+    for l in range(2, ell_max + 1):
+        for m in range(-l, l + 1):
+            w = np.array(q.omega_list([(l, m, n, 1) for n in range(3)], CHIF,
+                                      MF))
+            a = ((rng.standard_normal(3) + 1j * rng.standard_normal(3))
+                 * 10.0 ** (2 - l))
+            h0[l, m] = np.exp(-1j * np.outer(times, w)) @ a
+    th, ph = W3_TILT
+    n = np.array([np.sin(th) * np.cos(ph), np.sin(th) * np.sin(ph),
+                  np.cos(th)])
+    axis = np.cross([0.0, 0.0, 1.0], n)
+    # 'rotation' applies the rotor taking z to n; the data carry its
+    # inverse, so that rotation gives back h0.
+    q_inv = quat_from_axis_angle(th * axis / np.linalg.norm(axis)) \
+        * np.array([1.0, -1.0, -1.0, -1.0])
+    tilted = rotate_mode_dict(h0, q_inv, ell_max)
+    md = {"remnant_mass": MF, "remnant_dimensionless_spin": CHIF * n}
+    return times, h0, tilted, md
+
+
+def factored_launches(times, t0s, T, mode_sets, sph, Mf, chif, dedup):
+    """Solve launches of a static 'geq' mode-set sweep, derived from the
+    code: the join groups (2 S J^2 complex a start time) of the chunks
+    ``batched._safe_chunk`` makes over the distinct windows (with dedup)
+    or every start time."""
+    from qnmfits_tpu_torch import batched, engine_real
+    sets = tuple(tuple(batched._canon(ms)) for ms in mode_sets)
+    eval_all, _ = batched._modesets_spectrum_fn(sets, tuple(sph))
+    omegas, _ = eval_all(float(chif), float(Mf))
+    if dedup:
+        dd = batched._window_dedup(times, t0s, np.full_like(t0s, T))
+        t0s = t0s if dd is None else t0s[dd[0]]
+    ck = batched._safe_chunk(t0s, float(np.max(np.abs(omegas.imag))), 256)
+    S, J = omegas.shape
+    sizes = [min(ck, len(t0s) - lo) for lo in range(0, len(t0s), ck)]
+    return len(engine_real.join_groups(sizes, 2 * S * J * J * 16))
+
+
+def dynamic_launches(times, t0s, modes, n_rows):
+    """Solve launches of a dynamic sweep of one set: the join groups of
+    its chunks of start times, each within ``batched._BASIS_BYTES`` of
+    (rows, K, J) basis."""
+    from qnmfits_tpu_torch import batched, engine_real
+    J, B = len(modes), len(t0s)
+    chunk = max(1, batched._BASIS_BYTES // (n_rows * len(times) * J * 16))
+    sizes = [min(chunk, B - lo) for lo in range(0, B, chunk)]
+    return len(engine_real.join_groups(sizes, 2 * J * J * 16))
+
+
+def waveform_specs(problem, device, w1, w2, w3):
+    """The fits of phase 11, as ``path_specs`` describes them, on the
+    waveforms the loaders gave: W1's main path with and without dedup, its
+    dynamic sweep on its own tracks, its three fits at t0 = 10 against the
+    JAX package's pins; W2's main path on the rotated rows; W3's wide
+    sweep on the rotated rows."""
+    import qnmfits_tpu_torch as tq
+    from qnmfits_tpu_torch import batched, optimize, ref_impl
+    from qnmfits_tpu_torch.testing import bench_mode_sets
+    specs, found = [], {}
+    t0s = np.linspace(*problem["t0s"][[0, -1]], problem["wave_t0"])
+    t0s_dyn = np.linspace(*problem["t0s"][[0, -1]], problem["wave_dyn_t0"])
+
+    def modesets(key, name, wprob, data, sets, sph, Mf, chif, dedup,
+                 tols=None):
+        kw = dict(T_array=wprob["T"], spherical_modes=sph, dedup=dedup,
+                  device=device)
+        args = (wprob["times"], data, sets, Mf, chif, wprob["t0s"])
+        n = factored_launches(wprob["times"], wprob["t0s"], wprob["T"],
+                              sets, sph, Mf, chif, dedup)
+        wide = n if max(len(ms) for ms in sets) > 16 else 0
+        tol_in, tol_pre = tols or gram_route_tols(wprob, sets, sph, Mf, chif)
+        specs.append(dict(
+            key=key, name=name, expect=(n, wide), pre=wprob["t0s"] < 0,
+            backward=True, route_tol=tol_in, pre_tol=tol_pre,
+            kernel=lambda: tq.mismatch_t0_mode_sets(*args, **kw),
+            plain=lambda solve: batched.batch_mismatch_t0_modesets(
+                *args, solve=solve, **kw),
+            oracle=lambda mm: gram_oracle(wprob, mm, sets, sph, Mf, chif)))
+
+    # W1: the fixture's (2,2) row.
+    row = {(2, 2): w1.h[2, 2]}
+    w1p = dict(times=w1.times, t0s=t0s, T=W1_T, data=row)
+    tols = gram_route_tols(w1p, W1_LADDERS, [(2, 2)], w1.Mf, w1.chif_mag)
+    for dedup in (True, False):
+        modesets(f"w1_main{'' if dedup else '_nodedup'}",
+                 f"W1 SXS mode sets (2,2,n<N), N=1..8, {len(t0s)} start "
+                 f"times ({'dedup' if dedup else 'no dedup'})", w1p, row,
+                 W1_LADDERS, [(2, 2)], w1.Mf, w1.chif_mag, dedup, tols)
+
+    deep = W1_LADDERS[-1]
+    chit = np.clip(w1.chioft_mag, 0.0, 0.99)
+    # A single series: the oracle's dynamic_ringdown_fit (a one-row
+    # multimode fit along a spin track would weight each sample by
+    # mu(chif(t))).
+    w1d = dict(times=w1.times, t0s=t0s_dyn, T=W1_DYN_T, data=w1.h[2, 2])
+    dyn_args = (w1.times, w1.h[2, 2], deep, w1.Moft, chit, t0s_dyn)
+    tol_in, tol_pre = gram_route_tols(w1d, [deep], None, w1.Moft, chit)
+    specs.append(dict(
+        key="w1_dynamic", name=f"W1 mismatch_t0_array on its Moft/chioft "
+        f"tracks ((2,2,n<8), {len(t0s_dyn)} start times)",
+        expect=(dynamic_launches(w1.times, t0s_dyn, deep, 1), 0),
+        pre=t0s_dyn < 0, backward=True, route_tol=tol_in[0],
+        pre_tol=tol_pre[0],
+        kernel=lambda: tq.mismatch_t0_array(*dyn_args, T_array=W1_DYN_T,
+                                            device=device),
+        plain=lambda solve: batched.batch_mismatch_t0_dynamic(
+            *dyn_args, T_array=W1_DYN_T, device=device, solve=solve),
+        oracle=lambda mm: gram_oracle(w1d, mm, [deep], None, w1.Moft,
+                                      chit)))
+
+    two = {(2, 2): w1.h[2, 2], (3, 2): w1.h[3, 2]}
+
+    def svd_fits():
+        return np.array([
+            tq.dynamic_ringdown_fit(w1.times, w1.h[2, 2], deep, w1.Moft,
+                                    chit, W1_T0, T=W1_DYN_T,
+                                    device=device)["mismatch"],
+            tq.multimode_ringdown_fit(
+                w1.times, two, deep, w1.Mf, w1.chif_mag, W1_T0,
+                spherical_modes=[(2, 2), (3, 2)], device=device)["mismatch"]])
+
+    def pin(name, value):
+        ref, rtol = W1_PINS[name]
+        found[name] = value
+        log(f"W1 {name} at t0 = {W1_T0}: {value:.9g} (JAX package's pin "
+            f"{ref:.9g}, rel {rtol:.0e})")
+        if not abs(value - ref) <= rtol * abs(ref):
+            raise RuntimeError(f"W1 {name}: {value} misses the pin {ref}")
+
+    def svd_check(mm):
+        pin("dynamic_ringdown_fit", float(mm[0]))
+        pin("multimode_ringdown_fit", float(mm[1]))
+        ref = [ref_impl.dynamic_ringdown_fit(w1.times, w1.h[2, 2], deep,
+                                             w1.Moft, chit, W1_T0,
+                                             T=W1_DYN_T)["mismatch"],
+               ref_impl.multimode_ringdown_fit(
+                   w1.times, two, deep, w1.Mf, w1.chif_mag, W1_T0,
+                   spherical_modes=[(2, 2), (3, 2)])["mismatch"]]
+        return _diff(mm, ref, None)
+
+    specs.append(dict(
+        key="w1_fits", name=f"W1 dynamic_ringdown_fit + "
+        f"multimode_ringdown_fit (SVD), t0 = {W1_T0}", expect=(0, 0),
+        pre=None, plain=None, kernel=svd_fits, oracle=svd_check))
+
+    eps_args = (w1.times, w1.h[2, 2], W1_EPS_MODES, w1.Mf, w1.chif_mag,
+                W1_T0)
+
+    def epsilon(solve=None):
+        """The public entry point; with ``solve``, the same optimiser one
+        layer down with the solve substituted."""
+        optimize.evaluations = 0
+        out = (tq.calculate_epsilon(*eps_args, device=device)
+               if solve is None else optimize.calculate_epsilon_gradient(
+                   *eps_args, device=device, solve=solve))
+        found["evaluations"] = optimize.evaluations
+        return np.array(out)
+
+    def epsilon_check(x):
+        pin("calculate_epsilon", float(x[0]))
+        x_p = epsilon(PlainSolve())
+        ref = np.array(ref_impl.calculate_epsilon(*eps_args))
+        found["epsilon_route"] = float(np.max(np.abs(x - x_p)))
+        found["epsilon_nelder_mead"] = float(np.max(np.abs(x - ref)))
+        log(f"W1 calculate_epsilon: kernel vs plain route "
+            f"{found['epsilon_route']:.3e} (bound {LBFGS_PARAM_TOL:.0e}); "
+            f"vs Nelder-Mead {found['epsilon_nelder_mead']:.3e} (reported)")
+        if not found["epsilon_route"] <= LBFGS_PARAM_TOL:
+            raise RuntimeError("W1 calculate_epsilon: the kernel and plain "
+                               "routes disagree")
+        return found["epsilon_route"], 0.0
+
+    specs.append(dict(
+        key="w1_epsilon", name=f"W1 calculate_epsilon ('gradient'), t0 = "
+        f"{W1_T0}", expect=lambda: (2 * found["evaluations"], 0), pre=None,
+        plain=None, kernel=epsilon, oracle=epsilon_check,
+        oracle_tol=LBFGS_PARAM_TOL))
+
+    # W2: the recording's rotated (2,2) and (3,2) rows.
+    wr = w2["rotation"]
+    data2 = {lm: wr.h[lm] for lm in SPH}
+    w2p = dict(times=wr.times, t0s=t0s, T=W2_T, data=data2)
+    modesets("w2_main", f"W2 NRSur7dq4 recording, rotated: the 16 bench "
+             f"sets, {len(t0s)} start times (dedup)", w2p, data2,
+             bench_mode_sets(), SPH, wr.Mf, wr.chif_mag, True)
+
+    # W3: the rotated rows of the SXS-width waveform, one wide launch.
+    times3, wr3 = w3["times"], w3["rotation"]
+    data3 = {lm: wr3.h[lm] for lm in W3_SPH}
+    t0s3 = np.linspace(*W3_T0, problem["wave_dyn_t0"])
+    w3p = dict(times=times3, t0s=t0s3, T=problem["T"], data=data3)
+    modesets("w3_wide", f"W3 ellMax={w3['ell_max']}, K={len(times3)}, "
+             f"rotated (2,2), (3,2), (4,2): a {len(W3_SET)}-mode set, "
+             f"{len(t0s3)} start times", w3p, data3, [W3_SET], W3_SPH,
+             wr3.Mf, wr3.chif_mag, True)
+    return specs, found
+
+
+def _stages(wf):
+    return ", ".join(f"{k} {v:.4f}" for k, v in wf.stage_seconds.items())
+
+
+def _summary(path):
+    """A phase 11 path's record in the kernels' JSON line."""
+    out = {k: path[k] for k in ("launches", "wide_launches",
+                                "expected_launches", "wall_s")}
+    if path.get("split"):
+        out.update({k: path["split"][k] for k in ("wall_ms", "busy_ms",
+                                                  "idle_share", "kernels")})
+    return out
+
+
+def run_waveforms(problem, device, gpu=None):
+    """Phase 11: build W1-W3 through the port's loaders (each stage's host
+    seconds kept), gate W3's 'rotation' against its untilted modes, then
+    ``run_specs`` on the fits of ``waveform_specs``; on the card also each
+    fit's device-time split.  Returns the path records, the waveforms'
+    record and the phase's wall."""
+    from qnmfits_tpu_torch.waveforms import Custom
+    t = time.perf_counter()
+    w1, branch = load_w1()
+    log(f"W1 SXS({W1_ID}) through the {branch}: K={len(w1.times)}, "
+        f"ellMax={w1.ellMax}, Mf={w1.Mf}, |chif|={w1.chif_mag:.6f}; host "
+        f"s by stage: {_stages(w1)}")
+    w2 = load_w2()
+    for tr, wf in w2.items():
+        if not all(np.all(np.isfinite(v)) for v in wf.h.values()):
+            raise RuntimeError(f"W2 {tr}: non-finite modes")
+        log(f"W2 NRSur7dq4 recording, Custom(transform={tr!r}): "
+            f"K={len(wf.times)}, {len(wf.h)} modes, thetaf="
+            f"{wf.thetaf:.6f}; host s by stage: {_stages(wf)}")
+    ell, K = problem["w3_ell"], problem["w3_K"]
+    tb = time.perf_counter()
+    times3, h0, tilted, md = build_w3(ell, K)
+    build_s = time.perf_counter() - tb
+    w3 = dict(times=times3, ell_max=ell, build_s=build_s)
+    for tr in ("rotation", "dynamic_rotation"):
+        w3[tr] = Custom(times3, tilted, md, transform=tr)
+        log(f"W3 Custom(ellMax={ell}, K={K}, transform={tr!r}): "
+            f"{len(w3[tr].h)} modes; host s by stage: "
+            f"{_stages(w3[tr])}")
+    hmax = max(float(np.max(np.abs(v))) for v in h0.values())
+    rot_err = max(float(np.max(np.abs(w3["rotation"].h[lm] - h0[lm])))
+                  for lm in h0) / hmax
+    log(f"W3 'rotation' against the untilted modes: {rot_err:.3e} of max "
+        f"|h| (bound {ROTATION_TOL:.0e}); the data built in {build_s:.2f} s")
+    if not rot_err <= ROTATION_TOL:
+        raise RuntimeError("W3: 'rotation' does not undo the tilt")
+    if not np.all(np.isfinite(w3["dynamic_rotation"].chioft_mag)):
+        raise RuntimeError("W3: non-finite spin track")
+
+    specs, found = waveform_specs(problem, device, w1, w2, w3)
+    records = run_specs(specs, device)
+    for spec, rec in zip(specs, records):
+        systems = rec.pop("systems", None)
+        if systems:
+            rec["systems"] = sum(b.shape[0] for _, b in systems)
+            rec["n"] = max(b.shape[-1] for _, b in systems)
+        if device == "cpu":
+            continue
+        split = rec["split"] = device_split(spec["kernel"], host_ops=False)
+        if split is None:
+            log(f"  {rec['key']} device-time split: torch.profiler recorded "
+                "no device time (not measured)")
+            continue
+        log(f"  {rec['key']} on {gpu}: warm wall {split['wall_ms']:.2f} ms; "
+            f"busy {split['busy_ms']:.2f} ms, idle share "
+            f"{split['idle_share']:.3f} of the profiled wall "
+            f"{split['profiled_wall_ms']:.2f} ms; {split['kernels']} kernels "
+            f"and {split['copies']} copies: products "
+            f"{split['products_ms']:.2f}, elementwise "
+            f"{split['elementwise_ms']:.2f}, solve {split['solve_ms']:.4f}, "
+            f"copies {split['copies_ms']:.2f}, rest {split['rest_ms']:.2f} ms")
+    info = dict(
+        w1=dict(branch=branch, K=len(w1.times), ell_max=w1.ellMax,
+                stages=w1.stage_seconds,
+                pins={k: found[k] for k in W1_PINS},
+                epsilon_route=found["epsilon_route"],
+                epsilon_nelder_mead=found["epsilon_nelder_mead"]),
+        w2={tr: dict(K=len(wf.times), modes=len(wf.h),
+                     stages=wf.stage_seconds) for tr, wf in w2.items()},
+        w3=dict(K=K, ell_max=ell, modes=len(h0), build_s=build_s,
+                rotation_err=rot_err,
+                stages={tr: w3[tr].stage_seconds
+                        for tr in ("rotation", "dynamic_rotation")}))
+    wall = time.perf_counter() - t
+    log(f"phase 11: 3 waveforms, {len(records)} paths in {wall:.1f} s")
+    return records, info, wall
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2429,16 +3016,22 @@ def main():
             k: {x: r[x] for x in keys if x in r}
             for k, r in map_solves.items()
             if (r["n"] > chol_cuda.TEAM_MAX_N) == (rec is wide)}
-    # Profiler health over the whole run, phases 7 to 10 included.
+    waveforms, wave_info, phase11_wall = run_waveforms(problem, device, gpu)
+    for rec in (record, wide):
+        rec["waveform_paths"] = {p["key"]: _summary(p) for p in waveforms
+                                 if (p["wide_launches"] > 0) == (rec is wide)}
+    record["waveforms"] = wave_info
+    # Profiler health over the whole run, phases 7 to 11 included.
     wide.update(event_timings=len(EVENT_TIMINGS),
                 profiles_dropping=len(DROPPED),
                 records_dropped_max=max(DROPPED, default=0))
     print(json.dumps({"paths": paths + dynamic + optimisers + diagnostics
-                      + mapping,
+                      + mapping + waveforms,
                       "phase7_wall_s": phase7_wall,
                       "phase8_wall_s": phase8_wall,
                       "phase9_wall_s": phase9_wall,
-                      "phase10_wall_s": phase10_wall}), flush=True)
+                      "phase10_wall_s": phase10_wall,
+                      "phase11_wall_s": phase11_wall}), flush=True)
     print(json.dumps({"kernels": [record, wide]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

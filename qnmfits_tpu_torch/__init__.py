@@ -18,7 +18,11 @@ too); and the spatial mapping of linear and quadratic QNMs, the submodule
 start-time sweep ``mapping_mismatch_t0_array``, the Qmu predictions A-D,
 the sky predictions and spatial mismatches), with what it needs:
 ``harmonics``, ``spectrum.angular``, the s = 0 and s = -1 tables and the
-``qnm`` class (``qnm_api``).  Every batched
+``qnm`` class (``qnm_api``); and the host layers around the fits: the
+waveform containers ``Custom``, ``SXS``, ``NRSur7dq4`` and ``NRHybSur3dq8``
+(``waveforms``, loaded lazily, as is the module-level ``qnm``), the six
+plotting functions, ``download_cook_data`` and ``utils`` (``timed``,
+``debug_nans``, ``sweep_progress``, ``resumable_sweep``).  Every batched
 Hermitian solve runs in the hand-written FP64 CUDA kernels
 (``ops/chol_cuda.py``, ``csrc/chol_solve.cu``), forward and, for the
 optimisers, backward.
@@ -87,7 +91,34 @@ from .orthonormal import (  # noqa: E402
     orthonormal_t0_sweep,
 )
 from .uncertainty import amplitude_uncertainty, mode_selection  # noqa: E402
-from . import spatial  # noqa: E402
+from .plotting import (  # noqa: E402
+    plot_amplitude_stability,
+    plot_mismatch_M_chi_grid,
+    plot_mismatch_omega_grid,
+    plot_mode_amplitudes,
+    plot_ringdown,
+    plot_ringdown_modes,
+)
+from .qnm_api import download_cook_data  # noqa: E402
+from . import spatial, utils  # noqa: E402
+
+_WAVEFORMS = ("Custom", "SXS", "NRSur7dq4", "NRHybSur3dq8")
+
+
+def __getattr__(name):
+    # The module-level spectrum instance of the reference
+    # (qnmfits/__init__.py:5-6) and the waveform classes, made on first
+    # use as qnmfits_tpu/__init__.py:104-119 makes them: importing the
+    # package reads no table.
+    if name == "qnm":
+        from .qnm_api import get_qnm
+        return get_qnm()
+    if name in _WAVEFORMS:
+        from . import waveforms
+        return getattr(waveforms, name)
+    raise AttributeError(
+        f"module 'qnmfits_tpu_torch' has no attribute {name!r}")
+
 
 __all__ = [
     "CDTYPE", "RDTYPE", "resolve_device",
@@ -100,4 +131,8 @@ __all__ = [
     "free_frequency_fit_array", "rational_filter", "amplitude_stability",
     "orthonormal_decomposition", "orthonormal_t0_sweep",
     "amplitude_uncertainty", "mode_selection", "spatial",
+    "plot_ringdown", "plot_ringdown_modes", "plot_mode_amplitudes",
+    "plot_mismatch_M_chi_grid", "plot_mismatch_omega_grid",
+    "plot_amplitude_stability", "download_cook_data", "utils", "qnm",
+    *_WAVEFORMS,
 ]

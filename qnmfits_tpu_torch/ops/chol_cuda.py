@@ -50,6 +50,10 @@ WIDE_KERNELS = ("wide<32>", "wide<128>", "wide<256>", "wide_global<256>")
 # kernel's alone.
 launches = 0
 wide_launches = 0
+# Set by ``utils.debug_nans``: the kernels write through raw pointers,
+# which no torch function mode sees, so the wrapper checks their output
+# for NaN itself while this is on.
+check_nans = False
 
 
 def _nvcc() -> str:
@@ -218,4 +222,8 @@ def regularised_solve(G: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         raise RuntimeError(f"chol_solve kernel launch failed: CUDA error {err}")
     launches += 1
     wide_launches += wide
+    if check_nans and bool(torch.isnan(x).any()):
+        raise FloatingPointError(
+            f"NaN in the solution of the CUDA solve kernel (B={G.shape[0]}, "
+            f"n={n})")
     return x

@@ -6,8 +6,8 @@ port's spectrum tables (``spectrum.tables``): methods take scalar or
 array chif/Mf as the reference's do, and the spin weight s picks the
 table (s = -2 gravitational; s = 0, scalar, for the Qmu_B quadratic
 mixing prediction, reference spatial_mapping_functions.py:787-799; and
-s = -1).  Everything here is host NumPy.  ``download_cook_data`` and
-``multiplet_list`` wait for ROADMAP A.9.
+s = -1).  Everything here is host NumPy.  ``download_cook_data`` is the
+JAX package's no-download shim (qnm_api.py:19-27).
 """
 
 from __future__ import annotations
@@ -16,7 +16,16 @@ import numpy as np
 
 from .spectrum.tables import SpectrumTables, default_tables, table_path
 
-__all__ = ["qnm", "get_qnm"]
+__all__ = ["qnm", "get_qnm", "download_cook_data"]
+
+
+def download_cook_data():
+    """Reference-API shim (the reference's qnm.py:11-33, which downloads
+    the n = 8, 9 multiplet data from Zenodo).  Nothing is downloaded: the
+    port reads the tracked tables, and this checks that they load."""
+    default_tables()
+    print("qnmfits_tpu_torch reads multiplet data from its local tables; "
+          "nothing to download.")
 
 
 class qnm:
@@ -27,6 +36,9 @@ class qnm:
         self._tables = {}
         if tables is not None:
             self._tables[tables.s] = tables
+        # Known (l, m, n, s) multiplets, kept for API compatibility
+        # (reference qnm.py:67).
+        self.multiplet_list = [(2, 0, 8, -2), (2, 1, 8, -2), (2, 2, 8, -2)]
 
     def _t(self, s: int) -> SpectrumTables:
         """The tables of spin weight s, loaded once (qnm_api.py:45)."""

@@ -141,7 +141,7 @@ def dynamic_ringdown_fit(times, data, modes, Mf, chif, t0, t0_method="geq",
     C, res, rank, sv = _lstsq(a, dm)
     model = a @ C
     return {
-        "residual": res,
+        "residual": res, "s": sv,
         "mismatch": mismatch(tm, model, dm),
         "C": C, "data": dm, "model": model, "model_times": tm,
         "t0": t0, "modes": modes,
@@ -175,7 +175,7 @@ def multimode_ringdown_fit(times, data_dict, modes, Mf, chif, t0,
     model_dict = {lm: model[i * K:(i + 1) * K]
                   for i, lm in enumerate(spherical_modes)}
     return {
-        "residual": res,
+        "residual": res, "s": sv,
         "mismatch": multimode_mismatch(tm, model_dict, masked),
         "C": C, "data": masked, "model": model_dict, "model_times": tm,
         "t0": t0, "modes": modes, "frequencies": frequencies,
@@ -212,7 +212,7 @@ def dynamic_multimode_ringdown_fit(times, data_dict, modes, Mf, chif, t0,
     weighted_C = {lm: weighted[i * K:(i + 1) * K]
                   for i, lm in enumerate(spherical_modes)}
     return {
-        "residual": res,
+        "residual": res, "s": sv,
         "mismatch": multimode_mismatch(tm, model_dict, masked),
         "C": C, "weighted_C": weighted_C,
         "data": masked, "model": model_dict, "model_times": tm,

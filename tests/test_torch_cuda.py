@@ -415,3 +415,60 @@ def test_mapping_sweep_launches_one_per_join_group(cuda, monkeypatch,
         *args, solve=engine_real._regularised_solve_plain, **kw)
     keep = problem["t0s"] >= 0
     assert np.max(np.abs(mm - mm_plain)[keep]) <= 1e-11
+
+
+def test_waveform_dynamic_sweep_through_kernel_matches_plain(cuda):
+    """chip_smoke.py's phase 11 W1 dynamic sweep at a small size: the BBH
+    fixture through the port's SXS loader, ``mismatch_t0_array`` on its
+    own Moft / chioft tracks with the (2,2,n<8) ladder over 33 start
+    times.  The derived launch, each window within its bound of the plain
+    route (the larger of 1e-11 / 1e-8 for t0 >= 0 / t0 < 0 and
+    ``gram_bound``, the ladder being ill-conditioned near the peak), and
+    the kernel's backward error on the sweep's systems."""
+    import chip_smoke
+    import qnmfits_tpu_torch as tq
+    from qnmfits_tpu_torch import batched, ref_impl
+    w1, _ = chip_smoke.load_w1()
+    deep = chip_smoke.W1_LADDERS[-1]
+    chit = np.clip(w1.chioft_mag, 0.0, 0.99)
+    t0s = np.linspace(-5.0, 46.2, 33)
+    T = chip_smoke.W1_DYN_T
+    args = (w1.times, w1.h[2, 2], deep, w1.Moft, chit, t0s)
+    chol_cuda.launches = chol_cuda.wide_launches = 0
+    mm = tq.mismatch_t0_array(*args, T_array=T)
+    assert (chol_cuda.launches, chol_cuda.wide_launches) == (
+        chip_smoke.dynamic_launches(w1.times, t0s, deep, 1), 0)
+    plain = chip_smoke.PlainSolve()
+    mm_p = batched.batch_mismatch_t0_dynamic(*args, T_array=T,
+                                             device="cuda", solve=plain)
+    bound = np.array([
+        max(1e-11 if t0 >= 0 else 1e-8, chip_smoke.gram_bound(
+            ref_impl.dynamic_ringdown_fit(w1.times, w1.h[2, 2], deep,
+                                          w1.Moft, chit, t0, T=T), 8))
+        for t0 in t0s])
+    assert np.all(np.isfinite(mm)) and np.all(np.abs(mm - mm_p) <= bound)
+    for G, b in plain.systems:
+        x = chol_cuda.regularised_solve(G, b)
+        assert chip_smoke.backward_err(G, b, x) <= chip_smoke.KERNEL_BWD_TOL
+
+
+def test_debug_nans_sees_the_kernels_output(cuda, monkeypatch):
+    """The kernel writes through raw pointers, which no torch function
+    mode sees: with ``check_nans`` on (``utils.debug_nans`` sets it) its
+    wrapper checks the solution itself (a NaN in G gives a NaN solution);
+    with it off, nothing is checked.  Under ``debug_nans`` the NaN raises
+    already where the torch function mode sees it."""
+    from qnmfits_tpu_torch.utils import debug_nans
+    Gn, bn = random_hermitian_systems(4, 5, seed=3)
+    Gn[1, 2, 2] = np.nan
+    G = torch.as_tensor(Gn, device=cuda)
+    b = torch.as_tensor(bn, device=cuda)
+    assert bool(torch.isnan(chol_cuda.regularised_solve(G, b)).any())
+    monkeypatch.setattr(chol_cuda, "check_nans", True)
+    with pytest.raises(FloatingPointError, match="CUDA solve kernel"):
+        chol_cuda.regularised_solve(G, b)
+    monkeypatch.setattr(chol_cuda, "check_nans", False)
+    with debug_nans():
+        with pytest.raises(FloatingPointError, match="NaN"):
+            chol_cuda.regularised_solve(G, b)
+    assert not chol_cuda.check_nans

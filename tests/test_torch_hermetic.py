@@ -1,6 +1,7 @@
 """The port and chip_smoke.py stand alone: they import neither jax nor
 qnmfits_tpu, run on the CPU only when asked, and write nothing into the
-repository outside build/ and __pycache__/."""
+repository outside build/ and __pycache__/ (phase 11's SXS cache goes in
+a temporary directory)."""
 
 import os
 import subprocess
@@ -24,8 +25,11 @@ sys.path.insert(0, {repo!r})
 import qnmfits_tpu_torch
 from qnmfits_tpu_torch import (batched, engine, engine_real, filters,
                                fitting, harmonics, optimize, orthonormal,
-                               qnm_api, ref_impl, spatial, spatial_engine,
-                               stability, testing, uncertainty)
+                               plotting, qnm_api, ref_impl, spatial,
+                               spatial_engine, stability, testing,
+                               uncertainty, utils, waveforms)
+from qnmfits_tpu_torch.utils import checkpoint, diagnostics
+from qnmfits_tpu_torch.waveforms import base, custom, surrogate, sxs
 from qnmfits_tpu_torch.ops import chol, chol_cuda, cmath, solve, windows
 from qnmfits_tpu_torch.spectrum import angular, tables
 import chip_smoke
@@ -38,7 +42,8 @@ paths += chip_smoke.run_dynamic(problem, "cpu")[0]
 paths += chip_smoke.run_optimisers(problem, "cpu")[0]
 paths += chip_smoke.run_diagnostics(problem, "cpu")[0]
 paths += chip_smoke.run_mapping(problem, "cpu")[0]
-assert len(paths) == 37 and all(p["launches"] == 0 for p in paths)
+paths += chip_smoke.run_waveforms(problem, "cpu")[0]
+assert len(paths) == 44 and all(p["launches"] == 0 for p in paths)
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "qnmfits_tpu")
                 and sys.modules[m] is not None)
@@ -74,6 +79,10 @@ def test_port_and_smoke_run_without_jax():
     assert "S1 amplitude_stability" in r.stdout and "phase 9" in r.stdout
     assert "M2 mapping_mismatch_t0_array" in r.stdout
     assert "U2 amplitude_uncertainty" in r.stdout and "phase 10" in r.stdout
+    assert "W1 SXS(8888) through the local SXS-format cache" in r.stdout
+    assert "W3 'rotation' against the untilted modes" in r.stdout
+    assert "W1 calculate_epsilon ('gradient')" in r.stdout
+    assert "phase 11" in r.stdout
     new = _listing() - before
     assert not new, f"files written into the repository: {sorted(new)}"
 
