@@ -7,9 +7,10 @@ Needs one CUDA device and nvcc; exits non-zero without them.  Phases, one
 flushed line each with elapsed seconds:
 
 1. the card's name and power limit (nvidia-smi);
-2. the build of the solve kernels (csrc/chol_solve.cu, sm_90a) from this
-   checkout into build/qnmfits_tpu_torch/, and ptxas's registers and
-   spills for each instantiation (no spill allowed);
+2. the build of the solve kernels (csrc/chol_solve.cu, sm_90a) and the
+   Leaver CF kernel (csrc/leaver_cf.cu), one nvcc each, started together,
+   from this checkout into build/qnmfits_tpu_torch/, and ptxas's
+   registers and spills for each solve instantiation (no spill allowed);
 3. the kernels against their plain PyTorch version on the card, on
    random batches with dead columns and padding: the team kernel at every
    n = 1..16, at B = 8208 and at batches that leave partial slabs (B = 1,
@@ -136,7 +137,25 @@ flushed line each with elapsed seconds:
    bound and the normal equations' error at its conditioning, ROADMAP
    C.3: ``gram_bound``), the kernel's backward error gated, and its
    device-time split;
-12. a JSON line of the paths, a JSON line describing each kernel, and
+12. the on-demand Kerr spectrum solver, with the track cache in a
+   temporary directory: S1 the Leaver CF kernel (csrc/leaver_cf.cu, built
+   in phase 2 beside the solve) against its plain version on random
+   batches near real modes (B = 1, 17, 400, 4096 at N = 2000, 8192,
+   32768), gated relative to |U| + |T| and timed beside its bound; F1, the
+   phase's main path: the bench's (2,2,n<4) set with (5,2,8), which the
+   tables lack, through ``mismatch_t0_mode_sets`` at the bench's width
+   with dedup, the mode solved on the card inside the call (CF launches
+   counted) and then one team launch of the solve, held to its plain-solve
+   route and the NumPy oracle; S2 baked rows ((2,2,0), (2,2,7), (3,-3,5),
+   (4,4,0) at s = -2, (2,1,0) at s = -1, (0,0,2) at s = 0) re-solved over
+   the table's 400 spins, bypassing the table, gated against the rows to
+   chi = 0.985 and beyond, each solve's wall split into CF kernel and eig
+   time, and where a batched eig of CUDA matrices spends its time; S3 a
+   fresh SpectrumTables solving (11,2,0) (the JAX package's pin, 1e-8) and
+   (5,5,8) (its ordering checks) on demand; S4 ``multiplet_tracks(m=2)``
+   on the table's spins to chi = 0.3 (a subgrid, for time) against its
+   (2,2,8..20) rows; then the kernel timed on F1's largest launch;
+13. a JSON line of the paths, a JSON line describing each kernel, and
    last the JSON ok line.
 
 Any failure raises and exits non-zero before the last line.
@@ -162,12 +181,18 @@ FULL = dict(t_range=(-50.0, 150.05), n_t0=8192, t0_range=(-5.0, 46.2),
             T=100.0, sets=tuple(range(16)), res=50, spins=8, events=8192,
             event_t=(-5.0, 95.0), event_T=80.0, opt_maxiter=30,
             grid_res=200, qmu_spins=200, map_loop=32, wave_t0=8192,
-            wave_dyn_t0=513, w3_ell=8, w3_K=20001)
+            wave_dyn_t0=513, w3_ell=8, w3_K=20001,
+            cf_batches=(1, 17, 400, 4096), cf_depths=(2000, 8192, 32768),
+            resolve_rows=6, resolve_stride=1, multiplet_chi_max=0.3,
+            spectrum_chi=None)
 SMALL = dict(t_range=(-10.0, 30.05), n_t0=64, t0_range=(-2.0, 10.0),
              T=20.0, sets=(1, 3, 9, 13), res=6, spins=3, events=48,
              event_t=(-5.0, 35.0), event_T=25.0, opt_maxiter=8, grid_res=8,
              qmu_spins=8, map_loop=8, wave_t0=64, wave_dyn_t0=17, w3_ell=4,
-             w3_K=2001)
+             w3_K=2001, cf_batches=(1, 17), cf_depths=(300, 700),
+             resolve_rows=1, resolve_stride=40, multiplet_chi_max=None,
+             spectrum_chi=tuple(sorted({*np.linspace(0.0, 0.75, 51).round(6),
+                                        0.68, 0.692, 0.7})))
 STRATA = (-5.0, -1.0, 0.5, 2.5, 10.0, 25.0, 40.0)     # bench.py:160-179
 
 MAIN_TOL = 1e-11      # kernel path vs plain-solve path, |mismatch| abs
@@ -196,15 +221,22 @@ def log(msg):
 def build_problem(t_range, n_t0, t0_range, T, sets, res=6, spins=3,
                   events=48, event_t=(-5.0, 35.0), event_T=25.0,
                   opt_maxiter=8, grid_res=8, qmu_spins=8, map_loop=8,
-                  wave_t0=64, wave_dyn_t0=17, w3_ell=4, w3_K=2001):
+                  wave_t0=64, wave_dyn_t0=17, w3_ell=4, w3_K=2001,
+                  cf_batches=(1, 17), cf_depths=(300, 700), resolve_rows=1,
+                  resolve_stride=40, multiplet_chi_max=None,
+                  spectrum_chi=None):
     """The bench problem: a synthetic (2,2,n<8) ringdown with mixing
     into (2,2) and (3,2), sampled at 0.1 M; with the grid resolution and
     the number of remnant spins of phase 6, the remnant tracks and the
     catalog of phase 7, the Newton steps of phase 8, the stacked grids'
     resolution of phase 9, phase 10's spins of the Qmu axis and start
-    times of the 'loop' oracle, and phase 11's start times (of the main
+    times of the 'loop' oracle, phase 11's start times (of the main
     paths, and of the dynamic and wide sweeps) and W3's ellMax and
-    samples."""
+    samples, and phase 12's CF batches and depths, its number of re-solved
+    rows and their spin stride, the multiplets' largest spin (None: S4
+    not run) and the spins of its tables (None: the tracked tables' 400;
+    a few spins up to past CHIF cut S3 and F1's on-demand solves to CPU
+    size)."""
     from qnmfits_tpu_torch.testing import (bench_mode_sets,
                                            synthetic_multimode)
     times = np.arange(*t_range, 0.1)
@@ -222,7 +254,11 @@ def build_problem(t_range, n_t0, t0_range, T, sets, res=6, spins=3,
                 catalog=build_catalog(events, event_t, event_T),
                 opt_maxiter=opt_maxiter, grid_res=grid_res,
                 qmu_spins=qmu_spins, map_loop=map_loop, wave_t0=wave_t0,
-                wave_dyn_t0=wave_dyn_t0, w3_ell=w3_ell, w3_K=w3_K)
+                wave_dyn_t0=wave_dyn_t0, w3_ell=w3_ell, w3_K=w3_K,
+                cf_batches=cf_batches, cf_depths=cf_depths,
+                resolve_rows=resolve_rows, resolve_stride=resolve_stride,
+                multiplet_chi_max=multiplet_chi_max,
+                spectrum_chi=spectrum_chi)
 
 
 EVENT_MODES = [(2, 2, n, 1) for n in range(4)]
@@ -517,6 +553,8 @@ def check_build():
     log(f"ptxas: registers by kernel {regs}; largest spill {spill} bytes")
     if spill:
         raise RuntimeError(f"ptxas reports spills: {report}")
+    from qnmfits_tpu_torch.ops import cf_cuda
+    log(f"ptxas, the Leaver CF kernel: {cf_cuda.ptxas_report()}")
     return regs, spill
 
 
@@ -2947,6 +2985,555 @@ def run_waveforms(problem, device, gpu=None):
     return records, info, wall
 
 
+
+# ---------------------------------------------------------------------------
+# Phase 12: the on-demand Kerr spectrum solver
+# ---------------------------------------------------------------------------
+
+# S1: the Leaver CF kernel against its plain version, relative to
+# |U| + |T| (near a root U - T cancels, so the residual is no scale).  The
+# random batches reach chi = 0.999 (b = sqrt(1 - chi^2) down to 0.045),
+# where the coefficients carry 1/b: there the kernel's fused multiply-adds
+# alone move the residual by up to 1.6e-13 of |U| + |T| (the kernel's
+# arithmetic built for the host with and without contraction, against the
+# plain version; PERF.md, section 6), and the plain version reads 3e-14
+# from the JAX package's NumPy CF.
+CF_TOL = 1e-12
+# FP64 operations of one recursion step as csrc/leaver_cf.cu does them
+# (alpha_k 6, beta_{k+1} 7, gamma_{k+1} 9, their product 6, the difference
+# 2, Smith's division 10, two of them divisions), the once-an-element work
+# (the coefficients and the tail's start), and the bytes an element reads
+# (omega, a, A, n_inv: 44) and writes (U - T, |U| + |T|: 24).
+CF_OPS_PER_STEP = 40
+CF_OPS_ONCE = 120
+CF_BYTES = 68
+CF_SEED = 13
+PROFILED_EIGS = 8
+# S2: baked rows (s, l, m, n) re-solved over the table's spins, bypassing
+# the table, each held to its row for chi <= RESOLVE_SPLIT and beyond:
+# omega absolute, A relative to the row's largest |A|, mu absolute.  The
+# tables came from the JAX package's 80-bit CF; the port's FP64 re-solve of
+# (2,2,0) and (3,-3,5) on the CPU read 5e-16 and 6.3e-14 in omega to
+# 0.985, and 1.1e-10 beyond (PERF.md, section 6).
+RESOLVE_ROWS = ((-2, 2, 2, 0), (-2, 2, 2, 7), (-2, 3, -3, 5), (-2, 4, 4, 0),
+                (-1, 2, 1, 0), (0, 0, 0, 2))
+RESOLVE_SPLIT = 0.985
+RESOLVE_TOL = dict(omega=(1e-11, 1e-8), A=(1e-11, 1e-8), mu=(1e-10, 1e-8))
+# S3: the JAX package's pin of the on-demand (11,2,0)
+# (tests/test_spectrum.py:481).
+PIN_MODE, PIN_CHI = (11, 2, 0), 0.68
+PIN_OMEGA, PIN_TOL = 2.3864244708 - 0.0906875519j, 1e-8
+# S4: the l = 2, m = 2 multiplets and extended ladder against the baked
+# (2,2,8..20) rows, on the table's spins up to multiplet_chi_max, held from
+# MULTIPLET_CHI_MIN on (below it the tracks are a sqrt(chi) fit through the
+# lowest solved spins).  The table's own spacing is kept: on every 8th spin
+# the march's steps pass the continuity guard (0.12 |omega| ~ 0.24 near
+# -2i) and every track lands one overtone (~0.25) off (PERF.md, section 6).
+MULTIPLET_CHI_MIN = 0.05
+MULTIPLET_TOL = 1e-8
+# F1: the bench's (2,2,n<4) set with the on-demand (5,2,8).
+F1_SET = [(2, 2, n, 1) for n in range(4)] + [(5, 2, 8, 1)]
+
+
+class SolverClock:
+    """While active, times the solver's CF calls (CUDA events around each
+    launch on the card; the host clock for the plain version) and its
+    eigendecompositions (the host clock, the device synchronised on each
+    side: torch.linalg.eig of a CUDA tensor synchronises with the host
+    anyway), and keeps the (B, N) of every CF call and a copy of the
+    inputs of the largest."""
+
+    def __enter__(self):
+        import torch
+        from qnmfits_tpu_torch.spectrum import solver
+        self.events, self.cf_host_s, self.eig_s = [], 0.0, 0.0
+        self.eig_calls = self.eig_matrices = self.largest_work = 0
+        self.shapes, self.largest = {}, None
+        self._orig = orig_cf, orig_eig = (solver.leaver_cf,
+                                          solver._batched_angular_eig)
+
+        def cf(omega, aL, A, s, m, n_inv, N):
+            key = (omega.shape[0], N)
+            self.shapes[key] = self.shapes.get(key, 0) + 1
+            if key[0] * N > self.largest_work:
+                self.largest_work = key[0] * N
+                self.largest = (omega.clone(), aL.clone()
+                                if torch.is_tensor(aL) else aL, A.clone(),
+                                s, m, n_inv, N)
+            if not omega.is_cuda:
+                t = time.perf_counter()
+                out = orig_cf(omega, aL, A, s, m, n_inv, N)
+                self.cf_host_s += time.perf_counter() - t
+                return out
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            out = orig_cf(omega, aL, A, s, m, n_inv, N)
+            ev[1].record()
+            self.events.append(ev)
+            return out
+
+        def eig(s, m, c, nl, vectors=True):
+            if c.is_cuda:
+                torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = orig_eig(s, m, c, nl, vectors)
+            if c.is_cuda:
+                torch.cuda.synchronize()
+            self.eig_s += time.perf_counter() - t
+            self.eig_calls += 1
+            self.eig_matrices += c.shape[0]
+            return out
+
+        solver.leaver_cf, solver._batched_angular_eig = cf, eig
+        return self
+
+    def __exit__(self, *exc):
+        from qnmfits_tpu_torch.spectrum import solver
+        solver.leaver_cf, solver._batched_angular_eig = self._orig
+
+    def cf_s(self):
+        """Seconds in the CF: device time of the launches on the card."""
+        if not self.events:
+            return self.cf_host_s
+        import torch
+        torch.cuda.synchronize()
+        return sum(a.elapsed_time(b) for a, b in self.events) / 1e3
+
+    def summary(self, wall):
+        cf, eig = self.cf_s(), self.eig_s
+        return dict(wall_s=wall, cf_s=cf, eig_s=eig, rest_s=wall - cf - eig,
+                    cf_calls=sum(self.shapes.values()),
+                    eig_calls=self.eig_calls,
+                    eig_matrices=self.eig_matrices,
+                    cf_shapes={f"{b}x{n}": c
+                               for (b, n), c in sorted(self.shapes.items())})
+
+
+def _clocked(fn):
+    """(fn(), SolverClock summary, CF kernel launches), the launch count
+    set to 0 just before and read just after."""
+    from qnmfits_tpu_torch.ops import cf_cuda
+    cf_cuda.launches = 0
+    with SolverClock() as clk:
+        t = time.perf_counter()
+        out = fn()
+        wall = time.perf_counter() - t
+    rec = clk.summary(wall)
+    rec["cf_launches"] = cf_cuda.launches
+    return out, rec, clk
+
+
+def cf_bound_ms(B, N):
+    """Least time of one CF launch of B elements at depth N: the larger of
+    the bytes over HBM bandwidth and the FP64 operations (N + 1 recursion
+    steps an element, upward and backward together) over the FP64 peak."""
+    t_bytes = B * CF_BYTES / HBM_BYTES_PER_S
+    t_ops = B * (CF_OPS_PER_STEP * (N + 1) + CF_OPS_ONCE) / FP64_FLOP_PER_S
+    return (1e3 * max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def _timed_ms(fn, device, reps):
+    """Mean ms of fn() over reps calls: CUDA events on the card, the host
+    clock on the CPU."""
+    import torch
+    if device == "cpu":
+        t = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        return 1e3 * (time.perf_counter() - t) / reps
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def check_cf(inputs, device, reps=10):
+    """The CF kernel (its wrapper, the plain version on the CPU) against
+    its plain version on one batch, with both timed.  Returns its record;
+    raises beyond CF_TOL."""
+    import torch
+    from qnmfits_tpu_torch.ops import cf_cuda
+    w, a, A, s, m, n_inv, N = inputs
+    before = cf_cuda.launches
+    f, scale = cf_cuda.leaver_cf(w, a, A, s, m, n_inv, N, with_scale=True)
+    if device != "cpu" and cf_cuda.launches != before + 1:
+        raise RuntimeError("leaver_cf did not launch its kernel")
+    plain = {}
+
+    def run_plain():
+        plain["UT"] = cf_cuda.cf_parts(w, a, A, s, m, n_inv, N)
+
+    plain_ms = _timed_ms(run_plain, device, 1)
+    U, T = plain["UT"]
+    ref = U - T
+    err = float(((f - ref).abs() / scale).max())
+    err_scale = float(((scale - (U.abs() + T.abs())).abs() / scale).max())
+    B = w.shape[0]
+    bound, by = cf_bound_ms(B, N)
+    ms = _timed_ms(lambda: cf_cuda.leaver_cf(w, a, A, s, m, n_inv, N),
+                   device, reps)
+    if not (err <= CF_TOL and err_scale <= CF_TOL):
+        raise RuntimeError(f"CF kernel vs plain at B={B}, N={N}: "
+                           f"{err:.3e} of |U| + |T| (scale {err_scale:.3e}); "
+                           f"bound {CF_TOL:.0e}")
+    return dict(batch=B, N=N, chain_steps=N + 1, rel_err=err,
+                scale_err=err_scale,
+                max_abs_err=float((f - ref).abs().max()), ms=ms,
+                plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                bound_share=bound / ms)
+
+
+def cf_checks(problem, device, gpu):
+    """S1: the CF kernel against its plain version on random batches near
+    real modes (omega, spin and A per element, n_inv 0..8, s = -2, m = 2)
+    at each batch and depth of the problem."""
+    import torch
+    rng = np.random.default_rng(CF_SEED)
+    out = []
+    for N in problem["cf_depths"]:
+        for B in problem["cf_batches"]:
+            w = 2.0 * (0.3 + 0.6 * rng.random(B)
+                       - 1j * (0.05 + 0.6 * rng.random(B)))
+            a = 0.5 * 0.999 * rng.random(B)
+            A = 4.0 + 2.0 * rng.random(B) + 0.2j * (rng.random(B) - 0.5)
+            n_inv = rng.integers(0, 9, B)
+            inputs = tuple(torch.as_tensor(x, device=device)
+                           for x in (w, a, A)) + (
+                -2, 2, torch.as_tensor(n_inv, device=device), N)
+            r = check_cf(inputs, device, reps=10 if B * N < 2e7 else 3)
+            out.append(r)
+            log(f"S1 CF kernel vs plain on {gpu or device}, B={B}, N={N} "
+                f"(a chain of {N + 1} steps a thread): {r['rel_err']:.3e} of "
+                f"|U| + |T| (bound {CF_TOL:.0e}); {r['ms']:.4f} ms, plain "
+                f"{r['plain_ms']:.2f} ms, bound {r['bound_ms']:.3e} ms "
+                f"({r['bound_by']}), share {r['bound_share']:.2e}")
+    return out
+
+
+def _table_rows(s):
+    """The tracked table of spin weight s: chi, keys, omega, A, mu."""
+    from qnmfits_tpu_torch.spectrum.tables import table_path
+    with np.load(table_path(s)) as z:
+        return dict(chi=z["chi"], keys=[tuple(k) for k in z["keys"]],
+                    omega=z["omega"], A=z["A"], mu=z["mu"])
+
+
+def _row_gaps(w, A, C, z, row, sel, chi):
+    """omega, A (relative to the row's largest |A|) and mu gaps of a
+    re-solved track from the table's row, for chi <= RESOLVE_SPLIT and
+    beyond."""
+    lo = chi <= RESOLVE_SPLIT
+    K = z["mu"].shape[-1]
+    gaps = dict(
+        omega=np.abs(w - z["omega"][row][sel]),
+        A=np.abs(A - z["A"][row][sel]) / np.max(np.abs(z["A"][row])),
+        mu=np.max(np.abs(C[:, :K] - z["mu"][row][sel]), axis=1))
+    return {k: (float(np.max(v[lo], initial=0.0)),
+                float(np.max(v[~lo], initial=0.0))) for k, v in gaps.items()}
+
+
+def eig_where(M):
+    """Where torch.linalg.eigvals of a batch of CUDA matrices spends its
+    time: its wall on the card and on a CPU copy (host clock, synchronised),
+    and the device time of its kernels and copies (torch.profiler on
+    PROFILED_EIGS of them, scaled to the batch)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.linalg.eigvals(M)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    torch.linalg.eigvals(M)
+    torch.cuda.synchronize()
+    cuda_ms = 1e3 * (time.perf_counter() - t)
+    Mc = M.cpu()
+    t = time.perf_counter()
+    torch.linalg.eigvals(Mc)
+    cpu_ms = 1e3 * (time.perf_counter() - t)
+    # torch.profiler takes minutes over the eig's many small kernels: its
+    # device time is read on a few matrices and scaled.
+    few = M[:PROFILED_EIGS]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.linalg.eigvals(few)
+        torch.cuda.synchronize()
+    dev = sorted(((e.self_device_time_total, e.key) for e in
+                  prof.key_averages() if e.device_type == DeviceType.CUDA
+                  and e.count), reverse=True)
+    scale = M.shape[0] / few.shape[0]
+    return dict(matrices=M.shape[0], n=M.shape[-1], cuda_wall_ms=cuda_ms,
+                cpu_wall_ms=cpu_ms, profiled=few.shape[0],
+                device_ms=scale * sum(us for us, _ in dev) / 1e3,
+                device_top=[(k[:48], scale * us / 1e3)
+                            for us, k in dev[:4]])
+
+
+def resolve_rows(problem, device, gpu):
+    """S2: re-solve baked rows through seeds and ``track_mode`` over the
+    table's spins (every resolve_stride-th), bypassing the table; gate
+    omega, A and mu against the rows; time each solve with its CF launches
+    and the split between CF and eig time."""
+    from qnmfits_tpu_torch.spectrum import solver
+    stride, out, tables = problem["resolve_stride"], [], {}
+    for s, l, m, n in RESOLVE_ROWS[:problem["resolve_rows"]]:
+        z = tables.get(s) or tables.setdefault(s, _table_rows(s))
+        sel = slice(None, None, stride)
+        chi = z["chi"][sel]
+
+        def solve():
+            seeds = solver.schwarzschild_seeds(l_max=l, n_max=n, s=s,
+                                               n_max_low_l=0, device=device)
+            return solver.track_mode(l, m, n, seeds[(l, n)], chi, s=s,
+                                     device=device)
+
+        (w, A, C), rec, _ = _clocked(solve)
+        rec.update(key=f"s{s}_{l}{m:+d}{n}", points=len(chi),
+                   gaps=_row_gaps(w, A, C, z, z["keys"].index((l, m, n)),
+                                  sel, chi))
+        out.append(rec)
+        g = rec["gaps"]
+        log(f"S2 ({l},{m},{n}) s={s} re-solved on {len(chi)} spins "
+            f"({device}): omega {g['omega'][0]:.2e} / {g['omega'][1]:.2e}, "
+            f"A {g['A'][0]:.2e} / {g['A'][1]:.2e}, mu {g['mu'][0]:.2e} / "
+            f"{g['mu'][1]:.2e} from the table (chi <= {RESOLVE_SPLIT} / "
+            f"beyond; bounds {RESOLVE_TOL}); {rec['wall_s']:.2f} s: CF "
+            f"{rec['cf_s']:.2f} s in {rec['cf_launches']} launches, eig "
+            f"{rec['eig_s']:.2f} s in {rec['eig_calls']} calls "
+            f"({rec['eig_matrices']} matrices), rest {rec['rest_s']:.2f} s")
+        for k, (tol_lo, tol_hi) in RESOLVE_TOL.items():
+            if not (g[k][0] <= tol_lo and g[k][1] <= tol_hi):
+                raise RuntimeError(f"S2 ({l},{m},{n}) s={s}: {k} gap {g[k]} "
+                                   f"beyond {(tol_lo, tol_hi)}")
+        if device != "cpu" and rec["cf_launches"] == 0:
+            raise RuntimeError("S2 solved without the CF kernel")
+    if device != "cpu":
+        z = tables[-2]
+        c = (z["chi"] / 2.0) * (2.0 * z["omega"][z["keys"].index((2, 2, 0))])
+        import torch
+        M = solver._angular_matrices(
+            -2, 2, torch.as_tensor(np.concatenate([c, c + 1e-8]),
+                                   device=device), 25)
+        where = eig_where(M)
+        log(f"S2 eig of the (2,2,0) fine pass's {where['matrices']} "
+            f"matrices (n={where['n']}) on {gpu}: {where['cuda_wall_ms']:.1f}"
+            f" ms from CUDA tensors, {where['cpu_wall_ms']:.1f} ms from a "
+            f"CPU copy; device time {where['device_ms']:.1f} ms (profiled on "
+            f"{where['profiled']}, scaled), top {where['device_top']}")
+        out.append(dict(key="eig_where", **where))
+    return out
+
+
+def spectrum_tables(problem):
+    """A fresh s = -2 SpectrumTables for phase 12: the tracked tables, or,
+    where the problem gives ``spectrum_chi``, their splines evaluated on
+    those spins (knots at PIN_CHI, CHIF and 0.7, where S3 and F1 read)."""
+    from qnmfits_tpu_torch.spectrum.tables import (SpectrumTables,
+                                                   eval_spline_np)
+    chi = problem["spectrum_chi"]
+    if chi is None:
+        return SpectrumTables()
+    full = SpectrumTables()
+    M, K = len(full.keys), full.n_mu
+    omega = eval_spline_np(full.chi, full.omega_coeffs(np.arange(M)), chi)
+    mu = eval_spline_np(full.chi, full.mu_coeffs(
+        np.repeat(np.arange(M), K), np.tile(np.arange(K), M)), chi)
+    return SpectrumTables.from_arrays(
+        chi, full.keys, omega, mu.reshape(M, K, -1).transpose(0, 2, 1),
+        full.s, K)
+
+
+def on_demand_modes(problem, device):
+    """S3: a fresh SpectrumTables solves (11,2,0) and (5,5,8) on demand
+    through compile_modes: (11,2,0) held to the JAX package's pin and
+    eikonal checks (tests/test_spectrum.py:462-481), (5,5,8) to its
+    ordering checks (:174-190)."""
+    from qnmfits_tpu_torch.spectrum.tables import solve_on
+    t = spectrum_tables(problem)
+    with solve_on(device):
+        ms, rec, _ = _clocked(lambda: t.compile_modes([PIN_MODE + (1,)]))
+    w11 = complex(t.omega_np(ms, PIN_CHI)[0])
+    w10, w9 = (complex(t.omega_np(t.compile_modes([(l, 2, 0, 1)]),
+                                  PIN_CHI)[0]) for l in (10, 9))
+    step1, step2 = w10.real - w9.real, w11.real - w10.real
+    pin_gap = abs(w11 - PIN_OMEGA)
+    log(f"S3 (11,2,0) on demand ({device}): omega({PIN_CHI}) = {w11:.10f}, "
+        f"{pin_gap:.2e} from the JAX package's pin (bound {PIN_TOL:.0e}); "
+        f"{rec['wall_s']:.2f} s, {rec['cf_launches']} CF launches, CF "
+        f"{rec['cf_s']:.2f} s, eig {rec['eig_s']:.2f} s")
+    if not (pin_gap <= PIN_TOL and abs(step2 - step1) < 0.05 * step1
+            and abs(w11.imag - w10.imag) < 0.01):
+        raise RuntimeError("S3: (11,2,0) misses the pin or the eikonal trend")
+    with solve_on(device):
+        ms8, rec8, _ = _clocked(lambda: t.compile_modes([(5, 5, 8, 1)]))
+    w8 = complex(t.omega_np(ms8, 0.7)[0])
+    w7, w6 = (complex(t.omega_np(t.compile_modes([(5, 5, n, 1)]), 0.7)[0])
+              for n in (7, 6))
+    nz = t.compile_mu_indices([(6, 5, 5, 5, 8, 1)])[4]
+    # The ordering alone passes a track that skipped an overtone; the
+    # step from n = 7 is held near the step before it.
+    ratio = abs(w8 - w7) / abs(w7 - w6)
+    log(f"S3 (5,5,8) on demand ({device}): omega(0.7) = {w8:.10f} below "
+        f"(5,5,7) {w7:.10f}, a step {ratio:.3f} x the (5,5,6) -> (5,5,7) "
+        f"one (bound 0.5-2); {rec8['wall_s']:.2f} s, {rec8['cf_launches']} "
+        f"CF launches")
+    if not (w8.imag < w7.imag < 0 and w8.real > 0 and nz[0]
+            and 0.5 < ratio < 2.0):
+        raise RuntimeError("S3: (5,5,8) fails the ordering checks")
+    if device != "cpu" and not (rec["cf_launches"] and rec8["cf_launches"]):
+        raise RuntimeError("S3 solved without the CF kernel")
+    return [dict(rec, key="s3_11_2_0", omega=[w11.real, w11.imag],
+                 pin_gap=pin_gap),
+            dict(rec8, key="s3_5_5_8", omega=[w8.real, w8.imag])]
+
+
+def multiplet_check(problem, device):
+    """S4: multiplet_tracks(m=2) on the s = -2 table's spins up to
+    multiplet_chi_max against its (2,2,8..20) rows from
+    MULTIPLET_CHI_MIN on."""
+    from qnmfits_tpu_torch.spectrum.multiplets import multiplet_tracks
+    chi_max = problem["multiplet_chi_max"]
+    if chi_max is None:
+        log("S4 multiplet_tracks: not run at this size")
+        return None
+    z = _table_rows(-2)
+    sel = z["chi"] <= chi_max
+    chi = z["chi"][sel]
+    tracks, rec, _ = _clocked(
+        lambda: multiplet_tracks(2, chi, s=-2, verbose=False, device=device))
+    baked = sorted(int(n) for l, m, n in z["keys"]
+                   if l == 2 and m == 2 and n >= 8)
+    held = chi >= MULTIPLET_CHI_MIN
+    gaps = {}
+    for n, (w, A, C) in sorted(tracks.items()):
+        row = z["keys"].index((2, 2, n))
+        gaps[n] = float(np.max(np.abs(w - z["omega"][row][sel])[held]))
+    worst = max(gaps.values(), default=np.inf)
+    shown = {n: float(f"{g:.1e}") for n, g in gaps.items()}
+    log(f"S4 multiplet_tracks(m=2) on the table's {len(chi)} spins to "
+        f"chi = {chi[-1]:.4f} ({device}; a subgrid of the 400 for the phase's "
+        f"time): labels {sorted(tracks)} (table {baked}); omega gap over chi "
+        f">= {MULTIPLET_CHI_MIN} by n {shown} (bound "
+        f"{MULTIPLET_TOL:.0e}); {rec['wall_s']:.1f} s, {rec['cf_launches']} "
+        f"CF launches, CF {rec['cf_s']:.1f} s, eig {rec['eig_s']:.1f} s")
+    if sorted(tracks) != baked or not worst <= MULTIPLET_TOL:
+        raise RuntimeError("S4: the multiplet tracks miss the table's rows")
+    return dict(rec, key="s4_multiplets", points=len(chi),
+                chi_max=float(chi[-1]), gaps=gaps)
+
+
+def on_demand_fit(problem, device):
+    """F1, the main path of phase 12: the bench's (2,2,n<4) set with the
+    on-demand (5,2,8) through ``mismatch_t0_mode_sets`` at the problem's
+    width with dedup on: the mode solved on the card inside the call (the
+    CF kernel), then one team launch of the solve; held to the plain-solve
+    route and the NumPy oracle.  Returns (record, the largest CF launch's
+    inputs)."""
+    from qnmfits_tpu_torch import batched, engine, mismatch_t0_mode_sets
+    from qnmfits_tpu_torch.ops import chol_cuda
+    if (5, 2, 8) in engine.default_tables().row:
+        raise RuntimeError("F1: (5,2,8) is already in the tables")
+    sets = [F1_SET]
+    args = (problem["times"], problem["data"], sets, MF, CHIF,
+            problem["t0s"])
+    kw = dict(T_array=problem["T"], spherical_modes=SPH, dedup=True,
+              device=device)
+    chol_cuda.launches = chol_cuda.wide_launches = 0
+    mm, rec, clk = _clocked(lambda: mismatch_t0_mode_sets(*args, **kw))
+    launches, wide = chol_cuda.launches, chol_cuda.wide_launches
+    t = time.perf_counter()
+    mismatch_t0_mode_sets(*args, **kw)
+    warm = time.perf_counter() - t
+    plain = PlainSolve()
+    mm_plain = batched.batch_mismatch_t0_modesets(*args, solve=plain, **kw)
+    pre = problem["t0s"] < 0
+    route = _diff(mm, mm_plain, pre)
+    oracle = oracle_diff(problem, mm, sets)
+    log(f"F1 (2,2,n<4) + on-demand (5,2,8), {len(problem['t0s'])} start "
+        f"times ({device}): mm {mm.shape}, solve launches {launches} "
+        f"(derived 1; wide {wide}), CF launches {rec['cf_launches']} in the "
+        f"mode's solve; vs plain solve t0 >= 0: {route[0]:.3e} (bound "
+        f"{MAIN_TOL:.0e}), t0 < 0: {route[1]:.3e} (bound {PRE_TOL:.0e}); "
+        f"oracle t0 >= 0: {oracle[0]:.3e} (bound {ORACLE_TOL:.0e}), t0 < 0: "
+        f"{oracle[1]:.3e} (reported); wall {rec['wall_s']:.2f} s with the "
+        f"solve (CF {rec['cf_s']:.2f} s, eig {rec['eig_s']:.2f} s), "
+        f"{warm:.3f} s warm")
+    if mm.shape != (1, len(problem["t0s"])) or not np.all(np.isfinite(mm)):
+        raise RuntimeError("F1: bad mismatches")
+    if device != "cpu" and (launches != 1 or wide or not rec["cf_launches"]):
+        raise RuntimeError(f"F1 launched the solve {launches} times (wide "
+                           f"{wide}) and the CF {rec['cf_launches']} times")
+    if not (route[0] <= MAIN_TOL and route[1] <= PRE_TOL
+            and oracle[0] <= ORACLE_TOL):
+        raise RuntimeError("F1 disagrees with its plain route or the oracle")
+    path = dict(key="f1", name="F1 (2,2,n<4) + on-demand (5,2,8)",
+                launches=launches, wide_launches=wide,
+                expected_launches=1, cf_launches=rec["cf_launches"],
+                wall_s=rec["wall_s"], warm_wall_s=warm, route_in=route[0],
+                route_pre=route[1], oracle_in=oracle[0],
+                oracle_pre=oracle[1], solve=rec)
+    return path, clk.largest
+
+
+def run_spectrum(problem, device, gpu=None):
+    """Phase 12: S1-S4 and F1, with the track cache in a temporary
+    directory (and, where the problem cuts the tables' spins, the entry
+    points' tables swapped for the cut ones for the phase).  Returns (path
+    records, the CF kernel's JSON record, the phase's wall)."""
+    import shutil
+    import tempfile
+    from qnmfits_tpu_torch import engine
+    from qnmfits_tpu_torch.spectrum import tables
+    t = time.perf_counter()
+    cache = tempfile.mkdtemp(prefix="qnm_track_cache_")
+    saved = tables.TRACK_CACHE, engine.default_tables
+    tables.TRACK_CACHE = cache
+    if problem["spectrum_chi"] is not None:
+        cut = spectrum_tables(problem)
+        engine.default_tables = lambda: cut
+        engine._cached_evaluator.cache_clear()
+    try:
+        s1 = cf_checks(problem, device, gpu)
+        f1, largest = on_demand_fit(problem, device)
+        s2 = resolve_rows(problem, device, gpu)
+        s3 = on_demand_modes(problem, device)
+        s4 = multiplet_check(problem, device)
+    finally:
+        tables.TRACK_CACHE, engine.default_tables = saved
+        engine._cached_evaluator.cache_clear()
+        shutil.rmtree(cache, ignore_errors=True)
+    # The kernel on the largest launch of F1's solve, as the main path
+    # gave it.
+    main = check_cf(largest, device)
+    log(f"CF kernel on F1's largest launch (B={main['batch']}, "
+        f"N={main['N']}) on {gpu or device}: {main['ms']:.4f} ms, plain "
+        f"{main['plain_ms']:.2f} ms, bound {main['bound_ms']:.3e} ms "
+        f"({main['bound_by']}); {main['rel_err']:.3e} of |U| + |T|")
+    record = dict(
+        name="leaver_cf", route="cuda",
+        source="qnmfits_tpu_torch/csrc/leaver_cf.cu",
+        replaces="qnmfits_tpu/spectrum/csrc/cf_kernel.cpp:100",
+        launches=f1["cf_launches"],
+        max_abs_err=max([main["max_abs_err"]]
+                        + [r["max_abs_err"] for r in s1]),
+        ms=main["ms"], plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
+        bound_by=main["bound_by"], library_ms=None,
+        library="none: no PyTorch call evaluates a continued fraction",
+        bound_share=main["bound_share"], batch=main["batch"], N=main["N"],
+        chain_steps=main["chain_steps"],
+        rel_err_max=max([main["rel_err"]] + [r["rel_err"] for r in s1]),
+        checks=s1, f1_solve=f1["solve"], resolve=s2, on_demand=s3,
+        multiplets=s4)
+    wall = time.perf_counter() - t
+    rows = sum(r["key"] != "eig_where" for r in s2)
+    log(f"phase 12: S1 {len(s1)} batches, S2 {rows} rows, S3, "
+        f"S4 {'run' if s4 else 'not run'}, F1 in {wall:.1f} s")
+    return [f1], record, wall
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2954,7 +3541,8 @@ def main():
               "false); nothing was run", file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
-    from qnmfits_tpu_torch.ops import chol_cuda
+    from concurrent.futures import ThreadPoolExecutor
+    from qnmfits_tpu_torch.ops import cf_cuda, chol_cuda
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2966,10 +3554,12 @@ def main():
     log(f"device: {kind}, torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}")
 
+    # One nvcc for each source, started together.
     t = time.perf_counter()
-    lib = chol_cuda.build()
-    log(f"built {os.path.relpath(lib, ROOT)} in "
-        f"{time.perf_counter() - t:.2f} s (sm_90a)")
+    with ThreadPoolExecutor(2) as pool:
+        libs = list(pool.map(lambda mod: mod.build(), (chol_cuda, cf_cuda)))
+    log(f"built {', '.join(os.path.relpath(lib, ROOT) for lib in libs)} in "
+        f"{time.perf_counter() - t:.2f} s (sm_90a, in parallel)")
     build = check_build()
 
     device = "cuda"
@@ -3021,18 +3611,20 @@ def main():
         rec["waveform_paths"] = {p["key"]: _summary(p) for p in waveforms
                                  if (p["wide_launches"] > 0) == (rec is wide)}
     record["waveforms"] = wave_info
-    # Profiler health over the whole run, phases 7 to 11 included.
+    spectrum, cf_record, phase12_wall = run_spectrum(problem, device, gpu)
+    # Profiler health over the whole run, phases 7 to 12 included.
     wide.update(event_timings=len(EVENT_TIMINGS),
                 profiles_dropping=len(DROPPED),
                 records_dropped_max=max(DROPPED, default=0))
     print(json.dumps({"paths": paths + dynamic + optimisers + diagnostics
-                      + mapping + waveforms,
+                      + mapping + waveforms + spectrum,
                       "phase7_wall_s": phase7_wall,
                       "phase8_wall_s": phase8_wall,
                       "phase9_wall_s": phase9_wall,
                       "phase10_wall_s": phase10_wall,
-                      "phase11_wall_s": phase11_wall}), flush=True)
-    print(json.dumps({"kernels": [record, wide]}), flush=True)
+                      "phase11_wall_s": phase11_wall,
+                      "phase12_wall_s": phase12_wall}), flush=True)
+    print(json.dumps({"kernels": [record, wide, cf_record]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -32,6 +32,7 @@ from .engine_real import (sweep_omega_grid_bordered_real,
                           sweep_spectra_stacked_real, sweep_t0_factored_real,
                           sweep_t0_modesets_factored_real)
 from .ref_impl import _delta_factor
+from .spectrum.tables import solves_on_device
 
 __all__ = [
     "batch_fit_events", "batch_mismatch_t0", "batch_mismatch_t0_dynamic",
@@ -361,6 +362,7 @@ def _scatter(dd, t0s_full, mm, C, omegas, return_amplitudes):
     return mm, C
 
 
+@solves_on_device
 def batch_mismatch_t0(times, data, modes, Mf, chif, t0_array,
                       t0_method="geq", T_array=100, spherical_modes=None,
                       delta=0.0, return_amplitudes=False, dedup=True,
@@ -400,6 +402,7 @@ def batch_mismatch_t0(times, data, modes, Mf, chif, t0_array,
 # The factored sweeps ('geq' windows, start times sorted)
 # ---------------------------------------------------------------------------
 
+@solves_on_device
 def batch_mismatch_t0_fast(times, data, modes, Mf, chif, t0_array,
                            T_array=100, spherical_modes=None, delta=0.0,
                            return_amplitudes=False, chunk=128, dedup=True,
@@ -434,6 +437,7 @@ def _bucket_width(n, J):
     return min(b, J)
 
 
+@solves_on_device
 def batch_mismatch_t0_modesets(times, data, mode_sets, Mf, chif, t0_array,
                                T_array=100, spherical_modes=None,
                                return_amplitudes=False, chunk=256,
@@ -657,6 +661,7 @@ def _dynamic_sweep(times, data, mode_sets, Mf, chif, t0_array, t0_method,
             else None, sets)
 
 
+@solves_on_device
 def batch_mismatch_t0_dynamic(times, data, modes, Mf, chif, t0_array,
                               t0_method="geq", T_array=100,
                               spherical_modes=None, return_amplitudes=False,
@@ -675,6 +680,7 @@ def batch_mismatch_t0_dynamic(times, data, modes, Mf, chif, t0_array,
     return (mm[0], C[0]) if return_amplitudes else mm[0]
 
 
+@solves_on_device
 def batch_mismatch_t0_modesets_dynamic(times, data, mode_sets, Mf, chif,
                                        t0_array, t0_method="geq",
                                        T_array=100, spherical_modes=None,
@@ -695,6 +701,7 @@ def batch_mismatch_t0_modesets_dynamic(times, data, mode_sets, Mf, chif,
     return mm, [C[si, :, :len(ms)] for si, ms in enumerate(sets)]
 
 
+@solves_on_device
 def batch_fit_events(times, data, modes, Mf, chif, t0, T=100,
                      t0_method="geq", precision="x64", mesh=None,
                      engine="batched", chunk=None, device="cuda",
@@ -814,6 +821,7 @@ def _M_chi_spectra(modes, sph, Mf_minmax, chif_minmax, res, delta):
     return omegas, mus
 
 
+@solves_on_device
 def batch_mismatch_M_chi(times, data, modes, Mf_minmax, chif_minmax, t0,
                          t0_method="geq", T=100, res=50,
                          spherical_modes=None, delta=0.0, device="cuda",
@@ -829,6 +837,7 @@ def batch_mismatch_M_chi(times, data, modes, Mf_minmax, chif_minmax, t0,
     return mm.reshape(res, res)
 
 
+@solves_on_device
 def batch_mismatch_M_chi_fast(times, data, modes, Mf_minmax, chif_minmax, t0,
                               t0_method="geq", T=100, res=50,
                               spherical_modes=None, delta=0.0, chunk=None,
@@ -873,6 +882,7 @@ def _omega_spectra(modes, Mf, chif, re_minmax, im_minmax, res):
     return omegas, np.ones((wf.shape[0], 1, omegas.shape[1]), complex)
 
 
+@solves_on_device
 def batch_mismatch_omega(times, data, modes, Mf, chif, re_minmax, im_minmax,
                          t0, t0_method="geq", T=100, res=50, device="cuda",
                          solve=None):
@@ -888,6 +898,7 @@ def batch_mismatch_omega(times, data, modes, Mf, chif, re_minmax, im_minmax,
     return mm.reshape(res, res).T
 
 
+@solves_on_device
 def batch_mismatch_omega_fast(times, data, modes, Mf, chif, re_minmax,
                               im_minmax, t0, t0_method="geq", T=100, res=50,
                               chunk=None, mesh=None, device="cuda",
@@ -910,6 +921,7 @@ def batch_mismatch_omega_fast(times, data, modes, Mf, chif, re_minmax,
     return mm.reshape(res, res).T
 
 
+@solves_on_device
 def batch_mismatch_omega_bordered(times, data, modes, Mf, chif, re_minmax,
                                   im_minmax, t0, t0_method="geq", T=100,
                                   res=50, a_chunk=8, mesh=None,

@@ -22,6 +22,7 @@ import torch
 
 from . import CDTYPE, RDTYPE, resolve_device
 from .engine import SpectrumEvaluator
+from .spectrum.tables import solves_on_device
 
 __all__ = ["rational_filter_torch"]
 
@@ -49,6 +50,7 @@ def _filter(d_u, dt, omegas, n_taper, align):
     return torch.fft.ifft(spec)
 
 
+@solves_on_device
 def rational_filter_torch(times, data, modes, Mf, chif, t_start=-300,
                           t_end=None, dt=None, t_taper=100,
                           align_inspiral=True, device="cuda"):

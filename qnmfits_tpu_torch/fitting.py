@@ -29,6 +29,7 @@ from .ref_impl import (  # noqa: F401  (re-exported reference primitives)
     multimode_mismatch,
     ringdown,
 )
+from .spectrum.tables import solves_on_device
 
 __all__ = [
     "ringdown", "mismatch", "multimode_mismatch",
@@ -118,6 +119,7 @@ def _tracks(times, Mf, chif):
     return Mf_t, chif_t
 
 
+@solves_on_device
 def ringdown_fit(times, data, modes, Mf, chif, t0, t0_method="geq", T=100,
                  delta=0.0, precision="x64", device="cuda"):
     """Least-squares ringdown fit to a single complex series
@@ -135,6 +137,7 @@ def ringdown_fit(times, data, modes, Mf, chif, t0, t0_method="geq", T=100,
     }
 
 
+@solves_on_device
 def dynamic_ringdown_fit(times, data, modes, Mf, chif, t0, t0_method="geq",
                          T=100, precision="x64", device="cuda"):
     """Single-series fit with time-dependent (Mf(t), chif(t)) given per
@@ -161,6 +164,7 @@ def _stack_rows(data_dict, spherical_modes):
     return rows, spherical_modes
 
 
+@solves_on_device
 def multimode_ringdown_fit(times, data_dict, modes, Mf, chif, t0,
                            t0_method="geq", T=100, spherical_modes=None,
                            precision="x64", device="cuda"):
@@ -185,6 +189,7 @@ def multimode_ringdown_fit(times, data_dict, modes, Mf, chif, t0,
     }
 
 
+@solves_on_device
 def dynamic_multimode_ringdown_fit(times, data_dict, modes, Mf, chif, t0,
                                    t0_method="geq", T=100,
                                    spherical_modes=None, precision="x64",
@@ -218,6 +223,7 @@ def dynamic_multimode_ringdown_fit(times, data_dict, modes, Mf, chif, t0,
 # Sweeps (fitting.py:247-423)
 # ---------------------------------------------------------------------------
 
+@solves_on_device
 def mismatch_t0_array(times, data, modes, Mf, chif, t0_array,
                       t0_method="geq", T_array=100, spherical_modes=None,
                       delta=0.0, engine="batched", precision="x64",
@@ -267,6 +273,7 @@ def mismatch_t0_array(times, data, modes, Mf, chif, t0_array,
         dedup=dedup, device=device)
 
 
+@solves_on_device
 def mismatch_t0_mode_sets(times, data, mode_sets, Mf, chif, t0_array,
                           T_array=100, *, t0_method="geq",
                           spherical_modes=None, return_amplitudes=False,
@@ -312,6 +319,7 @@ def _grid_engine(engine, mesh, ported):
         raise ValueError(f"unknown engine {engine!r}")
 
 
+@solves_on_device
 def mismatch_M_chi_grid(times, data, modes, Mf_minmax, chif_minmax, t0,
                         t0_method="geq", T=100, res=50,
                         spherical_modes=None, delta=0.0, engine="batched",
@@ -336,6 +344,7 @@ def mismatch_M_chi_grid(times, data, modes, Mf_minmax, chif_minmax, t0,
                 spherical_modes=spherical_modes, delta=delta, device=device)
 
 
+@solves_on_device
 def mismatch_omega_grid(times, data, modes, Mf, chif, re_minmax, im_minmax,
                         t0, t0_method="geq", T=100, res=50,
                         engine="batched", precision="x64", mesh=None,
@@ -360,6 +369,7 @@ def mismatch_omega_grid(times, data, modes, Mf, chif, re_minmax, im_minmax,
                 t0_method=t0_method, T=T, res=res, device=device)
 
 
+@solves_on_device
 def rational_filter(times, data, modes, Mf, chif, t_start=-300, t_end=None,
                     dt=None, t_taper=100, align_inspiral=True,
                     engine="torch", device="cuda"):
@@ -385,6 +395,7 @@ def rational_filter(times, data, modes, Mf, chif, t_start=-300, t_end=None,
 # Optimisers (fitting.py:426-479)
 # ---------------------------------------------------------------------------
 
+@solves_on_device
 def calculate_epsilon(times, data, modes, Mf, chif, t0, t0_method="geq",
                       T=100, spherical_modes=None, min_method="gradient",
                       delta=0.0, x0=None, device="cuda"):
@@ -403,6 +414,7 @@ def calculate_epsilon(times, data, modes, Mf, chif, t0, t0_method="geq",
         min_method, delta, x0)
 
 
+@solves_on_device
 def free_frequency_fit(times, data, t0, modes=[], Mf=None, chif=None,
                        t0_method="geq", T=100, min_method="gradient",
                        device="cuda"):

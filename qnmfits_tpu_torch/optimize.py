@@ -31,6 +31,7 @@ from .engine import (_window, cached_evaluator, check_spin, chunk_bounds,
                      fit_core, fit_systems, solve_fits)
 from .engine_real import _omega_border_apply, _omega_border_prep
 from .ref_impl import _delta_factor
+from .spectrum.tables import solves_on_device
 
 __all__ = ["calculate_epsilon_array", "calculate_epsilon_gradient",
            "free_frequency_fit_array", "free_frequency_fit_gradient"]
@@ -244,6 +245,7 @@ def _lbfgs(mm_fn, x0, bounds, gtol, dev):
                     options={"ftol": 1e-15, "gtol": gtol}).x
 
 
+@solves_on_device
 def calculate_epsilon_gradient(times, data, modes, Mf, chif, t0,
                                t0_method="geq", T=100, spherical_modes=None,
                                delta=0.0, x0=None, device="cuda",
@@ -279,6 +281,7 @@ def _require_remnant(modes, Mf, chif):
             "free_frequency_fit with fixed QNM modes requires Mf and chif")
 
 
+@solves_on_device
 def free_frequency_fit_gradient(times, data, t0, modes=[], Mf=None,
                                 chif=None, t0_method="geq", T=100,
                                 x0=(1.0, -0.5), device="cuda", solve=None):
@@ -326,6 +329,7 @@ def free_frequency_chunks(n_windows, K, Jf):
     return _chunks(n_windows, K * (Jf + 1) * 16, DESIGN_BYTES)
 
 
+@solves_on_device
 def free_frequency_fit_array(times, data, t0_array, modes=[], Mf=None,
                              chif=None, t0_method="geq", T_array=100,
                              x0=(1.0, -0.5), maxiter=30,
@@ -411,6 +415,7 @@ def epsilon_seed_items(n_windows, K, J):
             (n_windows * NPOL * len(_OFFS), _seed_chunk(K, J))]
 
 
+@solves_on_device
 def calculate_epsilon_array(times, data, modes, Mf, chif, t0_array,
                             t0_method="geq", T_array=100,
                             spherical_modes=None, delta=0.0, x0=None,

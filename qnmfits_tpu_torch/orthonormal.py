@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from . import resolve_device
+from .spectrum.tables import solves_on_device
 
 __all__ = ["orthonormal_decomposition", "orthonormal_t0_sweep"]
 
@@ -69,6 +70,7 @@ def _project(G, r):
     return torch.linalg.solve_triangular(L, r[..., None], upper=False)[..., 0]
 
 
+@solves_on_device
 def orthonormal_decomposition(times, data, modes, Mf, chif, t0,
                               t0_method="geq", T=100,
                               spherical_modes=None, device="cuda"):
@@ -118,6 +120,7 @@ def orthonormal_decomposition(times, data, modes, Mf, chif, t0,
     }
 
 
+@solves_on_device
 def orthonormal_t0_sweep(times, data, modes, Mf, chif, t0_array,
                          t0_method="geq", T_array=100,
                          spherical_modes=None, device="cuda"):

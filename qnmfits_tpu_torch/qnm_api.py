@@ -6,15 +6,18 @@ port's spectrum tables (``spectrum.tables``): methods take scalar or
 array chif/Mf as the reference's do, and the spin weight s picks the
 table (s = -2 gravitational; s = 0, scalar, for the Qmu_B quadratic
 mixing prediction, reference spatial_mapping_functions.py:787-799; and
-s = -1).  Everything here is host NumPy.  ``download_cook_data`` is the
-JAX package's no-download shim (qnm_api.py:19-27).
+s = -1).  Everything here is host NumPy but the on-demand solve of a mode
+the tables lack, which runs on the instance's ``device`` (the card unless
+given "cpu").  ``download_cook_data`` is the JAX package's no-download
+shim (qnm_api.py:19-27).
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from .spectrum.tables import SpectrumTables, default_tables, table_path
+from .spectrum.tables import (SpectrumTables, default_tables, solve_on,
+                              table_path)
 
 __all__ = ["qnm", "get_qnm", "download_cook_data"]
 
@@ -32,7 +35,10 @@ class qnm:
     """Kerr QNM frequencies and spherical-spheroidal mixing coefficients,
     as spline evaluations of the tables (reference qnm.py:36-393)."""
 
-    def __init__(self, tables: SpectrumTables | None = None):
+    def __init__(self, tables: SpectrumTables | None = None, device=None):
+        # Where modes the tables lack are solved: ``device``, else the
+        # calling entry point's, else the card.
+        self.device = device
         self._tables = {}
         if tables is not None:
             self._tables[tables.s] = tables
@@ -60,7 +66,8 @@ class qnm:
         """omega_{lmn}(Mf, chif); mirror modes via sign=-1
         (reference qnm.py:162-235)."""
         t = self._t(s)
-        ms = t.compile_modes([(ell, m, n, sign)])
+        with solve_on(self.device):
+            ms = t.compile_modes([(ell, m, n, sign)])
         w = t.omega_np(ms, chif, Mf)[0]
         return w if np.ndim(chif) or np.ndim(Mf) else complex(w)
 
@@ -71,7 +78,8 @@ class qnm:
         if len(modes) == 0:
             return []
         t = self._t(s)
-        ms = t.compile_modes(modes)
+        with solve_on(self.device):
+            ms = t.compile_modes(modes)
         w = t.omega_np(ms, chif, Mf)
         if np.ndim(chif) or np.ndim(Mf):
             return list(w)
@@ -84,14 +92,16 @@ class qnm:
         if mp != m:
             return 0
         t = self._t(s)
-        out = t.mu_np([(ell, m, ellp, mp, nprime, sign)], chif)[0]
+        with solve_on(self.device):
+            out = t.mu_np([(ell, m, ellp, mp, nprime, sign)], chif)[0]
         return out if np.ndim(chif) else complex(out)
 
     def mu_list(self, indices, chif, s=-2):
         """Mixing coefficients for (l,m,l',m',n',sign) tuples
         (reference qnm.py:363-393)."""
         t = self._t(s)
-        out = t.mu_np(indices, chif)
+        with solve_on(self.device):
+            out = t.mu_np(indices, chif)
         if np.ndim(chif):
             return [row for row in out]
         return [complex(x) for x in out]

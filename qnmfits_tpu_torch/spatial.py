@@ -33,6 +33,7 @@ from .spatial_engine import (eval_qmu, eval_qmu_c, mapping_design,
                              mapping_mismatch_t0_array, sky_sum,
                              spheroidal_coeffs_batched)
 from .spectrum.angular import lmin as _lmin, mode_eigensystem
+from .spectrum.tables import solves_on_device
 
 __all__ = [
     "mapping_multimode_ringdown_fit", "mapping_mismatch_t0_array",
@@ -171,6 +172,7 @@ def Qmu_D(indices, chif, l_max, **kwargs):
 # Mapping fit (reference :18-283)
 # ---------------------------------------------------------------------------
 
+@solves_on_device
 def mapping_multimode_ringdown_fit(times, data_dict, modes, Mf, chif, t0,
                                    mapping_modes, t0_method="geq", T=100,
                                    spherical_modes=None, device="cuda"):

@@ -32,7 +32,7 @@ from functools import lru_cache
 import numpy as np
 
 from .harmonics import sYlm
-from .spectrum.tables import eval_spline_np
+from .spectrum.tables import eval_spline_np, solves_on_device
 
 __all__ = [
     "compile_qmu", "eval_qmu", "eval_qmu_c",
@@ -338,6 +338,7 @@ def mapping_design(spherical_modes, modes, mapping_modes, chif, Mf,
     return all_modes, omega, mu
 
 
+@solves_on_device
 def mapping_mismatch_t0_array(times, data_dict, modes, Mf, chif, t0_array,
                               mapping_modes, t0_method="geq", T_array=100,
                               spherical_modes=None, l_max=8,

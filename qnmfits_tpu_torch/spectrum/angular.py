@@ -34,6 +34,7 @@ import numpy as np
 __all__ = [
     "lmin",
     "cos_theta_coeffs",
+    "spectral_parts",
     "angular_matrix",
     "separation_constants",
     "mode_eigensystem",
@@ -78,6 +79,19 @@ def cos_theta_coeffs(s: int, m: int, nl: int):
     return ls, F, G, H
 
 
+def spectral_parts(s: int, m: int, nl: int):
+    """The c-independent parts of the spectral matrix: lam0 = l(l+1) -
+    s(s+1) (nl,) and X (nl, nl), the tridiagonal matrix of cos(theta) in
+    the sYlm basis from lmin."""
+    ls, F, G, H = cos_theta_coeffs(s, m, nl)
+    X = np.zeros((nl, nl))
+    idx = np.arange(nl)
+    X[idx, idx] = H
+    X[idx[:-1] + 1, idx[:-1]] = F[:-1]  # <l+1| x |l>
+    X[idx[1:] - 1, idx[1:]] = G[1:]     # <l-1| x |l>
+    return ls * (ls + 1.0) - s * (s + 1.0), X
+
+
 def angular_matrix(s: int, m: int, c: complex, nl: int) -> np.ndarray:
     """Spectral matrix M with eigenvalues A_{slm}(c).
 
@@ -85,15 +99,7 @@ def angular_matrix(s: int, m: int, c: complex, nl: int) -> np.ndarray:
     (tridiagonal) matrix of cos(theta) in the sYlm basis truncated to
     nl basis functions starting at lmin.
     """
-    ls, F, G, H = cos_theta_coeffs(s, m, nl)
-
-    X = np.zeros((nl, nl))
-    idx = np.arange(nl)
-    X[idx, idx] = H
-    X[idx[:-1] + 1, idx[:-1]] = F[:-1]  # <l+1| x |l>
-    X[idx[1:] - 1, idx[1:]] = G[1:]     # <l-1| x |l>
-
-    lam0 = ls * (ls + 1.0) - s * (s + 1.0)
+    lam0, X = spectral_parts(s, m, nl)
     M = np.diag(lam0).astype(complex)
     M += 2.0 * c * s * X
     M -= (c * c) * (X @ X)

@@ -5,10 +5,12 @@ The artifacts are the JAX package's tracked ``qnm_tables_s{s}.npz`` (spin
 weights s = -2, -1 and 0), read in place with ``np.load`` -- the port
 keeps no copy of them.  Splines are fitted in memory, only for the table
 rows that requested modes use, and cached on the ``SpectrumTables``
-instance; nothing is written to disk (the JAX package's ``.spl.npz``
-sidecars are neither read nor written).  A mode missing from the table
-raises (the JAX package solves such modes on demand; that solver is not
-ported).
+instance (the JAX package's ``.spl.npz`` sidecars are neither read nor
+written).  A mode missing from the table is solved on demand
+(``spectrum/solver.py``, the CF on the card) on the device of the call
+that asked for it, as the JAX package does (its tables.py:182-250); the
+track is cached outside the repository, under ``track_cache_dir()``, with
+the spin grid it was solved on (a cached track serves only that grid).
 
 Semantics kept from the reference (qnm.py file:line as in the JAX module):
 mirror modes (sign=-1) look up m -> -m and map omega -> -conj(omega),
@@ -18,6 +20,12 @@ frequencies; mu is zero when the spherical and spheroidal m differ.
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
+import functools
+import inspect
+import os
+import sys
 from dataclasses import dataclass
 from functools import lru_cache
 from pathlib import Path
@@ -26,6 +34,66 @@ import numpy as np
 
 DATA_DIR = Path(__file__).resolve().parents[2] / "qnmfits_tpu" / "data"
 DEFAULT_TABLE = DATA_DIR / "qnm_tables_s-2.npz"
+
+# Where solved tracks are cached (best-effort): None means
+# $XDG_CACHE_HOME/qnmfits_tpu_torch/track_cache, else
+# ~/.cache/qnmfits_tpu_torch/track_cache.  Never inside the repository.
+TRACK_CACHE: Path | None = None
+
+# The device on-demand solves run on when the call gives none: set for
+# the duration of an entry point by ``solves_on_device``.
+_SOLVE_DEVICE = contextvars.ContextVar("qnmfits_tpu_torch_solve_device",
+                                       default=None)
+
+
+def track_cache_dir() -> Path:
+    """The directory of the on-demand solver's track cache."""
+    if TRACK_CACHE is not None:
+        return Path(TRACK_CACHE)
+    root = os.environ.get("XDG_CACHE_HOME") or os.path.join(
+        os.path.expanduser("~"), ".cache")
+    return Path(root) / "qnmfits_tpu_torch" / "track_cache"
+
+
+def load_track(path: Path, chi) -> dict | None:
+    """The arrays of the cached track at ``path`` if it was solved on the
+    spin grid ``chi``, else None (a file from another grid of as many
+    points is not this grid's track)."""
+    if not path.exists():
+        return None
+    with np.load(path) as z:
+        if "chi" not in z.files or not np.array_equal(z["chi"], chi):
+            return None
+        return {k: z[k] for k in z.files if k != "chi"}
+
+
+@contextlib.contextmanager
+def solve_on(device):
+    """Solve modes missing from the tables on ``device`` inside the block
+    (None keeps the surrounding setting)."""
+    if device is None:
+        yield
+        return
+    token = _SOLVE_DEVICE.set(device)
+    try:
+        yield
+    finally:
+        _SOLVE_DEVICE.reset(token)
+
+
+def solves_on_device(fn):
+    """Decorate an entry point with a ``device`` argument: the modes it
+    compiles that the tables lack are solved on that device."""
+    sig = inspect.signature(fn)
+    default = sig.parameters["device"].default
+
+    @functools.wraps(fn)
+    def wrapper(*args, **kwargs):
+        device = sig.bind_partial(*args, **kwargs).arguments.get(
+            "device", default)
+        with solve_on(device):
+            return fn(*args, **kwargs)
+    return wrapper
 
 
 def table_path(s: int) -> Path:
@@ -123,12 +191,68 @@ class SpectrumTables:
         self._mu_c: dict[int, np.ndarray] = {}        # row -> (K, P-1, 4)
 
     def _row_for(self, key: tuple) -> int:
+        """Table row of (l, m_lookup, n), solving the mode on demand when
+        the table lacks it (the reference's `qnm` package solves any mode
+        lazily, qnm.py:124-160)."""
         if key not in self.row:
-            raise KeyError(
-                f"mode (l, m, n) = {key} is not in the spectrum table "
-                f"(s={self.s}); on-demand solving of modes outside the "
-                f"table is not available in qnmfits_tpu_torch")
+            self._solve_missing(key)
         return self.row[key]
+
+    def _solve_missing(self, key: tuple) -> None:
+        """Track the mode over the table's spin grid (tables.py:196 of the
+        JAX package), cache the track, and append its row.  The solve runs
+        on the device set by ``solve_on`` (the entry point's), else the
+        card."""
+        l, m, n = key
+        if l < abs(self.s) or abs(m) > l or n < 0:
+            raise KeyError(f"invalid mode {key} for spin weight s={self.s}")
+        cache_dir = track_cache_dir()
+        try:
+            cache_dir.mkdir(parents=True, exist_ok=True)
+        except OSError:         # read-only: the cache is best-effort
+            pass
+        cache = cache_dir / f"s{self.s}_l{l}_m{m}_n{n}_P{len(self.chi)}.npz"
+        track = load_track(cache, self.chi)
+        if track is not None:
+            w, C = track["w"], track["C"]
+        else:
+            from .. import resolve_device
+            from .solver import SolveError, schwarzschild_seeds, track_mode
+
+            device = _SOLVE_DEVICE.get()
+            dev = resolve_device("cuda" if device is None else device)
+            print(f"qnmfits_tpu_torch: solving QNM ({l},{m},{n}) s={self.s} "
+                  f"on demand on {dev.type} (not in the tables; the track is "
+                  f"cached in {cache_dir})...", file=sys.stderr, flush=True)
+            try:
+                # l_max is the requested l, so ITS ladder is solved to n;
+                # the lower ladders (only for the n = 0 extrapolation
+                # chain) stop at n = 0, short of the l = 2 algebraically
+                # special point.
+                seeds = schwarzschild_seeds(l_max=l, n_max=n, s=self.s,
+                                            n_max_low_l=0, device=dev)
+                w, A, C = track_mode(l, m, n, seeds[(l, n)], self.chi,
+                                     s=self.s, device=dev)
+            except (SolveError, KeyError) as e:
+                raise KeyError(
+                    f"mode {key} is outside the baked tables and the "
+                    f"on-demand solve failed ({e}).  Deep overtone ladders "
+                    f"past the algebraically special frequency need the "
+                    f"multiplet machinery: build tables with `python -m "
+                    f"qnmfits_tpu_torch.spectrum.build_tables` and load "
+                    f"them with SpectrumTables(path).") from e
+            try:
+                np.savez(cache, chi=self.chi, w=w, A=A, C=C)
+            except OSError:     # read-only: the cache is best-effort
+                pass
+        mu = np.zeros((len(self.chi), self.n_mu), complex)
+        Kc = min(self.n_mu, C.shape[1])
+        mu[:, :Kc] = C[:, :Kc]
+        self.keys.append(key)
+        self.row[key] = len(self.keys) - 1
+        self.omega = np.concatenate([self.omega, w[None]], axis=0)
+        self.mu = np.concatenate([self.mu, mu[None]], axis=0)
+        self._fit_rows([self.row[key]])
 
     def _fit_rows(self, rows) -> None:
         """Fit (once, in one batched call) the splines of table rows."""
@@ -158,7 +282,7 @@ class SpectrumTables:
 
     def compile_modes(self, modes) -> ModeIndexSet:
         """Compile a list of (possibly nonlinear) mode tuples to index
-        arrays."""
+        arrays; missing modes are solved on demand (``_row_for``)."""
         modes = [tuple(int(x) for x in mode) for mode in modes]
         parts = [split_nonlinear(m) for m in modes]
         Kmax = max(len(p) for p in parts)
@@ -178,7 +302,8 @@ class SpectrumTables:
 
     def compile_mu_indices(self, indices):
         """Compile (l, m, l', m', n', sign) tuples to (rows, comps, signs,
-        parity, nonzero) arrays (reference qnm.py:293-361)."""
+        parity, nonzero) arrays (reference qnm.py:293-361); missing modes
+        are solved on demand."""
         rows, comps, signs, parity, nonzero = [], [], [], [], []
         for (ell, m, ellp, mp, nprime, sign) in indices:
             if mp != m:
@@ -241,7 +366,8 @@ class SpectrumTables:
         """Mixing coefficients of (l, m, l', m', n', sign) tuples at spin(s)
         chif (tables.py:266): (N,) or (N, Q)."""
         self._check_chif(chif)
-        rows, comps, signs, parity, nonzero = self.compile_mu_indices(indices)
+        rows, comps, signs, parity, nonzero = self.compile_mu_indices(
+            indices)
         mu = eval_spline_np(self.chi, self.mu_coeffs(rows, comps), chif)
         if mu.ndim == 2:
             signs = signs[:, None]; parity = parity[:, None]

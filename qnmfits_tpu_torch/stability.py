@@ -17,9 +17,12 @@ from __future__ import annotations
 
 import numpy as np
 
+from .spectrum.tables import solves_on_device
+
 __all__ = ["amplitude_stability"]
 
 
+@solves_on_device
 def amplitude_stability(times, data, modes, Mf, chif, t0_array,
                         t_ref=None, *, t0_method="geq", T_array=100,
                         spherical_modes=None, delta=0.0,

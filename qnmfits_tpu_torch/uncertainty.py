@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from . import RDTYPE, resolve_device
+from .spectrum.tables import solves_on_device
 
 __all__ = ["amplitude_uncertainty", "mode_selection"]
 
@@ -118,6 +119,7 @@ def _lstsq(a, d):
     return C, int(rank), float(torch.vdot(r, r).real)
 
 
+@solves_on_device
 def amplitude_uncertainty(times, data, modes, Mf, chif, t0,
                           t0_method="geq", T=100, spherical_modes=None,
                           sigma=None, mapping_modes=None, device="cuda"):
@@ -193,6 +195,7 @@ def amplitude_uncertainty(times, data, modes, Mf, chif, t0,
     }
 
 
+@solves_on_device
 def mode_selection(times, data, models, Mf, chif, t0, t0_method="geq",
                    T=100, spherical_modes=None, mapping_modes=None,
                    device="cuda"):

@@ -472,3 +472,88 @@ def test_debug_nans_sees_the_kernels_output(cuda, monkeypatch):
         with pytest.raises(FloatingPointError, match="NaN"):
             chol_cuda.regularised_solve(G, b)
     assert not chol_cuda.check_nans
+
+
+def _cf_inputs(B, seed, n_inv_max=8):
+    """CF inputs near real modes: (Leaver-unit) omega, spin, A, n_inv."""
+    rng = np.random.default_rng(seed)
+    w = 2.0 * (0.3 + 0.6 * rng.random(B) - 1j * (0.05 + 0.6 * rng.random(B)))
+    a = 0.5 * 0.999 * rng.random(B)
+    A = 4.0 + 2.0 * rng.random(B) + 0.2j * (rng.random(B) - 0.5)
+    return w, a, A, rng.integers(0, n_inv_max + 1, B)
+
+
+@pytest.mark.parametrize("B,N", [(1, 2000), (17, 2000), (400, 8192),
+                                 (17, 32768)])
+def test_cf_kernel_matches_plain(cuda, B, N):
+    """The Leaver CF kernel against its plain version on the same card,
+    relative to |U| + |T| (U - T cancels near a root)."""
+    from qnmfits_tpu_torch.ops import cf_cuda
+    w, a, A, n_inv = (torch.as_tensor(x, device=cuda)
+                      for x in _cf_inputs(B, seed=B + N))
+    before = cf_cuda.launches
+    f, scale = cf_cuda.leaver_cf(w, a, A, -2, 2, n_inv, N, with_scale=True)
+    assert cf_cuda.launches == before + 1
+    U, T = cf_cuda.cf_parts(w, a, A, -2, 2, n_inv, N)
+    torch.cuda.synchronize()
+    assert float(((f - (U - T)).abs() / scale).max()) <= 1e-13
+    assert float(((scale - (U.abs() + T.abs())).abs() / scale).max()) <= 1e-13
+
+
+def test_radial_cf_and_solve_omega_launch_the_kernel(cuda):
+    """The scalar-spin radial_cf takes one kernel launch on the card, and
+    solve_omega runs there by default, two launches a Newton step."""
+    from qnmfits_tpu_torch.ops import cf_cuda
+    from qnmfits_tpu_torch.spectrum import radial
+    w, _, A, _ = (torch.as_tensor(x, device=cuda)
+                  for x in _cf_inputs(12, seed=3))
+    before = cf_cuda.launches
+    f = radial.radial_cf(w.reshape(3, 4), 0.21, A.reshape(3, 4), -2, 2, 1,
+                         3000)
+    assert cf_cuda.launches == before + 1 and f.shape == (3, 4) and f.is_cuda
+    U, T = cf_cuda.cf_parts(w, 0.21, A, -2, 2, 1, 3000)
+    assert float(((f.reshape(-1) - (U - T)).abs()
+                  / (U.abs() + T.abs())).max()) <= 1e-13
+    A_fn = lambda w: torch.full(w.shape, 4.0 + 0j,              # noqa: E731
+                                dtype=torch.complex128, device=w.device)
+    before = cf_cuda.launches
+    wt, At, ok = radial.solve_omega(0.75 - 0.18j, 0.0, -2, 2, 0, A_fn, N=800)
+    wc, Ac, okc = radial.solve_omega(0.75 - 0.18j, 0.0, -2, 2, 0, A_fn, N=800,
+                                     device="cpu")
+    assert ok and okc and abs(wt - wc) <= 1e-12
+    assert cf_cuda.launches > before and (cf_cuda.launches - before) % 2 == 0
+
+
+def test_cf_kernel_rejects_bad_input(cuda):
+    from qnmfits_tpu_torch.ops import cf_cuda
+    w = torch.ones(4, dtype=torch.complex64, device=cuda)
+    with pytest.raises(TypeError, match="complex128"):
+        cf_cuda.leaver_cf(w, 0.1, 4.0, -2, 2, 0, 100)
+    with pytest.raises(TypeError, match="complex128"):
+        cf_cuda.leaver_cf(w.to(torch.complex128).reshape(2, 2), 0.1, 4.0, -2,
+                          2, 0, 100)
+
+
+def test_on_demand_solve_on_card_matches_cpu(cuda, tmp_path, monkeypatch):
+    """One small on-demand solve through the tables on the card, every CF
+    through the kernel, against the same solve on the CPU."""
+    from qnmfits_tpu_torch.ops import cf_cuda
+    from qnmfits_tpu_torch.spectrum import tables
+    from qnmfits_tpu_torch.spectrum.solver import default_chi_grid
+    chi = default_chi_grid(17, 0.6)
+    keys = np.array([(2, 2, 0)], np.int32)
+    rows = dict(omega=np.ones((1, 17), complex),
+                mu=np.ones((1, 17, 12), complex))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        monkeypatch.setattr(tables, "TRACK_CACHE", tmp_path / dev)
+        t = tables.SpectrumTables.from_arrays(chi, keys, rows["omega"],
+                                              rows["mu"], -2, 12)
+        before = cf_cuda.launches
+        with tables.solve_on(dev):
+            ms = t.compile_modes([(3, 1, 0, 1)])
+        out[dev] = (cf_cuda.launches - before, t.omega_np(ms, chi)[0],
+                    t.mu_np([(3, 1, 3, 1, 0, 1)], chi)[0])
+    assert out["cpu"][0] == 0 and out["cuda"][0] > 0
+    assert np.max(np.abs(out["cuda"][1] - out["cpu"][1])) <= 1e-12
+    assert np.max(np.abs(out["cuda"][2] - out["cpu"][2])) <= 1e-10

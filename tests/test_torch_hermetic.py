@@ -1,7 +1,7 @@
 """The port and chip_smoke.py stand alone: they import neither jax nor
 qnmfits_tpu, run on the CPU only when asked, and write nothing into the
-repository outside build/ and __pycache__/ (phase 11's SXS cache goes in
-a temporary directory)."""
+repository outside build/ and __pycache__/ (phase 11's SXS cache and the
+on-demand solver's track cache go outside it)."""
 
 import os
 import subprocess
@@ -30,9 +30,21 @@ from qnmfits_tpu_torch import (batched, engine, engine_real, filters,
                                uncertainty, utils, waveforms)
 from qnmfits_tpu_torch.utils import checkpoint, diagnostics
 from qnmfits_tpu_torch.waveforms import base, custom, surrogate, sxs
-from qnmfits_tpu_torch.ops import chol, chol_cuda, cmath, solve, windows
-from qnmfits_tpu_torch.spectrum import angular, tables
+from qnmfits_tpu_torch.ops import (cf_cuda, chol, chol_cuda, cmath, solve,
+                                   windows)
+from qnmfits_tpu_torch.spectrum import (angular, build_tables, multiplets,
+                                        radial, solver, tables)
 import chip_smoke
+
+# An on-demand solve on the CPU, its track cache where the environment
+# puts it (XDG_CACHE_HOME, outside the repository).
+t = tables.SpectrumTables.from_arrays(
+    solver.default_chi_grid(9, 0.5), [(2, 2, 0)], [[0.5 - 0.1j] * 9],
+    [[[1.0] * 12] * 9], -2, 12)
+with tables.solve_on("cpu"):
+    ms = t.compile_modes([(3, 1, 0, 1)])
+assert t.row[(3, 1, 0)] == 1 and (t.omega_np(ms, 0.4)[0].imag < 0)
+assert (tables.track_cache_dir() / "s-2_l3_m1_n0_P9.npz").exists()
 
 problem = chip_smoke.build_problem(**chip_smoke.SMALL)
 out = chip_smoke.run_main_path(problem, "cpu")
@@ -43,7 +55,8 @@ paths += chip_smoke.run_optimisers(problem, "cpu")[0]
 paths += chip_smoke.run_diagnostics(problem, "cpu")[0]
 paths += chip_smoke.run_mapping(problem, "cpu")[0]
 paths += chip_smoke.run_waveforms(problem, "cpu")[0]
-assert len(paths) == 44 and all(p["launches"] == 0 for p in paths)
+paths += chip_smoke.run_spectrum(problem, "cpu")[0]
+assert len(paths) == 45 and all(p["launches"] == 0 for p in paths)
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "qnmfits_tpu")
                 and sys.modules[m] is not None)
@@ -63,9 +76,16 @@ def _listing():
     return found
 
 
-def test_port_and_smoke_run_without_jax():
+def _track_cache():
+    """The JAX package's track cache: the port never writes there."""
+    path = os.path.join(REPO, "qnmfits_tpu", "data", "track_cache")
+    return sorted(os.listdir(path)) if os.path.isdir(path) else None
+
+
+def test_port_and_smoke_run_without_jax(tmp_path):
     before = _listing()
-    env = dict(os.environ)
+    jax_cache = _track_cache()
+    env = dict(os.environ, XDG_CACHE_HOME=str(tmp_path / "xdg"))
     env.pop("PYTHONPATH", None)
     r = subprocess.run([sys.executable, "-c", _SCRIPT.format(repo=REPO)],
                        capture_output=True, text=True, timeout=300,
@@ -83,8 +103,21 @@ def test_port_and_smoke_run_without_jax():
     assert "W3 'rotation' against the untilted modes" in r.stdout
     assert "W1 calculate_epsilon ('gradient')" in r.stdout
     assert "phase 11" in r.stdout
+    assert "S1 CF kernel vs plain on cpu" in r.stdout
+    assert "F1 (2,2,n<4) + on-demand (5,2,8)" in r.stdout
+    assert "S2 (2,2,0) s=-2 re-solved" in r.stdout
+    assert "S3 (11,2,0) on demand (cpu)" in r.stdout
+    assert "S3 (5,5,8) on demand (cpu)" in r.stdout
+    assert "phase 12" in r.stdout
     new = _listing() - before
     assert not new, f"files written into the repository: {sorted(new)}"
+    # JAX's own tests may add tracks of its 400-spin tables meanwhile; the
+    # port's 9-spin track must not be among them.
+    after = _track_cache()
+    assert not [f for f in (after or []) if f not in (jax_cache or [])
+                and "_P9." in f]
+    assert (tmp_path / "xdg" / "qnmfits_tpu_torch" / "track_cache"
+            / "s-2_l3_m1_n0_P9.npz").exists()
 
 
 def test_entry_point_without_cuda_raises(monkeypatch):
