@@ -138,23 +138,25 @@ flushed line each with elapsed seconds:
    C.3: ``gram_bound``), the kernel's backward error gated, and its
    device-time split;
 12. the on-demand Kerr spectrum solver, with the track cache in a
-   temporary directory: S1 the Leaver CF kernel (csrc/leaver_cf.cu, built
-   in phase 2 beside the solve) against its plain version on random
-   batches near real modes (B = 1, 17, 400, 4096 at N = 2000, 8192,
-   32768), gated relative to |U| + |T| and timed beside its bound; F1, the
-   phase's main path: the bench's (2,2,n<4) set with (5,2,8), which the
-   tables lack, through ``mismatch_t0_mode_sets`` at the bench's width
-   with dedup, the mode solved on the card inside the call (CF launches
-   counted) and then one team launch of the solve, held to its plain-solve
-   route and the NumPy oracle; S2 baked rows ((2,2,0), (2,2,7), (3,-3,5),
-   (4,4,0) at s = -2, (2,1,0) at s = -1, (0,0,2) at s = 0) re-solved over
-   the table's 400 spins, bypassing the table, gated against the rows to
-   chi = 0.985 and beyond, each solve's wall split into CF kernel and eig
-   time, and where a batched eig of CUDA matrices spends its time; S3 a
-   fresh SpectrumTables solving (11,2,0) (the JAX package's pin, 1e-8) and
+   temporary directory: F1, the phase's main path: the bench's (2,2,n<4)
+   set with (5,2,8), which the tables lack, through
+   ``mismatch_t0_mode_sets`` at the bench's width with dedup, the mode
+   solved on the card inside the call (CF launches counted; the Leaver CF
+   kernel, csrc/leaver_cf.cu, built in phase 2 beside the solve) and then
+   one team launch of the solve, held to its plain-solve route and the
+   NumPy oracle; S2 baked rows ((2,2,0), (2,2,7), (3,-3,5), (4,4,0) at
+   s = -2, (2,1,0) at s = -1, (0,0,2) at s = 0) re-solved over the
+   table's 400 spins, bypassing the table, gated against the rows to chi
+   = 0.985 and beyond, each solve's wall split into CF and eig time, and
+   where a batched eig of CUDA matrices spends its time; S3 a fresh
+   SpectrumTables solving (11,2,0) (the JAX package's pin, 1e-8) and
    (5,5,8) (its ordering checks) on demand; S4 ``multiplet_tracks(m=2)``
    on the table's spins to chi = 0.3 (a subgrid, for time) against its
-   (2,2,8..20) rows; then the kernel timed on F1's largest launch;
+   (2,2,8..20) rows; F1's and S4's CF kernel time replayed per launch
+   shape; S1 the CF kernel against its plain version on random batches
+   near real modes (B = 1, 17, 400, 4096 at N = 2000, 8192, 32768), with
+   each launch's team and segment, gated relative to |U| + |T| and timed
+   beside its bound; then the kernel timed on F1's largest launch;
 13. a JSON line of the paths, a JSON line describing each kernel, and
    last the JSON ok line.
 
@@ -554,7 +556,12 @@ def check_build():
     if spill:
         raise RuntimeError(f"ptxas reports spills: {report}")
     from qnmfits_tpu_torch.ops import cf_cuda
-    log(f"ptxas, the Leaver CF kernel: {cf_cuda.ptxas_report()}")
+    cf = cf_cuda.ptxas_report()
+    log(f"ptxas, the Leaver CF kernel by its block: {cf}")
+    if set(cf) != set(cf_cuda.KERNELS) or any(
+            r["spill_stores"] or r["spill_loads"] for r in cf.values()):
+        raise RuntimeError(f"ptxas reports CF kernels {sorted(cf)} "
+                           f"(expected {cf_cuda.KERNELS}) or spills: {cf}")
     return regs, spill
 
 
@@ -2993,17 +3000,18 @@ def run_waveforms(problem, device, gpu=None):
 # S1: the Leaver CF kernel against its plain version, relative to
 # |U| + |T| (near a root U - T cancels, so the residual is no scale).  The
 # random batches reach chi = 0.999 (b = sqrt(1 - chi^2) down to 0.045),
-# where the coefficients carry 1/b: there the kernel's fused multiply-adds
-# alone move the residual by up to 1.6e-13 of |U| + |T| (the kernel's
-# arithmetic built for the host with and without contraction, against the
-# plain version; PERF.md, section 6), and the plain version reads 3e-14
-# from the JAX package's NumPy CF.
+# where the coefficients carry 1/b: there contracting their formulas into
+# fused multiply-adds alone moves the residual by up to 1.6e-13 of |U| +
+# |T| (so the kernel is built without contraction and writes its loop's
+# fused multiply-adds out; PERF.md, section 6).
 CF_TOL = 1e-12
-# FP64 operations of one recursion step as csrc/leaver_cf.cu does them
-# (alpha_k 6, beta_{k+1} 7, gamma_{k+1} 9, their product 6, the difference
-# 2, Smith's division 10, two of them divisions), the once-an-element work
-# (the coefficients and the tail's start), and the bytes an element reads
-# (omega, a, A, n_inv: 44) and writes (U - T, |U| + |T|: 24).
+# The work of the recurrence, the yardstick of every CF row (the serial
+# recursion's FP64 operations a step: alpha_k 6, beta_{k+1} 7,
+# gamma_{k+1} 9, their product 6, the difference 2, Smith's division 10,
+# two of them divisions; the kernel's segmented product does ~37 a step
+# and its combine more), the once-an-element work (the coefficients and
+# the tail's start), and the bytes an element reads (omega, a, A, n_inv:
+# 44) and writes (U - T, |U| + |T|: 24).
 CF_OPS_PER_STEP = 40
 CF_OPS_ONCE = 120
 CF_BYTES = 68
@@ -3120,6 +3128,7 @@ def _clocked(fn):
         wall = time.perf_counter() - t
     rec = clk.summary(wall)
     rec["cf_launches"] = cf_cuda.launches
+    rec["timed_by"] = SOLVE_TIMED_BY
     return out, rec, clk
 
 
@@ -3151,17 +3160,72 @@ def _timed_ms(fn, device, reps):
     return start.elapsed_time(end) / reps
 
 
+def cf_kernel_ms(fn, reps=20):
+    """Mean device time of the CF kernel's launches in fn() (one a call),
+    from torch.profiler's records of ``leaver_cf_kernel`` over reps calls:
+    the wrapper's own copies and the host's launch cost are left out (at
+    the solver's small batches they take longer than the kernel).  A
+    profile without the kernel's records is taken again, up to three
+    times; then it raises: CUDA events would time the wrapper, not the
+    kernel."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        recs = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA and e.count
+                and "leaver_cf_kernel" in e.key]
+        count = sum(e.count for e in recs)
+        if count:
+            return sum(e.self_device_time_total for e in recs) / count / 1e3
+    raise RuntimeError("torch.profiler recorded no CF kernel in three "
+                       "profiles")
+
+
+# How the CF records' times are taken, by field, on the card and (the plain
+# version only) on the CPU.
+CF_TIMED_BY = dict(
+    ms="torch.profiler: the kernel's device time, mean over its launches",
+    call_ms="CUDA events around reps wrapper calls (host work included)",
+    plain_ms="CUDA events around one plain-version call")
+CF_TIMED_BY_CPU = dict(ms="host clock: the plain version",
+                       call_ms="host clock: the plain version",
+                       plain_ms="host clock: the plain version")
+SOLVE_TIMED_BY = dict(
+    wall_s="host clock",
+    cf_s="CUDA events around each wrapper call (host work included); the "
+         "host clock on the CPU",
+    cf_kernel_s="replayed: the kernel's device time (torch.profiler) at "
+                "each launch shape of the solve on S1's random inputs, "
+                "times that shape's launches",
+    eig_s="host clock, the device synchronised on each side")
+
+
 def check_cf(inputs, device, reps=10):
     """The CF kernel (its wrapper, the plain version on the CPU) against
-    its plain version on one batch, with both timed.  Returns its record;
-    raises beyond CF_TOL."""
+    its plain version on one batch, with both timed: on the card ``ms`` is
+    the kernel's device time and ``call_ms`` the wrapper call's (CUDA
+    events around reps calls), on the CPU both the plain version's host
+    time.  Returns its record, with the launch's team and segment length
+    (None on the CPU); raises beyond CF_TOL."""
     import torch
     from qnmfits_tpu_torch.ops import cf_cuda
     w, a, A, s, m, n_inv, N = inputs
     before = cf_cuda.launches
     f, scale = cf_cuda.leaver_cf(w, a, A, s, m, n_inv, N, with_scale=True)
-    if device != "cpu" and cf_cuda.launches != before + 1:
-        raise RuntimeError("leaver_cf did not launch its kernel")
+    team = segment = None
+    if device != "cpu":
+        if cf_cuda.launches != before + 1:
+            raise RuntimeError("leaver_cf did not launch its kernel")
+        team, segment = cf_cuda.last_plan
     plain = {}
 
     def run_plain():
@@ -3174,41 +3238,67 @@ def check_cf(inputs, device, reps=10):
     err_scale = float(((scale - (U.abs() + T.abs())).abs() / scale).max())
     B = w.shape[0]
     bound, by = cf_bound_ms(B, N)
-    ms = _timed_ms(lambda: cf_cuda.leaver_cf(w, a, A, s, m, n_inv, N),
-                   device, reps)
+    call = lambda: cf_cuda.leaver_cf(w, a, A, s, m, n_inv, N)  # noqa: E731
+    call_ms = _timed_ms(call, device, reps)
+    ms = call_ms if device == "cpu" else cf_kernel_ms(call)
     if not (err <= CF_TOL and err_scale <= CF_TOL):
         raise RuntimeError(f"CF kernel vs plain at B={B}, N={N}: "
                            f"{err:.3e} of |U| + |T| (scale {err_scale:.3e}); "
                            f"bound {CF_TOL:.0e}")
-    return dict(batch=B, N=N, chain_steps=N + 1, rel_err=err,
-                scale_err=err_scale,
+    return dict(batch=B, N=N, chain_steps=N + 1, team=team, segment=segment,
+                rel_err=err, scale_err=err_scale,
                 max_abs_err=float((f - ref).abs().max()), ms=ms,
-                plain_ms=plain_ms, bound_ms=bound, bound_by=by,
-                bound_share=bound / ms)
+                call_ms=call_ms, plain_ms=plain_ms, bound_ms=bound,
+                bound_by=by, bound_share=bound / ms,
+                timed_by=CF_TIMED_BY_CPU if device == "cpu" else CF_TIMED_BY)
+
+
+def cf_replay_s(shapes, device):
+    """Device seconds of the CF kernel over a solve's launches, replayed:
+    the kernel timed at each (B, N) of the solve's calls (``shapes``, as
+    SolverClock keeps them) on S1's inputs, times that shape's count.  The
+    CUDA events of SolverClock bracket each wrapper call and so also count
+    the host's work in it, which at these shapes outlasts the kernel.
+    (Profiles of 5 calls recorded no CF kernel after phases 1-11; those of
+    cf_kernel_ms's 20 do.)"""
+    from qnmfits_tpu_torch.ops import cf_cuda
+    rng = np.random.default_rng(CF_SEED)
+    total = 0.0
+    for (B, N), count in sorted(shapes.items()):
+        w, a, A, s, m, n_inv, _ = cf_inputs(rng, B, N, device)
+        total += count * cf_kernel_ms(
+            lambda: cf_cuda.leaver_cf(w, a, A, s, m, n_inv, N)) / 1e3
+    return total
+
+
+def cf_inputs(rng, B, N, device):
+    """CF inputs near real modes from rng (S1's distribution: omega, spin
+    to chi = 0.999 and A per element, n_inv 0..8, s = -2, m = 2) at depth
+    N, as the wrapper takes them."""
+    import torch
+    w = 2.0 * (0.3 + 0.6 * rng.random(B) - 1j * (0.05 + 0.6 * rng.random(B)))
+    a = 0.5 * 0.999 * rng.random(B)
+    A = 4.0 + 2.0 * rng.random(B) + 0.2j * (rng.random(B) - 0.5)
+    n_inv = rng.integers(0, 9, B)
+    return tuple(torch.as_tensor(x, device=device) for x in (w, a, A)) + (
+        -2, 2, torch.as_tensor(n_inv, device=device), N)
 
 
 def cf_checks(problem, device, gpu):
     """S1: the CF kernel against its plain version on random batches near
     real modes (omega, spin and A per element, n_inv 0..8, s = -2, m = 2)
     at each batch and depth of the problem."""
-    import torch
     rng = np.random.default_rng(CF_SEED)
     out = []
     for N in problem["cf_depths"]:
         for B in problem["cf_batches"]:
-            w = 2.0 * (0.3 + 0.6 * rng.random(B)
-                       - 1j * (0.05 + 0.6 * rng.random(B)))
-            a = 0.5 * 0.999 * rng.random(B)
-            A = 4.0 + 2.0 * rng.random(B) + 0.2j * (rng.random(B) - 0.5)
-            n_inv = rng.integers(0, 9, B)
-            inputs = tuple(torch.as_tensor(x, device=device)
-                           for x in (w, a, A)) + (
-                -2, 2, torch.as_tensor(n_inv, device=device), N)
-            r = check_cf(inputs, device, reps=10 if B * N < 2e7 else 3)
+            r = check_cf(cf_inputs(rng, B, N, device), device,
+                         reps=10 if B * N < 2e7 else 3)
             out.append(r)
             log(f"S1 CF kernel vs plain on {gpu or device}, B={B}, N={N} "
-                f"(a chain of {N + 1} steps a thread): {r['rel_err']:.3e} of "
-                f"|U| + |T| (bound {CF_TOL:.0e}); {r['ms']:.4f} ms, plain "
+                f"(team {r['team']}, {r['segment']} steps a thread): "
+                f"{r['rel_err']:.3e} of |U| + |T| (bound {CF_TOL:.0e}); "
+                f"{r['ms']:.4f} ms (call {r['call_ms']:.4f} ms), plain "
                 f"{r['plain_ms']:.2f} ms, bound {r['bound_ms']:.3e} ms "
                 f"({r['bound_by']}), share {r['bound_share']:.2e}")
     return out
@@ -3301,7 +3391,8 @@ def resolve_rows(problem, device, gpu):
             f"A {g['A'][0]:.2e} / {g['A'][1]:.2e}, mu {g['mu'][0]:.2e} / "
             f"{g['mu'][1]:.2e} from the table (chi <= {RESOLVE_SPLIT} / "
             f"beyond; bounds {RESOLVE_TOL}); {rec['wall_s']:.2f} s: CF "
-            f"{rec['cf_s']:.2f} s in {rec['cf_launches']} launches, eig "
+            f"{rec['cf_s']:.2f} s by events in {rec['cf_launches']} "
+            f"launches, eig "
             f"{rec['eig_s']:.2f} s in {rec['eig_calls']} calls "
             f"({rec['eig_matrices']} matrices), rest {rec['rest_s']:.2f} s")
         for k, (tol_lo, tol_hi) in RESOLVE_TOL.items():
@@ -3363,7 +3454,7 @@ def on_demand_modes(problem, device):
     log(f"S3 (11,2,0) on demand ({device}): omega({PIN_CHI}) = {w11:.10f}, "
         f"{pin_gap:.2e} from the JAX package's pin (bound {PIN_TOL:.0e}); "
         f"{rec['wall_s']:.2f} s, {rec['cf_launches']} CF launches, CF "
-        f"{rec['cf_s']:.2f} s, eig {rec['eig_s']:.2f} s")
+        f"{rec['cf_s']:.2f} s by events, eig {rec['eig_s']:.2f} s")
     if not (pin_gap <= PIN_TOL and abs(step2 - step1) < 0.05 * step1
             and abs(w11.imag - w10.imag) < 0.01):
         raise RuntimeError("S3: (11,2,0) misses the pin or the eikonal trend")
@@ -3402,8 +3493,10 @@ def multiplet_check(problem, device):
     z = _table_rows(-2)
     sel = z["chi"] <= chi_max
     chi = z["chi"][sel]
-    tracks, rec, _ = _clocked(
+    tracks, rec, clk = _clocked(
         lambda: multiplet_tracks(2, chi, s=-2, verbose=False, device=device))
+    rec["cf_kernel_s"] = (None if device == "cpu"
+                          else cf_replay_s(clk.shapes, device))
     baked = sorted(int(n) for l, m, n in z["keys"]
                    if l == 2 and m == 2 and n >= 8)
     held = chi >= MULTIPLET_CHI_MIN
@@ -3418,11 +3511,16 @@ def multiplet_check(problem, device):
         f"time): labels {sorted(tracks)} (table {baked}); omega gap over chi "
         f">= {MULTIPLET_CHI_MIN} by n {shown} (bound "
         f"{MULTIPLET_TOL:.0e}); {rec['wall_s']:.1f} s, {rec['cf_launches']} "
-        f"CF launches, CF {rec['cf_s']:.1f} s, eig {rec['eig_s']:.1f} s")
+        f"CF launches, CF {rec['cf_s']:.2f} s by events (kernel "
+        f"{_opt_s(rec['cf_kernel_s'])} replayed), eig {rec['eig_s']:.1f} s")
     if sorted(tracks) != baked or not worst <= MULTIPLET_TOL:
         raise RuntimeError("S4: the multiplet tracks miss the table's rows")
     return dict(rec, key="s4_multiplets", points=len(chi),
                 chi_max=float(chi[-1]), gaps=gaps)
+
+
+def _opt_s(x):
+    return "not measured" if x is None else f"{x:.4f} s"
 
 
 def on_demand_fit(problem, device):
@@ -3444,6 +3542,8 @@ def on_demand_fit(problem, device):
     chol_cuda.launches = chol_cuda.wide_launches = 0
     mm, rec, clk = _clocked(lambda: mismatch_t0_mode_sets(*args, **kw))
     launches, wide = chol_cuda.launches, chol_cuda.wide_launches
+    rec["cf_kernel_s"] = (None if device == "cpu"
+                          else cf_replay_s(clk.shapes, device))
     t = time.perf_counter()
     mismatch_t0_mode_sets(*args, **kw)
     warm = time.perf_counter() - t
@@ -3459,7 +3559,8 @@ def on_demand_fit(problem, device):
         f"{MAIN_TOL:.0e}), t0 < 0: {route[1]:.3e} (bound {PRE_TOL:.0e}); "
         f"oracle t0 >= 0: {oracle[0]:.3e} (bound {ORACLE_TOL:.0e}), t0 < 0: "
         f"{oracle[1]:.3e} (reported); wall {rec['wall_s']:.2f} s with the "
-        f"solve (CF {rec['cf_s']:.2f} s, eig {rec['eig_s']:.2f} s), "
+        f"solve (CF {rec['cf_s']:.2f} s by events, kernel "
+        f"{_opt_s(rec['cf_kernel_s'])} replayed, eig {rec['eig_s']:.2f} s), "
         f"{warm:.3f} s warm")
     if mm.shape != (1, len(problem["t0s"])) or not np.all(np.isfinite(mm)):
         raise RuntimeError("F1: bad mismatches")
@@ -3496,11 +3597,12 @@ def run_spectrum(problem, device, gpu=None):
         engine.default_tables = lambda: cut
         engine._cached_evaluator.cache_clear()
     try:
-        s1 = cf_checks(problem, device, gpu)
+        # The solves first, S1's profiles of the kernel after them.
         f1, largest = on_demand_fit(problem, device)
         s2 = resolve_rows(problem, device, gpu)
         s3 = on_demand_modes(problem, device)
         s4 = multiplet_check(problem, device)
+        s1 = cf_checks(problem, device, gpu)
     finally:
         tables.TRACK_CACHE, engine.default_tables = saved
         engine._cached_evaluator.cache_clear()
@@ -3509,9 +3611,11 @@ def run_spectrum(problem, device, gpu=None):
     # gave it.
     main = check_cf(largest, device)
     log(f"CF kernel on F1's largest launch (B={main['batch']}, "
-        f"N={main['N']}) on {gpu or device}: {main['ms']:.4f} ms, plain "
-        f"{main['plain_ms']:.2f} ms, bound {main['bound_ms']:.3e} ms "
-        f"({main['bound_by']}); {main['rel_err']:.3e} of |U| + |T|")
+        f"N={main['N']}, team {main['team']}, {main['segment']} steps a "
+        f"thread) on {gpu or device}: {main['ms']:.4f} ms (call "
+        f"{main['call_ms']:.4f} ms), plain {main['plain_ms']:.2f} ms, bound "
+        f"{main['bound_ms']:.3e} ms ({main['bound_by']}); "
+        f"{main['rel_err']:.3e} of |U| + |T|")
     record = dict(
         name="leaver_cf", route="cuda",
         source="qnmfits_tpu_torch/csrc/leaver_cf.cu",
@@ -3523,7 +3627,9 @@ def run_spectrum(problem, device, gpu=None):
         bound_by=main["bound_by"], library_ms=None,
         library="none: no PyTorch call evaluates a continued fraction",
         bound_share=main["bound_share"], batch=main["batch"], N=main["N"],
-        chain_steps=main["chain_steps"],
+        chain_steps=main["chain_steps"], team=main["team"],
+        segment=main["segment"], call_ms=main["call_ms"],
+        timed_by=main["timed_by"],
         rel_err_max=max([main["rel_err"]] + [r["rel_err"] for r in s1]),
         checks=s1, f1_solve=f1["solve"], resolve=s2, on_demand=s3,
         multiplets=s4)

@@ -1,5 +1,6 @@
 """The batched Leaver continued fraction as a hand-written FP64 CUDA kernel
-(``csrc/leaver_cf.cu``) for Hopper.
+(``csrc/leaver_cf.cu``) for Hopper: a team of threads on each element, the
+backward recursion as a segmented product of 2 x 2 matrices.
 
 It replaces the JAX package's native CPU kernel
 ``qnmfits_tpu/spectrum/csrc/cf_kernel.cpp::radial_cf_batch`` (80-bit, bound
@@ -17,8 +18,11 @@ omega_L = 2 M omega.
 The source is compiled at first use with ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface under ``build/qnmfits_tpu_torch/``
 (named by a hash of the source and flags, so an edit rebuilds) and bound
-with ctypes, as ``ops/chol_cuda.py`` does.  A failed build or launch
-raises; nothing falls back.
+with ctypes, as ``ops/chol_cuda.py`` does; without contraction
+(``-fmad=false``): its hot loop writes its fused multiply-adds out, so the
+host build of the same source (``g++ -ffp-contract=off``, the CPU tests)
+rounds as the card does.  ``plan`` picks the team for a launch.  A failed
+build or launch raises; nothing falls back.
 """
 
 from __future__ import annotations
@@ -27,6 +31,7 @@ import ctypes
 import functools
 import hashlib
 import math
+import numbers
 import os
 import re
 import subprocess
@@ -36,14 +41,30 @@ import torch
 
 from .chol_cuda import BUILD_DIR, NVCC_FLAGS, _nvcc
 
-__all__ = ["build", "cf_parts", "leaver_cf", "leaver_coeffs", "launches",
-           "ptxas_report"]
+__all__ = ["build", "cf_parts", "last_plan", "leaver_cf", "leaver_coeffs",
+           "launches", "plan", "ptxas_report"]
 
 SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "leaver_cf.cu"
 BUILD_LOG = BUILD_DIR / "leaver_cf_build.log"
+CF_FLAGS = (*NVCC_FLAGS, "-fmad=false")
+# The kernel's instantiations by their block: teams of 1..128 threads run
+# in blocks of 128, a team of 256 in its own block.
+KERNELS = ("block<128>", "block<256>")
+# Teams are powers of two up to a block; the card's depth limit
+# (csrc/leaver_cf.cu, kMaxN).
+TEAMS = (1, 2, 4, 8, 16, 32, 64, 128, 256)
+MAX_N = 1 << 20
+# plan(): the threads a launch should give each SM (~7.5 warps hide a
+# step's latency; smaller teams share a warp's setup and finish among more
+# elements), and the fewest steps a thread's segment keeps; both from
+# scripts/torch_cf_teams.py's times of every team on an H100.
+THREADS_PER_SM = 240
+MIN_SEGMENT = 16
 
-# Kernel launches since the last reset (callers set it to 0 and read it).
+# Kernel launches since the last reset (callers set it to 0 and read it),
+# and the (team, segment length) of the last launch.
 launches = 0
+last_plan = None
 
 
 # Depths whose recurrence coefficients are formed at once in the tail: the
@@ -146,17 +167,38 @@ def cf_parts(omega, a, A, s: int, m: int, n_inv, N: int):
             T = torch.where(hi - i >= n_inv, new, T) if ragged else new
     return U, T
 
+
+def plan(B: int, N: int, sm_count: int) -> tuple[int, int]:
+    """(team, segment length) of a launch of B elements at depth N on a
+    card of sm_count SMs: the smallest team of ``TEAMS`` whose B x team
+    threads give each SM ``THREADS_PER_SM``, or the largest that keeps
+    ``MIN_SEGMENT`` steps a thread where none does; the segment is
+    ceil(N / team)."""
+    want = THREADS_PER_SM * sm_count
+    team = TEAMS[0]
+    for t in TEAMS[1:]:
+        if B * team >= want or -(-N // t) < MIN_SEGMENT:
+            break
+        team = t
+    return team, -(-N // team)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def build() -> Path:
     """Compile the kernel library if this source has not been built yet;
     returns its path.  ptxas's report is kept in ``BUILD_LOG``."""
     tag = hashlib.sha256(SOURCE.read_bytes()
-                         + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+                         + " ".join(CF_FLAGS).encode()).hexdigest()[:16]
     out = BUILD_DIR / f"libleaver_cf_{tag}.so"
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
+    cmd = [_nvcc(), *CF_FLAGS, "-o", str(tmp), str(SOURCE)]
     res = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
     BUILD_LOG.write_text(" ".join(cmd) + "\n" + res.stdout + res.stderr)
     if res.returncode != 0:
@@ -168,17 +210,26 @@ def build() -> Path:
 
 
 def ptxas_report() -> dict:
-    """ptxas's report of the kernel's last build: registers, spill stores
-    and spill loads (bytes)."""
+    """ptxas's report of the last build, per kernel of ``KERNELS``:
+    dict(registers=, spill_stores=, spill_loads=), the spills in bytes.
+    Raises when the log is not that of the library ``build()`` returns."""
     lib = build()
     text = BUILD_LOG.read_text()
     if lib.stem not in text.splitlines()[0]:
         raise RuntimeError(f"{BUILD_LOG} is not the build log of {lib.name}")
-    regs = re.search(r"Used (\d+) registers", text)
-    spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
-                      text)
-    return dict(registers=int(regs[1]), spill_stores=int(spill[1]),
-                spill_loads=int(spill[2]))
+    report = {}
+    # The template argument (the block) is mangled as ILi<n>E.
+    for block in text.split("Compiling entry function")[1:]:
+        threads = re.search(r"leaver_cf_kernelILi(\d+)E", block)
+        if not threads:
+            raise RuntimeError(f"unknown kernel in {BUILD_LOG}")
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                          block)
+        regs = re.search(r"Used (\d+) registers", block)
+        report[f"block<{threads[1]}>"] = dict(registers=int(regs[1]),
+                                              spill_stores=int(spill[1]),
+                                              spill_loads=int(spill[2]))
+    return report
 
 
 @functools.lru_cache(maxsize=None)
@@ -187,17 +238,26 @@ def _lib():
     ptr = ctypes.c_void_p
     lib.qnm_leaver_cf.argtypes = [ctypes.c_longlong, ptr, ptr, ptr, ptr, ptr,
                                   ptr, ctypes.c_int, ctypes.c_int,
-                                  ctypes.c_int, ptr, ptr, ptr, ctypes.c_int,
-                                  ptr]
+                                  ctypes.c_int, ctypes.c_int, ptr, ptr, ptr,
+                                  ctypes.c_int, ptr]
     lib.qnm_leaver_cf.restype = ctypes.c_int
     return lib
 
 
 def _per_element(x, B, dtype, device):
     """x (a number or a tensor that broadcasts to (B,)) as a contiguous
-    (B,) tensor of dtype on device."""
+    (B,) tensor of dtype on device; a number is filled in on the device
+    (no host-to-device copy, which would wait for the card)."""
+    if isinstance(x, numbers.Number):
+        return torch.full((B,), x, dtype=dtype, device=device)
     return torch.broadcast_to(torch.as_tensor(x, dtype=dtype, device=device),
                               (B,)).contiguous()
+
+
+def _split(z):
+    """A (B,) complex tensor as one contiguous (2, B) float64 tensor: its
+    real parts, then its imaginary parts (one copy)."""
+    return torch.view_as_real(z).T.contiguous()
 
 
 def leaver_cf(omega, a, A, s: int, m: int, n_inv, N: int,
@@ -206,31 +266,48 @@ def leaver_cf(omega, a, A, s: int, m: int, n_inv, N: int,
     for a batch: ``omega``, ``A`` (B,) complex128 (Leaver units), ``a`` a
     float or (B,) float64 spins, ``n_inv`` an int or (B,) integers.  With
     ``with_scale`` also |U| + |T|, the scale its cancellation is judged
-    against.  CUDA tensors launch the kernel; CPU tensors run the plain
-    version."""
-    global launches
+    against.  CUDA tensors launch the kernel, with ``plan``'s team; CPU
+    tensors run the plain version."""
     if not omega.is_cuda:
         U, T = cf_parts(omega, a, A, s, m, n_inv, N)
         return (U - T, U.abs() + T.abs()) if with_scale else U - T
     if omega.dtype != torch.complex128 or omega.dim() != 1:
         raise TypeError("leaver_cf takes a (B,) complex128 omega")
+    if not 1 <= N <= MAX_N:
+        raise ValueError(f"leaver_cf takes depths 1..{MAX_N}, not {N}")
+    team, _ = plan(omega.shape[0], N, _sm_count(_index(omega.device)))
+    f, scale = _launch(omega, a, A, s, m, n_inv, N, team)
+    return (f, scale) if with_scale else f
+
+
+def _index(dev) -> int:
+    return torch.cuda.current_device() if dev.index is None else dev.index
+
+
+def _launch(omega, a, A, s, m, n_inv, N, team):
+    """One launch of the kernel on a (B,) complex128 CUDA ``omega``, with
+    ``team`` threads an element: (U - T, |U| + |T|).  ``leaver_cf`` passes
+    ``plan``'s team; checks and scripts force others.  Raises when the
+    launch fails (the C entry refuses a team that is not a power of two
+    of 1..256)."""
+    global launches, last_plan
     dev = omega.device
     B = omega.shape[0]
-    A = _per_element(A, B, torch.complex128, dev)
-    args = [omega.real.contiguous(), omega.imag.contiguous(),
-            _per_element(a, B, torch.float64, dev), A.real.contiguous(),
-            A.imag.contiguous(), _per_element(n_inv, B, torch.int32, dev)]
+    w_ri = _split(omega)
+    A_ri = _split(_per_element(A, B, torch.complex128, dev))
+    args = [w_ri[0], w_ri[1], _per_element(a, B, torch.float64, dev),
+            A_ri[0], A_ri[1], _per_element(n_inv, B, torch.int32, dev)]
     out = torch.empty((3, B), dtype=torch.float64, device=dev)
     if B:
-        index = torch.cuda.current_device() if dev.index is None \
-            else dev.index
+        index = _index(dev)
         err = _lib().qnm_leaver_cf(
             B, *(t.data_ptr() for t in args), int(s), int(m), int(N),
-            out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(), index,
+            int(team), out[0].data_ptr(), out[1].data_ptr(),
+            out[2].data_ptr(), index,
             torch.cuda.current_stream(dev).cuda_stream)
         if err != 0:
             raise RuntimeError(f"leaver_cf kernel launch failed: CUDA error "
                                f"{err}")
         launches += 1
-    f = torch.complex(out[0], out[1])
-    return (f, out[2]) if with_scale else f
+        last_plan = (int(team), -(-N // int(team)))
+    return torch.complex(out[0], out[1]), out[2]

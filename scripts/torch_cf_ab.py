@@ -1,0 +1,189 @@
+#!/usr/bin/env python3
+"""The Leaver CF kernel of one version of the port on one GPU: its device
+time at phase 12's shapes, and F1's on-demand solve with the convergence
+of its Newton points, tier by tier.  For comparing two versions in turns.
+
+    python3 scripts/torch_cf_ab.py --label NAME [--root DIR] [--out FILE]
+
+Imports ``qnmfits_tpu_torch`` from DIR (another commit's tree, e.g.
+``mkdir -p DIR && git archive REV | tar -x -C DIR``; this checkout by
+default) and drives it with this checkout's ``chip_smoke.py``:
+
+* the CF kernel's device time (torch.profiler's records of its launches,
+  ``chip_smoke.cf_kernel_ms``) through that version's ``leaver_cf`` at each
+  (B, N) of phase 12's S1, on S1's random inputs in S1's order
+  (``cf_inputs``, ``CF_SEED``), then on the inputs of F1's largest launch;
+* F1 (``chip_smoke.on_demand_fit``: the bench's (2,2,n<4) set with the
+  on-demand (5,2,8) through ``mismatch_t0_mode_sets``) in a fresh track
+  cache: the solve's wall, its CF seconds by CUDA events around each
+  wrapper call and replayed per launch shape (``cf_replay_s``), its eig
+  seconds, and for each lockstep Newton call of the fine pass
+  (``solver._newton_coupled_vec_a``: a depth tier, then its retries at 3x,
+  9x and 27x the depth) its depth, points, iterations and how many points
+  ended converged (a step under tol |omega|), softly converged (after the
+  60 iterations, a last step under 1e-9 |omega|) or unconverged, with the
+  spins of the last.  A point still unconverged after its tier's last
+  retry keeps the interpolated coarse track (``solver.track_mode``).  The
+  coarse pass's failed points (``_newton_coupled``), which it substeps,
+  are listed by spin.
+
+Prints the card's name and power limit, then one JSON line.  Run each
+version in its own process, in turns (A, B, B, A), within one call: the
+first solve of a process pays its start-up alike.  Needs CUDA and nvcc.
+"""
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import tempfile
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+class NewtonWatch:
+    """While active, records each lockstep Newton call of the solver (see
+    the module's docstring) through wrappers of ``_newton_coupled_vec_a``,
+    ``_newton_step`` and ``_newton_coupled``; the CF wrapper, which
+    chip_smoke's SolverClock brackets with CUDA events, is left alone."""
+
+    def __init__(self, solver):
+        self.solver = solver
+        self.lockstep, self.coarse_failed_chi = [], []
+        self.coarse_calls = 0
+
+    def __enter__(self):
+        import torch
+        sv = self.solver
+        self._orig = vec, step, coupled = (sv._newton_coupled_vec_a,
+                                           sv._newton_step,
+                                           sv._newton_coupled)
+        state = {}
+
+        def watched_step(omega, f, h, active=None):
+            out = step(omega, f, h, active)
+            if state:
+                state["iterations"] += 1
+                state["done"].append((out.abs() < state["tol"] * torch.clamp(
+                    omega.abs(), min=1.0)).sum())
+            return out
+
+        def watched_vec(omega_L, aL_vec, A_guess, s, l, m, n_inv, nl, N, tol,
+                        maxiter=60):
+            state.update(iterations=0, done=[], tol=tol)
+            try:
+                out = vec(omega_L, aL_vec, A_guess, s, l, m, n_inv, nl, N,
+                          tol, maxiter)
+            finally:
+                iterations, done = state["iterations"], state["done"]
+                state.clear()
+            ok = out[3]
+            hard = int(sum(int(d) for d in done))
+            self.lockstep.append(dict(
+                N=int(N), points=int(ok.numel()), iterations=iterations,
+                converged=hard, soft=int(ok.sum()) - hard,
+                unconverged=int((~ok).sum()),
+                unconverged_chi=[2.0 * float(a) for a in aL_vec[~ok]]))
+            return out
+
+        def watched_coupled(omega_L, aL, A_guess, s, l, m, n_inv, nl, N, tol,
+                            maxiter=60):
+            out = coupled(omega_L, aL, A_guess, s, l, m, n_inv, nl, N, tol,
+                          maxiter)
+            self.coarse_calls += 1
+            if not bool(out[2][0]):
+                self.coarse_failed_chi.append(2.0 * float(aL))
+            return out
+
+        (sv._newton_coupled_vec_a, sv._newton_step,
+         sv._newton_coupled) = watched_vec, watched_step, watched_coupled
+        return self
+
+    def __exit__(self, *exc):
+        (self.solver._newton_coupled_vec_a, self.solver._newton_step,
+         self.solver._newton_coupled) = self._orig
+
+    def tiers(self):
+        """The lockstep calls grouped by tier (a power-of-two depth and its
+        retries), with the points each tier left unconverged."""
+        out = []
+        for call in self.lockstep:
+            if call["N"] & (call["N"] - 1) == 0:
+                out.append(dict(tier=call["N"], calls=[]))
+            out[-1]["calls"].append(call)
+        for tier in out:
+            last = tier["calls"][-1]
+            tier["fell_back"] = last["unconverged"]
+            tier["fell_back_chi"] = last["unconverged_chi"]
+        return out
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--label", required=True)
+    ap.add_argument("--root", help="the tree whose qnmfits_tpu_torch to "
+                                   "import (default: this checkout)")
+    ap.add_argument("--out", help="also append the JSON line to this file")
+    args = ap.parse_args()
+
+    import numpy as np
+    import torch
+    if not torch.cuda.is_available():
+        print("torch_cf_ab: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, ROOT)
+    import chip_smoke
+    root = os.path.abspath(args.root or ROOT)
+    sys.path.insert(0, root)
+    import qnmfits_tpu_torch
+    from qnmfits_tpu_torch.ops import cf_cuda, chol_cuda
+    from qnmfits_tpu_torch.spectrum import solver, tables
+    if not qnmfits_tpu_torch.__file__.startswith(root + os.sep):
+        raise RuntimeError(f"imported {qnmfits_tpu_torch.__file__}, not "
+                           f"the package under {root}")
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    chol_cuda.build()
+    cf_cuda.build()
+    problem = chip_smoke.build_problem(**chip_smoke.FULL)
+
+    def kernel_ms(inputs):
+        w, a, A, s, m, n_inv, N = inputs
+        call = lambda: cf_cuda.leaver_cf(w, a, A, s, m, n_inv, N)  # noqa
+        return dict(batch=int(w.shape[0]), N=int(N),
+                    ms=chip_smoke.cf_kernel_ms(call),
+                    call_ms=chip_smoke._timed_ms(call, "cuda", 10),
+                    plan=list(getattr(cf_cuda, "last_plan", None) or []))
+
+    rng = np.random.default_rng(chip_smoke.CF_SEED)
+    s1 = [kernel_ms(chip_smoke.cf_inputs(rng, B, N, "cuda"))
+          for N in problem["cf_depths"] for B in problem["cf_batches"]]
+
+    tables.TRACK_CACHE = tempfile.mkdtemp(prefix="qnm_track_cache_")
+    with NewtonWatch(solver) as watch:
+        path, largest = chip_smoke.on_demand_fit(problem, "cuda")
+    rec = path["solve"]
+    line = json.dumps(dict(
+        label=args.label, root=root, card=smi, s1_kernel=s1,
+        f1_largest=kernel_ms(largest), wall_s=rec["wall_s"],
+        cf_s_events=rec["cf_s"], cf_kernel_s_replayed=rec["cf_kernel_s"],
+        eig_s=rec["eig_s"], rest_s=rec["rest_s"],
+        cf_launches=rec["cf_launches"], eig_calls=rec["eig_calls"],
+        cf_shapes=rec["cf_shapes"], route_in=path["route_in"],
+        oracle_in=path["oracle_in"], coarse_calls=watch.coarse_calls,
+        coarse_failed_chi=watch.coarse_failed_chi, tiers=watch.tiers()))
+    print(line, flush=True)
+    if args.out:
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+        with open(args.out, "a") as f:
+            f.write(line + "\n")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -483,21 +483,59 @@ def _cf_inputs(B, seed, n_inv_max=8):
     return w, a, A, rng.integers(0, n_inv_max + 1, B)
 
 
-@pytest.mark.parametrize("B,N", [(1, 2000), (17, 2000), (400, 8192),
-                                 (17, 32768)])
+# B = 2 at N = 2000 is the coarse continuation's launch, 792 x 8192 F1's
+# largest; 50 x 777 and 3 x 3001 take depths no team divides.
+@pytest.mark.parametrize("B,N", [(1, 2000), (2, 2000), (17, 2000),
+                                 (400, 8192), (792, 8192), (17, 32768),
+                                 (50, 777), (3, 3001)])
 def test_cf_kernel_matches_plain(cuda, B, N):
     """The Leaver CF kernel against its plain version on the same card,
-    relative to |U| + |T| (U - T cancels near a root)."""
+    relative to |U| + |T| (U - T cancels near a root), with the team the
+    wrapper reports the one its plan picks for (B, N)."""
     from qnmfits_tpu_torch.ops import cf_cuda
     w, a, A, n_inv = (torch.as_tensor(x, device=cuda)
                       for x in _cf_inputs(B, seed=B + N))
     before = cf_cuda.launches
     f, scale = cf_cuda.leaver_cf(w, a, A, -2, 2, n_inv, N, with_scale=True)
     assert cf_cuda.launches == before + 1
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    team, segment = cf_cuda.last_plan
+    assert (team, segment) == cf_cuda.plan(B, N, sms)
+    assert team in cf_cuda.TEAMS and segment == -(-N // team)
     U, T = cf_cuda.cf_parts(w, a, A, -2, 2, n_inv, N)
     torch.cuda.synchronize()
     assert float(((f - (U - T)).abs() / scale).max()) <= 1e-13
     assert float(((scale - (U.abs() + T.abs())).abs() / scale).max()) <= 1e-13
+
+
+def test_cf_kernel_every_team_agrees(cuda):
+    """Every team size, on n_inv from 0 to past the first segments and a
+    depth no team divides: the teams agree with each other to 1e-13 of
+    |U| + |T| and with the plain version to chip_smoke's CF_TOL (near
+    extremal spin the plain version's own rounding reaches 2.5e-13 on
+    these inputs; tests/test_torch_cf_host.py holds the kernel's
+    arithmetic to the 80-bit CF there)."""
+    from qnmfits_tpu_torch.ops import cf_cuda
+    w, a, A, n_inv = (torch.as_tensor(x, device=cuda)
+                      for x in _cf_inputs(24, seed=256, n_inv_max=20))
+    U, T = cf_cuda.cf_parts(w, a, A, -2, 2, n_inv, 3001)
+    out = {}
+    for team in cf_cuda.TEAMS:
+        out[team] = cf_cuda._launch(w, a, A, -2, 2, n_inv, 3001, team)
+        assert cf_cuda.last_plan == (team, -(-3001 // team))
+    torch.cuda.synchronize()
+    f0, scale = out[cf_cuda.TEAMS[0]]
+    assert float(((f0 - (U - T)).abs() / scale).max()) <= 1e-12
+    for team, (f, _) in out.items():
+        assert float(((f - f0).abs() / scale).max()) <= 1e-13, team
+
+
+def test_cf_kernel_does_not_spill(cuda):
+    from qnmfits_tpu_torch.ops import cf_cuda
+    report = cf_cuda.ptxas_report()
+    assert set(report) == set(cf_cuda.KERNELS)
+    for name, r in report.items():
+        assert r["spill_stores"] == 0 and r["spill_loads"] == 0, (name, r)
 
 
 def test_radial_cf_and_solve_omega_launch_the_kernel(cuda):
@@ -532,6 +570,11 @@ def test_cf_kernel_rejects_bad_input(cuda):
     with pytest.raises(TypeError, match="complex128"):
         cf_cuda.leaver_cf(w.to(torch.complex128).reshape(2, 2), 0.1, 4.0, -2,
                           2, 0, 100)
+    w = w.to(torch.complex128)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        cf_cuda._launch(w, 0.1, 4.0, -2, 2, 0, 100, 48)
+    with pytest.raises(ValueError, match="depths"):
+        cf_cuda.leaver_cf(w, 0.1, 4.0, -2, 2, 0, cf_cuda.MAX_N + 1)
 
 
 def test_on_demand_solve_on_card_matches_cpu(cuda, tmp_path, monkeypatch):
