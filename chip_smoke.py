@@ -157,7 +157,27 @@ flushed line each with elapsed seconds:
    near real modes (B = 1, 17, 400, 4096 at N = 2000, 8192, 32768), with
    each launch's team and segment, gated relative to |U| + |T| and timed
    beside its bound; then the kernel timed on F1's largest launch;
-13. a JSON line of the paths, a JSON line describing each kernel, and
+13. the mesh (``qnmfits_tpu_torch.parallel``): two layouts of ranks
+   spawned after phase 2 built the kernels (``testing.run_world``; each
+   layout's ranks bounded by MESH_TIMEOUT in all and every collective by
+   ``parallel.mesh.TIMEOUT``; a rank that fails fails the run).  N1, one
+   rank over NCCL with a file store (no network), every path on a (1, 1)
+   mesh: the main path at the bench's width with and without dedup,
+   ``mismatch_t0_array(engine='sharded')`` on the deepest set, the
+   (Mf, chif) and bordered free-frequency grids at res 50 with
+   engine='sharded', ``fit_events`` on the 8192 events, D1's dynamic
+   sweep on every 16th start time, O1 on 64 windows and O2 on 16; N4,
+   four gloo ranks sharing the card (NCCL refuses two ranks on one
+   GPU): the main path, the grids and the events on a (4, 1) mesh, and
+   ``sharded_t0_sweep_factored_2d`` (analytic and summation Grams) and
+   ``sharded_fit_core`` on a (2, 2) mesh, on the (2,2,n<4) set with both
+   rows and K cut to 2000 (the time axis divides by 2).  Every rank's
+   results are held to the same call with mesh=None in this process
+   (<= 1e-12 in mismatch for t0 >= 0, PRE_TOL before; the optimisers at
+   phase 8's bars), and every rank's solve launches to the count derived
+   from its block; a ``{"mesh": ...}`` line gives each path's walls and
+   launches by rank, its gaps and the backend;
+14. a JSON line of the paths, a JSON line describing each kernel, and
    last the JSON ok line.
 
 Any failure raises and exits non-zero before the last line.
@@ -186,7 +206,7 @@ FULL = dict(t_range=(-50.0, 150.05), n_t0=8192, t0_range=(-5.0, 46.2),
             wave_dyn_t0=513, w3_ell=8, w3_K=20001,
             cf_batches=(1, 17, 400, 4096), cf_depths=(2000, 8192, 32768),
             resolve_rows=6, resolve_stride=1, multiplet_chi_max=0.3,
-            spectrum_chi=None)
+            spectrum_chi=None, mesh_opt=(64, 16))
 SMALL = dict(t_range=(-10.0, 30.05), n_t0=64, t0_range=(-2.0, 10.0),
              T=20.0, sets=(1, 3, 9, 13), res=6, spins=3, events=48,
              event_t=(-5.0, 35.0), event_T=25.0, opt_maxiter=8, grid_res=8,
@@ -194,7 +214,7 @@ SMALL = dict(t_range=(-10.0, 30.05), n_t0=64, t0_range=(-2.0, 10.0),
              w3_K=2001, cf_batches=(1, 17), cf_depths=(300, 700),
              resolve_rows=1, resolve_stride=40, multiplet_chi_max=None,
              spectrum_chi=tuple(sorted({*np.linspace(0.0, 0.75, 51).round(6),
-                                        0.68, 0.692, 0.7})))
+                                        0.68, 0.692, 0.7})), mesh_opt=(8, 4))
 STRATA = (-5.0, -1.0, 0.5, 2.5, 10.0, 25.0, 40.0)     # bench.py:160-179
 
 MAIN_TOL = 1e-11      # kernel path vs plain-solve path, |mismatch| abs
@@ -226,7 +246,7 @@ def build_problem(t_range, n_t0, t0_range, T, sets, res=6, spins=3,
                   wave_t0=64, wave_dyn_t0=17, w3_ell=4, w3_K=2001,
                   cf_batches=(1, 17), cf_depths=(300, 700), resolve_rows=1,
                   resolve_stride=40, multiplet_chi_max=None,
-                  spectrum_chi=None):
+                  spectrum_chi=None, mesh_opt=(8, 4)):
     """The bench problem: a synthetic (2,2,n<8) ringdown with mixing
     into (2,2) and (3,2), sampled at 0.1 M; with the grid resolution and
     the number of remnant spins of phase 6, the remnant tracks and the
@@ -238,7 +258,9 @@ def build_problem(t_range, n_t0, t0_range, T, sets, res=6, spins=3,
     rows and their spin stride, the multiplets' largest spin (None: S4
     not run) and the spins of its tables (None: the tracked tables' 400;
     a few spins up to past CHIF cut S3 and F1's on-demand solves to CPU
-    size)."""
+    size), and phase 13's windows of O1 and O2.  The arguments are kept
+    (``build_kw``): phase 13's ranks rebuild the problem from them."""
+    build_kw = dict(locals())
     from qnmfits_tpu_torch.testing import (bench_mode_sets,
                                            synthetic_multimode)
     times = np.arange(*t_range, 0.1)
@@ -260,7 +282,8 @@ def build_problem(t_range, n_t0, t0_range, T, sets, res=6, spins=3,
                 cf_batches=cf_batches, cf_depths=cf_depths,
                 resolve_rows=resolve_rows, resolve_stride=resolve_stride,
                 multiplet_chi_max=multiplet_chi_max,
-                spectrum_chi=spectrum_chi)
+                spectrum_chi=spectrum_chi, mesh_opt=mesh_opt,
+                build_kw=build_kw)
 
 
 EVENT_MODES = [(2, 2, n, 1) for n in range(4)]
@@ -1447,8 +1470,8 @@ def opt_gradients(problem, device, kind, x, n_check=64):
     from qnmfits_tpu_torch import engine_real, optimize
     from qnmfits_tpu_torch.engine import cached_evaluator
     from qnmfits_tpu_torch.testing import bench_mode_sets
-    t0s, Ts, _ = optimize._windows(problem["times"], problem["t0s"],
-                                   problem["T"], "geq", True)
+    t0s, Ts = optimize._windows(problem["times"], problem["t0s"],
+                                problem["T"], "geq", True)[:2]
     keep = np.flatnonzero(t0s >= 0)[:n_check]
     dev = torch.device(device)
     if kind == "ff":
@@ -3640,6 +3663,342 @@ def run_spectrum(problem, device, gpu=None):
     return [f1], record, wall
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: the mesh
+# ---------------------------------------------------------------------------
+
+MESH_TOL = 1e-12          # sharded vs mesh=None, |mismatch|, t0 >= 0
+MESH_D1_STRIDE = 16       # D1 on every 16th start time
+MESH_TIMEOUT = 600.0      # seconds for one layout's ranks in all
+
+
+def _picks(t0s, n):
+    """n start times spread over t0s (the optimisers' windows)."""
+    return t0s[np.unique(np.linspace(0, len(t0s) - 1, n).round()
+                         .astype(int))]
+
+
+def _block_size(n, n_sweep, mult=1):
+    """Items a rank holds of n padded to a multiple of n_sweep * mult."""
+    return -(-n // (n_sweep * mult)) * mult
+
+
+def mesh_factored_launches(t0s, wi_max, chunk, n_sweep, S, J):
+    """Solve launches of every rank of a sharded factored sweep, derived
+    from the code: the join groups (2 S J^2 complex a start time) of the
+    chunks of its block of the sorted start times, padded to a multiple of
+    n_sweep * chunk after ``batched._safe_chunk``'s budget."""
+    from qnmfits_tpu_torch import batched, engine_real
+    ck = batched._safe_chunk(t0s, wi_max, chunk)
+    blk = _block_size(len(t0s), n_sweep, ck)
+    return len(engine_real.join_groups([ck] * (blk // ck),
+                                       2 * S * J * J * 16))
+
+
+def mesh_item_launches(n_items, chunk, n_sweep, J, n_sets=1):
+    """Solve launches of every rank of a sweep sharded item by item (the
+    dynamic sweep, the event batch): the join groups of the chunks of its
+    block, for each mode set."""
+    from qnmfits_tpu_torch import engine_real
+    blk = _block_size(n_items, n_sweep)
+    sizes = [min(chunk, blk - lo) for _ in range(n_sets)
+             for lo in range(0, blk, chunk)]
+    return len(engine_real.join_groups(sizes, 2 * J * J * 16))
+
+
+def _mesh_problem_2d(problem, device):
+    """The 2D sweep's and the time-sharded fit's tensors: GRID_SET on both
+    rows, K cut to a multiple of 2 (the (2, 2) mesh's time axis)."""
+    import torch
+    from qnmfits_tpu_torch.engine import SpectrumEvaluator
+    from qnmfits_tpu_torch.testing import bench_mode_sets
+    K = len(problem["times"]) // 2 * 2
+    ev = SpectrumEvaluator(bench_mode_sets()[GRID_SET], SPH)
+    f64, c128 = torch.float64, torch.complex128
+
+    def t(x, dtype):
+        return torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
+
+    return (t(problem["times"][:K], f64),
+            t(np.stack([problem["data"][lm][:K] for lm in SPH]), c128),
+            t(ev.omega(CHIF, MF), c128), t(ev.mu(CHIF), c128),
+            t(problem["t0s"], f64), t(np.full(len(problem["t0s"]),
+                                              problem["T"]), f64))
+
+
+def mesh_specs(problem, device):
+    """The paths of phase 13.  Each spec: key, name; ``n4``, the mesh
+    shape it runs on in the four-rank layout (None: the one-rank layout
+    only); ``call(mesh)``, the public entry point (or, for the 2D sweep
+    and the time-sharded fit, the mesh function) with that mesh, or with
+    mesh=None, the reference, returning a dict of NumPy arrays; ``gates``,
+    (field, bound for t0 >= 0, bound for t0 < 0, the t0 < 0 mask or
+    None); ``expect(n_sweep)``, the launches each rank must make on the
+    card."""
+    import torch
+    import qnmfits_tpu_torch as tq
+    from qnmfits_tpu_torch import batched, engine, engine_real
+    from qnmfits_tpu_torch.testing import bench_mode_sets
+    times, data, t0s, T = (problem[k] for k in ("times", "data", "t0s", "T"))
+    sets, K = problem["mode_sets"], len(times)
+    deep, row = bench_mode_sets()[DEEPEST], data[(2, 2)]
+    pre = t0s < 0
+    specs = []
+
+    def add(key, name, n4, call, gates, expect):
+        specs.append(dict(key=key, name=name, n4=n4, call=call, gates=gates,
+                          expect=expect))
+
+    # The main path, with and without dedup.
+    omegas, _ = batched._modesets_spectrum_fn(
+        tuple(tuple(batched._canon(ms)) for ms in sets), tuple(SPH))[0](
+            CHIF, MF)
+    wi_max, S, J = float(np.max(np.abs(omegas.imag))), *omegas.shape
+    distinct = _distinct(problem, t0s)
+    for dedup in (True, False):
+        add("m" if dedup else "m0",
+            f"main path mismatch_t0_mode_sets(mesh=), dedup={dedup}",
+            (4, 1) if dedup else None,
+            lambda mesh, dedup=dedup: dict(mm=tq.mismatch_t0_mode_sets(
+                times, data, sets, MF, CHIF, t0s, T_array=T,
+                spherical_modes=SPH, dedup=dedup, mesh=mesh, device=device)),
+            [("mm", MESH_TOL, PRE_TOL, pre)],
+            lambda n, ts=distinct if dedup else t0s: mesh_factored_launches(
+                ts, wi_max, 256, n, S, J))
+    deep_wi = float(np.max(np.abs(engine.cached_evaluator(
+        batched._canon(deep)).omega(CHIF, MF).imag)))
+    add("a", "mismatch_t0_array(engine='sharded'), deepest set, (2,2) row",
+        None,
+        lambda mesh: dict(mm=tq.mismatch_t0_array(
+            times, row, deep, MF, CHIF, t0s, T_array=T,
+            engine="sharded" if mesh is not None else "fast", mesh=mesh,
+            device=device)),
+        [("mm", MESH_TOL, PRE_TOL, pre)],
+        lambda n: mesh_factored_launches(distinct, deep_wi, 64, n, 1,
+                                         len(deep)))
+
+    res = problem["res"]
+    gset = bench_mode_sets()[GRID_SET]
+    add("g1", f"mismatch_M_chi_grid(engine='sharded'), res {res}", (4, 1),
+        lambda mesh: dict(mm=tq.mismatch_M_chi_grid(
+            times, data, gset, *M_CHI_BOX, GRID_T0, T=T, res=res,
+            spherical_modes=SPH,
+            engine="fast" if mesh is None else "sharded",
+            mesh=mesh, device=device)),
+        [("mm", MESH_TOL, None, None)],
+        lambda n: stacked_launches(_block_size(res * res, n), len(gset),
+                                   window_samples(problem, GRID_T0)))
+    add("g3", f"mismatch_omega_grid(engine='sharded'), res {res}", (4, 1),
+        lambda mesh: dict(mm=tq.mismatch_omega_grid(
+            times, row, gset[1:], MF, CHIF, *OMEGA_BOX, GRID_T0, T=T,
+            res=res, engine="fast" if mesh is None else "sharded", mesh=mesh,
+            device=device)),
+        [("mm", MESH_TOL, None, None)], lambda n: 0)
+
+    cat = problem["catalog"]
+    ev = (cat["times"], cat["rows"], EVENT_MODES, cat["Mfs"], cat["chifs"],
+          cat["t0s"])
+    E, J_e = len(cat["t0s"]), len(EVENT_MODES)
+    add("e", f"fit_events(mesh=), {E} events", (4, 1),
+        lambda mesh: dict(mm=tq.fit_events(*ev, T=cat["T"], mesh=mesh,
+                                           device=device)[0]),
+        [("mm", MESH_TOL, None, None)],
+        lambda n: mesh_item_launches(
+            E, max(1, batched._BASIS_BYTES // (J_e * len(cat["times"]) * 16)),
+            n, J_e))
+
+    t0_d = t0s[::MESH_D1_STRIDE]
+    add("d1", f"D1 mismatch_t0_mode_sets(dynamic=True, mesh=), every "
+        f"{MESH_D1_STRIDE}th start time", None,
+        lambda mesh: dict(mm=tq.mismatch_t0_mode_sets(
+            times, data, sets, problem["Mf_t"], problem["chif_t"], t0_d,
+            T_array=T, spherical_modes=SPH, dynamic=True, mesh=mesh,
+            device=device)),
+        [("mm", MESH_TOL, PRE_TOL, t0_d < 0)],
+        lambda n: mesh_item_launches(
+            len(t0_d), max(1, batched._BASIS_BYTES // (len(SPH) * K * J * 16)),
+            n, J, S))
+
+    n_o1, n_o2 = problem["mesh_opt"]
+    t0_o1, t0_o2 = _picks(t0s, n_o1), _picks(t0s, n_o2)
+    ff_kw = dict(modes=OPT_FIXED, Mf=MF, chif=CHIF, T_array=T,
+                 maxiter=problem["opt_maxiter"], return_mismatch=True,
+                 device=device)
+    opt_gates = [("mm", OPT_MM_TOL, OPT_MM_TOL, None),
+                 ("x", OPT_PARAM_TOL, OPT_PARAM_TOL, None)]
+
+    def o1(mesh):
+        w, mm, ok = tq.free_frequency_fit_array(times, row, t0_o1, mesh=mesh,
+                                                **ff_kw)
+        return dict(mm=mm, x=w, ok=ok)
+
+    def o2(mesh):
+        _, Mf, chif, mm, ok = tq.calculate_epsilon_array(
+            times, data, deep, MF, CHIF, t0_o2, spherical_modes=SPH,
+            T_array=T, maxiter=problem["opt_maxiter"], return_mismatch=True,
+            mesh=mesh, device=device)
+        return dict(mm=mm, x=np.stack([Mf, chif], 1), ok=ok)
+
+    def opt_expect(kind, ts, J_o):
+        def expect(n):
+            # The same on every rank: each holds a block of one size.
+            blk = _block_size(len(ts), n)
+            sub = dict(problem, t0s=ts[:blk])
+            return opt_launches(sub, kind, K, J_o)[0]
+        return expect
+
+    add("o1", f"O1 free_frequency_fit_array(mesh=), {len(t0_o1)} windows",
+        None, o1, opt_gates, opt_expect("ff", t0_o1, len(OPT_FIXED) + 1))
+    add("o2", f"O2 calculate_epsilon_array(mesh=), {len(t0_o2)} windows",
+        None, o2, opt_gates, opt_expect("eps", t0_o2, len(deep)))
+
+    # Both axes live, on the (2, 2) mesh of the four-rank layout.
+    def two_d(analytic):
+        def call(mesh):
+            from qnmfits_tpu_torch.parallel.mesh import (
+                sharded_t0_sweep_factored_2d)
+            args = _mesh_problem_2d(problem, device)
+            if mesh is None:
+                return dict(mm=engine_real.sweep_t0_factored_real(
+                    *args, analytic=analytic)[1].cpu().numpy())
+            return dict(mm=sharded_t0_sweep_factored_2d(
+                *args, mesh, analytic=analytic)[1].cpu().numpy())
+        return call
+
+    wi_g = float(np.max(np.abs(engine.cached_evaluator(
+        batched._canon(gset), tuple(SPH)).omega(CHIF, MF).imag)))
+    for analytic in (True, False):
+        add(f"f2{'a' if analytic else 's'}",
+            f"sharded_t0_sweep_factored_2d, {'analytic' if analytic else 'summation'}"
+            f" Grams, K cut to {K // 2 * 2}", (2, 2), two_d(analytic),
+            [("mm", MESH_TOL, PRE_TOL, pre)],
+            lambda n: mesh_factored_launches(t0s, wi_g, 64, n, 1,
+                                             len(gset)))
+
+    def fit_core(mesh):
+        from qnmfits_tpu_torch.parallel.mesh import sharded_fit_core
+        tt, dd, om, mu = _mesh_problem_2d(problem, device)[:4]
+        w = ((tt >= GRID_T0) & (tt < GRID_T0 + T)).to(tt.dtype)
+        if mesh is None:
+            mm = engine.fit_core(tt, dd, om, mu,
+                                 torch.tensor(GRID_T0, dtype=tt.dtype,
+                                              device=tt.device), w)[1]
+        else:
+            mm = sharded_fit_core(tt, dd, om, mu, GRID_T0, w, mesh)[1]
+        return dict(mm=mm.reshape(1).cpu().numpy())
+
+    add("fc", f"sharded_fit_core at t0 = {GRID_T0:g}", (2, 2), fit_core,
+        [("mm", MESH_TOL, None, None)], lambda n: 1)
+    return specs
+
+
+def mesh_rank(layout, device, build_kw):
+    """One rank of a phase 13 layout: the problem rebuilt from its
+    arguments, the layout's meshes, a warm-up call, and every path of the
+    layout with the launch counts set to 0 just before it and read just
+    after.  Returns
+    dict(rank, backend, out={key: dict(res, launches, wall)}, jax: the
+    JAX modules the rank loaded, which must be none)."""
+    import torch
+    import torch.distributed as dist
+    from qnmfits_tpu_torch.ops import chol_cuda
+    from qnmfits_tpu_torch.parallel.mesh import sweep_mesh
+    problem = build_problem(**build_kw)
+    specs = [s for s in mesh_specs(problem, device)
+             if layout == "N1" or s["n4"] is not None]
+    meshes = {}
+    for shape in ([(1, 1)] if layout == "N1"
+                  else sorted({s["n4"] for s in specs})):
+        meshes[shape] = sweep_mesh(*shape, device_type=device)
+    # A fresh process's first call reads the tables, makes the CUDA
+    # context and the NCCL communicator and loads the kernel library: one
+    # untimed call of the first path keeps that out of the walls.
+    specs[0]["call"](meshes[(1, 1) if layout == "N1" else specs[0]["n4"]])
+    out = {}
+    for s in specs:
+        mesh = meshes[(1, 1) if layout == "N1" else s["n4"]]
+        res, n, _, wall = drive(lambda: s["call"](mesh))
+        out[s["key"]] = dict(res=res, launches=n, wall=wall)
+    jax = sorted(m for m in sys.modules
+                 if m.split(".")[0] in ("jax", "jaxlib", "qnmfits_tpu"))
+    return dict(rank=dist.get_rank(), backend=dist.get_backend(), out=out,
+                jax=jax)
+
+
+def run_mesh(problem, device, gpu=None):
+    """Phase 13: the sharded entry points on two layouts of ranks spawned
+    on this machine (``testing.run_world``, each rank one CPU thread,
+    every collective bounded by ``parallel.mesh.TIMEOUT``): N1, one rank
+    over NCCL on the card (gloo on the CPU), every path on a (1, 1) mesh;
+    N4, four gloo ranks sharing the device (NCCL refuses two ranks on one
+    GPU), the main path, the event batch and the grids on a (4, 1) mesh
+    and the 2D sweep and the time-sharded fit on (2, 2).  Each rank's
+    results are held to the same call with mesh=None in this process, and
+    each rank's solve launches to the count derived from its block.
+    Returns the phase's JSON record."""
+    from qnmfits_tpu_torch.testing import run_world
+    t = time.perf_counter()
+    specs = mesh_specs(problem, device)
+    refs = {}
+    for s in specs:
+        refs[s["key"]] = drive(lambda: s["call"](None))
+    layouts = {}
+    for layout, world in (("N1", 1), ("N4", 4)):
+        backend = "nccl" if device == "cuda" and world == 1 else "gloo"
+        t_l = time.perf_counter()
+        ranks = run_world(mesh_rank, world, (layout, device,
+                                             problem["build_kw"]),
+                          backend=backend, timeout=MESH_TIMEOUT)
+        wall = time.perf_counter() - t_l
+        if any(rk["jax"] for rk in ranks):
+            raise RuntimeError(f"{layout}: ranks imported JAX modules: "
+                               f"{[rk['jax'] for rk in ranks]}")
+        paths = {}
+        for s in specs:
+            if layout == "N4" and s["n4"] is None:
+                continue
+            n_sweep = 1 if layout == "N1" else s["n4"][0]
+            expect = s["expect"](n_sweep) if device != "cpu" else 0
+            ref, _, _, ref_wall = refs[s["key"]]
+            got = [rk["out"][s["key"]] for rk in ranks]
+            gaps = {}
+            for field, tol_in, tol_pre, mask in s["gates"]:
+                d = np.stack([np.abs(np.asarray(g["res"][field])
+                                     - np.asarray(ref[field])) for g in got])
+                m = (np.zeros(d.shape[-1], bool) if mask is None else mask)
+                gaps[field] = float(np.max(d[..., ~m], initial=0.0))
+                gaps[f"{field}_pre"] = float(np.max(d[..., m], initial=0.0))
+                if not (np.all(np.isfinite(d)) and gaps[field] <= tol_in
+                        and (not m.any() or gaps[f"{field}_pre"] <= tol_pre)):
+                    raise RuntimeError(
+                        f"{layout} {s['name']}: {field} {gaps[field]:.3e} "
+                        f"(t0 >= 0; bound {tol_in:.0e}) and "
+                        f"{gaps[f'{field}_pre']:.3e} (t0 < 0; bound "
+                        f"{tol_pre}) from mesh=None")
+            launches = [g["launches"] for g in got]
+            if launches != [expect] * world:
+                raise RuntimeError(f"{layout} {s['name']}: launches by rank "
+                                   f"{launches}, derived {expect} each")
+            paths[s["key"]] = dict(
+                name=s["name"], mesh=[n_sweep, world // n_sweep],
+                wall_s=[g["wall"] for g in got], ref_wall_s=ref_wall,
+                launches=launches, expected_launches=expect, gaps=gaps)
+            log(f"phase 13 {layout} {s['name']} on a "
+                f"{tuple(paths[s['key']]['mesh'])} mesh: launches by rank "
+                f"{launches} (derived {expect}), gaps from mesh=None "
+                + ", ".join(f"{k} {v:.3e}" for k, v in gaps.items())
+                + f"; {max(g['wall'] for g in got):.2f} s (mesh=None "
+                f"{ref_wall:.2f} s)")
+        layouts[layout] = dict(world=world, backend=ranks[0]["backend"],
+                               wall_s=wall, paths=paths)
+        log(f"phase 13 {layout}: {world} rank(s) over "
+            f"{ranks[0]['backend']}, {len(paths)} paths in {wall:.1f} s "
+            "(spawn included)")
+    wall = time.perf_counter() - t
+    log(f"phase 13: the mesh in {wall:.1f} s on {gpu or device}")
+    return dict(layouts=layouts, wall_s=wall, device=gpu or device)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3718,6 +4077,12 @@ def main():
                                  if (p["wide_launches"] > 0) == (rec is wide)}
     record["waveforms"] = wave_info
     spectrum, cf_record, phase12_wall = run_spectrum(problem, device, gpu)
+    mesh = run_mesh(problem, device, gpu)
+    record["mesh_paths"] = {
+        f"{layout}/{key}": dict(launches=p["launches"],
+                                expected_launches=p["expected_launches"])
+        for layout, rec in mesh["layouts"].items()
+        for key, p in rec["paths"].items()}
     # Profiler health over the whole run, phases 7 to 12 included.
     wide.update(event_timings=len(EVENT_TIMINGS),
                 profiles_dropping=len(DROPPED),
@@ -3730,6 +4095,7 @@ def main():
                       "phase10_wall_s": phase10_wall,
                       "phase11_wall_s": phase11_wall,
                       "phase12_wall_s": phase12_wall}), flush=True)
+    print(json.dumps({"mesh": mesh}), flush=True)
     print(json.dumps({"kernels": [record, wide, cf_record]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -22,10 +22,16 @@ the sky predictions and spatial mismatches), with what it needs:
 waveform containers ``Custom``, ``SXS``, ``NRSur7dq4`` and ``NRHybSur3dq8``
 (``waveforms``, loaded lazily, as is the module-level ``qnm``), the six
 plotting functions, ``download_cook_data`` and ``utils`` (``timed``,
-``debug_nans``, ``sweep_progress``, ``resumable_sweep``).  Every batched
-Hermitian solve runs in the hand-written FP64 CUDA kernels
-(``ops/chol_cuda.py``, ``csrc/chol_solve.cu``), forward and, for the
-optimisers, backward.
+``debug_nans``, ``sweep_progress``, ``resumable_sweep``); and the
+multi-device sweeps, ``parallel`` (loaded lazily): every ``mesh=`` and
+engine='sharded' shards a sweep over a ('sweep', 'time')
+``torch.distributed`` DeviceMesh of ranks, each rank calling with the
+same arguments and getting the whole result; ``mesh='auto'`` needs an
+initialised process group (``parallel.mesh.sweep_mesh``).  That is the
+whole surface of qnmfits_tpu; its f32 precision, a TPU workaround, is
+not ported.  Every batched Hermitian solve runs in the hand-written FP64
+CUDA kernels (``ops/chol_cuda.py``, ``csrc/chol_solve.cu``), forward and,
+for the optimisers, backward, on every rank of a mesh.
 
 Device and dtype policy:
 
@@ -116,6 +122,9 @@ def __getattr__(name):
     if name in _WAVEFORMS:
         from . import waveforms
         return getattr(waveforms, name)
+    if name == "parallel":
+        import importlib
+        return importlib.import_module(".parallel", __name__)
     raise AttributeError(
         f"module 'qnmfits_tpu_torch' has no attribute {name!r}")
 
@@ -134,5 +143,5 @@ __all__ = [
     "plot_ringdown", "plot_ringdown_modes", "plot_mode_amplitudes",
     "plot_mismatch_M_chi_grid", "plot_mismatch_omega_grid",
     "plot_amplitude_stability", "download_cook_data", "utils", "qnm",
-    *_WAVEFORMS,
+    "parallel", *_WAVEFORMS,
 ]

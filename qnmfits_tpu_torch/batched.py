@@ -40,7 +40,7 @@ __all__ = [
     "batch_mismatch_t0_modesets_dynamic", "batch_mismatch_M_chi",
     "batch_mismatch_M_chi_fast", "batch_mismatch_omega",
     "batch_mismatch_omega_bordered", "batch_mismatch_omega_fast",
-    "sweep_events_real", "sweep_t0_core",
+    "batch_mismatch_t0_sharded", "sweep_events_real", "sweep_t0_core",
     "sweep_t0_modesets", "sweep_t0_modesets_dynamic_real",
 ]
 
@@ -65,9 +65,11 @@ def _cplx(a, dev):
     return torch.tensor(np.asarray(a, complex), dtype=CDTYPE, device=dev)
 
 
-def _not_ported(what, item):
-    raise NotImplementedError(
-        f"{what} is not ported to qnmfits_tpu_torch yet (ROADMAP {item})")
+def _mesh_for(mesh, dev):
+    """``parallel.mesh.resolve_mesh``, imported on first use: the mesh
+    subpackage loads torch.distributed."""
+    from .parallel.mesh import resolve_mesh
+    return resolve_mesh(mesh, dev)
 
 
 def _check_t0_method(t0_method):
@@ -442,7 +444,7 @@ def batch_mismatch_t0_modesets(times, data, mode_sets, Mf, chif, t0_array,
                                T_array=100, spherical_modes=None,
                                return_amplitudes=False, chunk=256,
                                t0_method="geq", bucket=False, dedup=True,
-                               device="cuda", solve=None):
+                               mesh=None, device="cuda", solve=None):
     """The t0 x mode-set sweep (batched.py:910): every (mode set, start
     time) pair, with the mode sets as a batch dimension.
 
@@ -456,7 +458,10 @@ def batch_mismatch_t0_modesets(times, data, mode_sets, Mf, chif, t0_array,
     (powers of two >= 4, capped at J) and runs one factored sweep per
     width, each with its own chunk budget.  dedup=True solves each
     distinct window once and scatters the results (exact for static
-    spectra).  ``device`` is where the sweep runs ("cuda" by default;
+    spectra).  ``mesh`` (a ``parallel.mesh.sweep_mesh``, or 'auto')
+    shards the distinct start times over its 'sweep' ranks ('geq' only;
+    every rank calls with the same arguments and gets the whole result).
+    ``device`` is where the sweep runs ("cuda" by default;
     "cpu" runs the plain PyTorch solve); ``solve`` overrides the batched
     Hermitian solve (engine_real._regularised_solve by default).
 
@@ -471,6 +476,11 @@ def batch_mismatch_t0_modesets(times, data, mode_sets, Mf, chif, t0_array,
     if np.ndim(Mf) > 1 or np.ndim(chif) > 1:
         raise ValueError("Mf/chif must be scalars or 1-D remnant arrays")
     dev = resolve_device(device)
+    if mesh is not None:
+        if t0_method != "geq":
+            raise ValueError("mesh sharding of the mode-set sweep needs "
+                             "t0_method='geq'")
+        mesh = _mesh_for(mesh, dev)
     times, rows, sph = _prep(times, data, spherical_modes)
     t0s, Ts = _t0_grid(t0_array, T_array, ascending=t0_method == "geq")
     scalar_remnant = np.ndim(Mf) == 0 and np.ndim(chif) == 0
@@ -510,10 +520,14 @@ def batch_mismatch_t0_modesets(times, data, mode_sets, Mf, chif, t0_array,
 
         def run_group(o, m, mk):
             ck = _safe_chunk(t0s, float(np.max(np.abs(o.imag))), chunk)
+            a = (*args, _cplx(o, dev), _cplx(m, dev), t0_t, T_t,
+                 torch.as_tensor(mk, device=dev))
+            if mesh is not None:
+                from .parallel.mesh import sharded_t0_sweep_modesets_factored
+                return sharded_t0_sweep_modesets_factored(
+                    *a, mesh, chunk=ck, analytic=analytic, solve=solve)
             return sweep_t0_modesets_factored_real(
-                *args, _cplx(o, dev), _cplx(m, dev), t0_t, T_t,
-                torch.as_tensor(mk, device=dev), chunk=ck,
-                analytic=analytic, solve=solve)
+                *a, chunk=ck, analytic=analytic, solve=solve)
 
         if bucket:
             J = omegas.shape[1]
@@ -544,6 +558,38 @@ def batch_mismatch_t0_modesets(times, data, mode_sets, Mf, chif, t0_array,
         return mm
     C = C.reshape(R, S, B, -1)
     return mm, [C[:, si, :, :len(ms)] for si, ms in enumerate(sets)]
+
+
+@solves_on_device
+def batch_mismatch_t0_sharded(times, data, modes, Mf, chif, t0_array,
+                              T_array=100, spherical_modes=None, delta=0.0,
+                              return_amplitudes=False, chunk=64, mesh=None,
+                              dedup=True, device="cuda", solve=None):
+    """The start-time sweep of one mode set on the factored kernel with
+    the start times sharded over a mesh's 'sweep' ranks (batched.py:1089;
+    'geq' windows, t0_array sorted ascending).  mesh is a
+    ``parallel.mesh.sweep_mesh`` or 'auto' (the default, None, means
+    'auto': every rank of the initialised process group).  dedup=True
+    shards only the distinct windows.  Every rank calls it with the same
+    arguments and gets the whole result: mm (B,), with
+    return_amplitudes=True also C (B, J)."""
+    from .parallel.mesh import sharded_t0_sweep_factored
+    dev = resolve_device(device)
+    mesh = _mesh_for("auto" if mesh is None else mesh, dev)
+    times, rows, sph = _prep(times, data, spherical_modes)
+    t0s, Ts = _t0_grid(t0_array, T_array, ascending=True)
+    omega, mu = _spectrum(modes, sph, Mf, chif, delta)
+    dd = _window_dedup(times, t0s, Ts) if dedup else None
+    t0s_full = t0s
+    if dd is not None:
+        t0s, Ts = t0s[dd[0]], Ts[dd[0]]
+    ck = _safe_chunk(t0s, float(np.max(np.abs(omega.imag))), chunk)
+    C, mm = sharded_t0_sweep_factored(
+        _real(times, dev), _cplx(rows, dev), _cplx(omega, dev),
+        _cplx(mu, dev), _real(t0s, dev), _real(Ts, dev), mesh, chunk=ck,
+        analytic=_uniform_spacing(times), solve=solve)
+    mm, C = _scatter(dd, t0s_full, mm, C, omega, return_amplitudes)
+    return (mm, C) if return_amplitudes else mm
 
 
 # ---------------------------------------------------------------------------
@@ -636,13 +682,16 @@ def _tracks(K, Mf, chif):
 
 def _dynamic_sweep(times, data, mode_sets, Mf, chif, t0_array, t0_method,
                    T_array, spherical_modes, return_amplitudes, device,
-                   solve):
+                   solve, mesh=None):
     """Every (mode set, window) fit with the spectrum of the (Mf(t),
-    chif(t)) tracks.  Returns mm (S, B), C (S, B, J) or None, and the
-    canonical sets."""
+    chif(t)) tracks, the start times sharded over ``mesh``'s 'sweep'
+    ranks where one is given.  Returns mm (S, B), C (S, B, J) or None, and
+    the canonical sets."""
     _check_t0_method(t0_method)
     check_spin(chif)          # a scalar, before it is expanded to a track
     dev = resolve_device(device)
+    if mesh is not None:
+        mesh = _mesh_for(mesh, dev)
     times, rows, sph = _prep(times, data, spherical_modes)
     K = len(times)
     Mf_t, chif_t = _tracks(K, Mf, chif)
@@ -652,11 +701,16 @@ def _dynamic_sweep(times, data, mode_sets, Mf, chif, t0_array, t0_method,
         tuple(tuple(ms) for ms in sets), sph)
     omegas_t, mus_t = eval_tracks(chif_t, Mf_t)
     chunk = max(1, _BASIS_BYTES // (mus_t[0].size * 16))
-    C, mm = sweep_t0_modesets_dynamic_real(
-        _real(times, dev), _cplx(rows, dev), _cplx(omegas_t, dev),
-        _cplx(mus_t, dev), _real(t0s, dev), _real(Ts, dev),
-        torch.as_tensor(masks, device=dev), t0_method, chunk=chunk,
-        solve=solve)
+    args = (_real(times, dev), _cplx(rows, dev), _cplx(omegas_t, dev),
+            _cplx(mus_t, dev), _real(t0s, dev), _real(Ts, dev),
+            torch.as_tensor(masks, device=dev))
+    if mesh is not None:
+        from .parallel.mesh import sharded_t0_sweep_modesets_dynamic
+        C, mm = sharded_t0_sweep_modesets_dynamic(
+            *args, mesh, t0_method, chunk=chunk, solve=solve)
+    else:
+        C, mm = sweep_t0_modesets_dynamic_real(*args, t0_method, chunk=chunk,
+                                               solve=solve)
     return (mm.cpu().numpy(), C.cpu().numpy() if return_amplitudes
             else None, sets)
 
@@ -665,18 +719,20 @@ def _dynamic_sweep(times, data, mode_sets, Mf, chif, t0_array, t0_method,
 def batch_mismatch_t0_dynamic(times, data, modes, Mf, chif, t0_array,
                               t0_method="geq", T_array=100,
                               spherical_modes=None, return_amplitudes=False,
-                              engine="batched", device="cuda", solve=None):
+                              engine="batched", mesh=None, device="cuda",
+                              solve=None):
     """Start-time sweep with a time-dependent spectrum (batched.py:316):
     Mf/chif scalars or (K,) tracks, any window method, start times in any
     order, never deduplicated (t0 enters the design per row).  engine
     'batched' and 'fast' are one sweep here
-    (``sweep_t0_modesets_dynamic_real`` with one set).
+    (``sweep_t0_modesets_dynamic_real`` with one set).  ``mesh`` (or
+    'auto') shards the start times over its 'sweep' ranks.
     Returns mm (B,), with return_amplitudes=True also C (B, J)."""
     if engine not in ("batched", "fast"):
         raise ValueError(f"unknown engine {engine!r}")
     mm, C, _ = _dynamic_sweep(times, data, [modes], Mf, chif, t0_array,
                               t0_method, T_array, spherical_modes,
-                              return_amplitudes, device, solve)
+                              return_amplitudes, device, solve, mesh)
     return (mm[0], C[0]) if return_amplitudes else mm[0]
 
 
@@ -689,13 +745,14 @@ def batch_mismatch_t0_modesets_dynamic(times, data, mode_sets, Mf, chif,
     """The t0 x mode-set sweep with a time-dependent spectrum
     (batched.py:1186): every (mode set, start time) pair a dynamic fit.
     Mf/chif are scalars or (K,) time tracks (not a remnant axis); ragged
-    sets are padded with exact-zero amplitude slots.  Returns mm (S, B);
-    with return_amplitudes=True also a list of S (B, len(set)) arrays."""
-    if mesh is not None:
-        _not_ported("mesh= (the sharded dynamic mode-set sweep)", "A.10")
+    sets are padded with exact-zero amplitude slots.  ``mesh`` (or 'auto')
+    shards the start times over its 'sweep' ranks, any window method (the
+    tracks do not depend on t0: every rank holds them).  Returns mm
+    (S, B); with return_amplitudes=True also a list of S (B, len(set))
+    arrays."""
     mm, C, sets = _dynamic_sweep(times, data, mode_sets, Mf, chif, t0_array,
                                  t0_method, T_array, spherical_modes,
-                                 return_amplitudes, device, solve)
+                                 return_amplitudes, device, solve, mesh)
     if not return_amplitudes:
         return mm
     return mm, [C[si, :, :len(ms)] for si, ms in enumerate(sets)]
@@ -717,14 +774,14 @@ def batch_fit_events(times, data, modes, Mf, chif, t0, T=100,
     Gram branch like the JAX package's 'fast' one measured slower on the
     H100 (PERF.md, section 6).
     ``chunk`` events are built at a time (by default as many as
-    _BASIS_BYTES of basis hold).  precision='x64' is the only precision
+    _BASIS_BYTES of basis hold).  ``mesh`` (or 'auto') shards the events
+    over its 'sweep' ranks ('geq' windows only, as in the JAX package).
+    precision='x64' is the only precision
     (``fitting._check_precision``).  Returns mm (E,) and C (E, J) complex.
     """
     from .fitting import _check_precision
     _check_t0_method(t0_method)
     _check_precision(precision)
-    if mesh is not None:
-        _not_ported("mesh= (the sharded event batch)", "A.10")
     if engine not in ("batched", "fast"):
         raise ValueError(f"unknown engine {engine!r}")
     times = np.asarray(times, float)
@@ -740,17 +797,24 @@ def batch_fit_events(times, data, modes, Mf, chif, t0, T=100,
     chifs = per_event(chif)
     for c in chifs:
         check_spin(float(c))
-    if engine == "fast" and t0_method != "geq":
-        raise ValueError("engine='fast' event batches support "
+    if (engine == "fast" or mesh is not None) and t0_method != "geq":
+        raise ValueError("engine='fast'/mesh event batches support "
                          "t0_method='geq' only")
     dev = resolve_device(device)
+    if mesh is not None:
+        mesh = _mesh_for(mesh, dev)
     omegas = cached_evaluator(_canon(modes)).omega(chifs, per_event(Mf)).T
     if chunk is None:
         chunk = max(1, _BASIS_BYTES // (omegas.size // E * len(times) * 16))
-    C, mm = sweep_events_real(
-        _real(times, dev), _cplx(rows, dev), _cplx(omegas, dev),
-        _real(per_event(t0), dev), _real(per_event(T), dev), chunk=chunk,
-        t0_method=t0_method, solve=solve)
+    args = (_real(times, dev), _cplx(rows, dev), _cplx(omegas, dev),
+            _real(per_event(t0), dev), _real(per_event(T), dev))
+    if mesh is not None:
+        from .parallel.mesh import sharded_event_batch
+        C, mm = sharded_event_batch(*args, mesh, chunk=chunk,
+                                    t0_method=t0_method, solve=solve)
+    else:
+        C, mm = sweep_events_real(*args, chunk=chunk, t0_method=t0_method,
+                                  solve=solve)
     return mm.cpu().numpy(), C.cpu().numpy()
 
 
@@ -759,9 +823,9 @@ def batch_fit_events(times, data, modes, Mf, chif, t0, T=100,
 # ---------------------------------------------------------------------------
 
 def _grid_sweep(times, rows, omegas, mus, t0, T, t0_method, dev, solve):
-    """mm (Q,) of the fits of Q spectra, omegas (Q, J) and mus (Q, I, J),
-    on one window: chunks of _CHUNK grid points (the JAX lax.map),
-    solved in as few calls as the join budget allows."""
+    """C (Q, J) and mm (Q,) of the fits of Q spectra, omegas (Q, J) and
+    mus (Q, I, J), on one window: chunks of _CHUNK grid points (the JAX
+    lax.map), solved in as few calls as the join budget allows."""
     times_t, rows_t = _real(times, dev), _cplx(rows, dev)
     om, mu = _cplx(omegas, dev), _cplx(mus, dev)
     t0_t = torch.tensor(float(t0), dtype=RDTYPE, device=dev)
@@ -771,14 +835,15 @@ def _grid_sweep(times, rows, omegas, mus, t0, T, t0_method, dev, solve):
     def systems(lo, hi):
         return fit_systems(times_t, rows_t, om[lo:hi], mu[lo:hi], t0_t, w)
 
-    _, mm = solve_fits(chunk_bounds(omegas.shape[0], _CHUNK), 2 * J * J * 16,
+    C, mm = solve_fits(chunk_bounds(omegas.shape[0], _CHUNK), 2 * J * J * 16,
                        systems, solve)
-    return mm.cpu().numpy()
+    return C.cpu().numpy(), mm.cpu().numpy()
 
 
 def _run_spectra_sweep(times, rows, omegas, mus, t0, T, t0_method, dev,
                        solve=None, chunk=None):
-    """mm (Q,) of the fits of Q spectra on one window (batched.py:666).
+    """C (Q, J) and mm (Q,) of the fits of Q spectra on one window
+    (batched.py:666).
 
     On a uniform time grid with a contiguous window the data is sliced to
     the window on the host and the stacked engine
@@ -800,10 +865,10 @@ def _run_spectra_sweep(times, rows, omegas, mus, t0, T, t0_method, dev,
     sl = slice(int(idx[0]), int(idx[-1]) + 1)
     if chunk is None:
         chunk = max(1, _BASIS_BYTES // (idx.size * omegas.shape[1] * 16))
-    _, mm = sweep_spectra_stacked_real(
+    C, mm = sweep_spectra_stacked_real(
         _real(times[sl], dev), _cplx(rows[:, sl], dev), _cplx(omegas, dev),
         _cplx(mus, dev), float(t0), chunk=chunk, solve=solve)
-    return mm.cpu().numpy()
+    return C.cpu().numpy(), mm.cpu().numpy()
 
 
 def _M_chi_spectra(modes, sph, Mf_minmax, chif_minmax, res, delta):
@@ -833,7 +898,8 @@ def batch_mismatch_M_chi(times, data, modes, Mf_minmax, chif_minmax, t0,
     times, rows, sph = _prep(times, data, spherical_modes)
     omegas, mus = _M_chi_spectra(modes, sph, Mf_minmax, chif_minmax, res,
                                  delta)
-    mm = _grid_sweep(times, rows, omegas, mus, t0, T, t0_method, dev, solve)
+    mm = _grid_sweep(times, rows, omegas, mus, t0, T, t0_method, dev,
+                     solve)[1]
     return mm.reshape(res, res)
 
 
@@ -845,17 +911,29 @@ def batch_mismatch_M_chi_fast(times, data, modes, Mf_minmax, chif_minmax, t0,
     """The (Mf, chif) grid on the stacked engine (batched.py:710): the
     spectrum of every grid point evaluated on the host at once, then
     ``_run_spectra_sweep``, one solve launch for the grid.  The layout of
-    ``batch_mismatch_M_chi``.  ``mesh`` is not ported."""
-    if mesh is not None:
-        _not_ported("mesh= (the sharded (Mf, chif) grid)", "A.10")
+    ``batch_mismatch_M_chi``.  ``mesh`` (or 'auto') shards the grid points
+    over its 'sweep' ranks (``parallel.mesh.sharded_spectra_sweep``)."""
     _check_t0_method(t0_method)
     dev = resolve_device(device)
     times, rows, sph = _prep(times, data, spherical_modes)
     omegas, mus = _M_chi_spectra(modes, sph, Mf_minmax, chif_minmax, res,
                                  delta)
-    mm = _run_spectra_sweep(times, rows, omegas, mus, t0, T, t0_method, dev,
-                            solve, chunk)
+    mm = _spectra_grid(times, rows, omegas, mus, t0, T, t0_method, dev,
+                       solve, chunk, mesh)
     return mm.reshape(res, res)
+
+
+def _spectra_grid(times, rows, omegas, mus, t0, T, t0_method, dev, solve,
+                  chunk, mesh):
+    """mm (Q,) of ``_run_spectra_sweep``, sharded over ``mesh`` where one
+    is given."""
+    if mesh is None:
+        return _run_spectra_sweep(times, rows, omegas, mus, t0, T, t0_method,
+                                  dev, solve, chunk)[1]
+    from .parallel.mesh import sharded_spectra_sweep
+    return sharded_spectra_sweep(times, rows, omegas, mus, t0, T,
+                                 _mesh_for(mesh, dev), t0_method, chunk,
+                                 dev, solve)[1]
 
 
 def _omega_fixed(modes, Mf, chif):
@@ -894,7 +972,8 @@ def batch_mismatch_omega(times, data, modes, Mf, chif, re_minmax, im_minmax,
     times, rows, _ = _prep(times, data, None)
     _single_row(rows, "batch_mismatch_omega")
     omegas, mus = _omega_spectra(modes, Mf, chif, re_minmax, im_minmax, res)
-    mm = _grid_sweep(times, rows, omegas, mus, t0, T, t0_method, dev, solve)
+    mm = _grid_sweep(times, rows, omegas, mus, t0, T, t0_method, dev,
+                     solve)[1]
     return mm.reshape(res, res).T
 
 
@@ -907,17 +986,16 @@ def batch_mismatch_omega_fast(times, data, modes, Mf, chif, re_minmax,
     (batched.py:765): fixed QNMs plus one free frequency per grid point,
     every grid point a full fit, one solve launch for the grid
     (``_run_spectra_sweep``).  Transposed like the reference
-    (qnmfits.py:1825).  ``mesh`` is not ported."""
-    if mesh is not None:
-        _not_ported("mesh= (the sharded free-frequency grid)", "A.10")
+    (qnmfits.py:1825).  ``mesh`` (or 'auto') shards the grid points over
+    its 'sweep' ranks."""
     _check_t0_method(t0_method)
     check_spin(chif)
     dev = resolve_device(device)
     times, rows, _ = _prep(times, data, None)
     _single_row(rows, "batch_mismatch_omega_fast")
     omegas, mus = _omega_spectra(modes, Mf, chif, re_minmax, im_minmax, res)
-    mm = _run_spectra_sweep(times, rows, omegas, mus, t0, T, t0_method, dev,
-                            solve, chunk)
+    mm = _spectra_grid(times, rows, omegas, mus, t0, T, t0_method, dev,
+                       solve, chunk, mesh)
     return mm.reshape(res, res).T
 
 
@@ -933,23 +1011,29 @@ def batch_mismatch_omega_bordered(times, data, modes, Mf, chif, re_minmax,
     it launches no solve kernel.  mm is (res, res) indexed [im, re] like
     the reference (qnmfits.py:1825); with return_amplitudes=True also C
     (res, res, Jf + 1) in the same layout (fixed modes first, the free
-    mode last).  ``mesh`` is not ported."""
-    if mesh is not None:
-        _not_ported("mesh= (the sharded bordered grid)", "A.10")
+    mode last).  ``mesh`` (or 'auto') shards the Re axis over its 'sweep'
+    ranks (``parallel.mesh.sharded_omega_grid_bordered``)."""
     check_spin(chif)
     _check_t0_method(t0_method)
     dev = resolve_device(device)
+    if mesh is not None:
+        mesh = _mesh_for(mesh, dev)
     times, rows, _ = _prep(times, data, None)
     _single_row(rows, "batch_mismatch_omega_bordered")
     times_t = _real(times, dev)
     t0_t = torch.tensor(float(t0), dtype=RDTYPE, device=dev)
     w = _window(times_t, t0_t, float(T), t0_method)
-    C, mm = sweep_omega_grid_bordered_real(
-        times_t, _cplx(rows[0], dev),
-        _cplx(_omega_fixed(modes, Mf, chif), dev),
-        _real(np.linspace(*re_minmax, res), dev),
-        _real(np.linspace(*im_minmax, res), dev), t0_t, w, a_chunk=a_chunk,
-        analytic=_uniform_spacing(times))
+    args = (times_t, _cplx(rows[0], dev),
+            _cplx(_omega_fixed(modes, Mf, chif), dev),
+            _real(np.linspace(*re_minmax, res), dev),
+            _real(np.linspace(*im_minmax, res), dev), t0_t, w)
+    if mesh is not None:
+        from .parallel.mesh import sharded_omega_grid_bordered
+        C, mm = sharded_omega_grid_bordered(*args, mesh, a_chunk=a_chunk,
+                                            analytic=_uniform_spacing(times))
+    else:
+        C, mm = sweep_omega_grid_bordered_real(
+            *args, a_chunk=a_chunk, analytic=_uniform_spacing(times))
     mm = mm.cpu().numpy().reshape(res, res).T
     if return_amplitudes:
         # Kernel order is q = re_idx * res + im_idx; realign to mm's

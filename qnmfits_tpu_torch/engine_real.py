@@ -144,18 +144,21 @@ def _analytic_grams(times, wr, wi, t0c, a, m):
     return _geom_grams_core(_fitted_step(times), K, wr, wi, s_b, m)
 
 
-def _geom_grams_core(dlt, K, wr, wi, s_b, m):
+def _geom_grams_core(dlt, K, wr, wi, s_b, m, edge_first=None,
+                     edge_last=None):
     """Pairwise-mode closed-form Grams for windows of m[b] samples whose
     first sample sits s_b[b] after the basis reference (nu from the
-    conj(phi_j) phi_l inner product).  wr/wi (S, J); returns Gt, Gtau
-    complex (S, Bc, J, J)."""
+    conj(phi_j) phi_l inner product).  wr/wi (S, J); the edge weights
+    (see ``_geom_series_eval``) broadcast against (S, Bc, J, J).  Returns
+    Gt, Gtau complex (S, Bc, J, J)."""
     nu_re = (wi[:, :, None] + wi[:, None, :])[:, None]     # (S, 1, J, J)
     nu_im = (wr[:, :, None] - wr[:, None, :])[:, None]
     return _geom_series_eval(dlt, K, nu_re, nu_im, s_b[:, None, None],
-                             m[:, None, None])
+                             m[:, None, None], edge_first, edge_last)
 
 
-def _geom_series_eval(dlt, K, nu_re, nu_im, s, m):
+def _geom_series_eval(dlt, K, nu_re, nu_im, s, m, edge_first=None,
+                      edge_last=None):
     """Closed-form windowed exponential sums (engine_real.py:600).
 
     With z = e^{nu dlt}: Gt = e^{nu s} (z^m - 1)/(z - 1), the sum of m
@@ -164,8 +167,14 @@ def _geom_series_eval(dlt, K, nu_re, nu_im, s, m):
     built in expm1 form by bit decomposition of m (u(z^2p) = u^2 + 2u,
     u(z^(p+q)) = u_p u_q + u_p + u_q), so no absolute-1 cancellation; the
     leading factor is a direct exp (it needs relative precision at tiny
-    magnitudes).  Split (re, im) arithmetic as in the reference.  Returns
-    Gt, Gtau complex of the broadcast shape.
+    magnitudes).  Split (re, im) arithmetic as in the reference.
+
+    edge_first / edge_last (broadcastable, 1 by default) multiply the two
+    half-weight edge terms of Gtau: a time-sharded caller passes 0 for a
+    window edge that is only a shard boundary, where the sample keeps its
+    full trapezoid weight, so the sum over shards is the global Gtau
+    (engine_real.py:583-600).  Returns Gt, Gtau complex of the broadcast
+    shape.
     """
     nbits = max(1, int(math.ceil(math.log2(K + 1))))
     ex = torch.exp(nu_re * dlt)
@@ -219,8 +228,11 @@ def _geom_series_eval(dlt, K, nu_re, nu_im, s, m):
     tb_re = F_re * zb_re - F_im * zb_im
     tb_im = F_re * zb_im + F_im * zb_re
     nonempty = (m > 0).to(nu_re.dtype)
-    Gtau_re = dlt * (Gt_re - 0.5 * (F_re + tb_re)) * nonempty
-    Gtau_im = dlt * (Gt_im - 0.5 * (F_im + tb_im)) * nonempty
+    # A factor of 1.0 is exact: without edge weights nothing changes.
+    ef = 1.0 if edge_first is None else edge_first
+    el = 1.0 if edge_last is None else edge_last
+    Gtau_re = dlt * (Gt_re - 0.5 * (ef * F_re + el * tb_re)) * nonempty
+    Gtau_im = dlt * (Gt_im - 0.5 * (ef * F_im + el * tb_im)) * nonempty
     return torch.complex(Gt_re, Gt_im), torch.complex(Gtau_re, Gtau_im)
 
 

@@ -7,9 +7,13 @@ Every entry point takes ``device=`` ("cuda" by default, raising when
 there is none; "cpu" runs the plain PyTorch path).  The single fits solve
 by SVD least squares (``ops/solve.svd_lstsq``) so their result dicts carry
 'residual', 'rank' and 's' like np.linalg.lstsq; every sweep solves its
-batched normal equations with the CUDA kernel on the card.
-precision='x64' is the only precision: the JAX package's f32 path is a
-TPU workaround.
+batched normal equations with the CUDA kernel on the card.  The sweeps
+take ``mesh=`` (engine='sharded'): a ``parallel.mesh.sweep_mesh`` of
+torch.distributed ranks, or 'auto' for every rank of the initialised
+process group, over whose 'sweep' ranks the start times or grid points
+are sharded; every rank calls with the same arguments and gets the whole
+result.  precision='x64' is the only precision: the JAX package's f32
+path is a TPU workaround.
 """
 
 from __future__ import annotations
@@ -19,7 +23,6 @@ import torch
 
 from . import CDTYPE, RDTYPE, resolve_device
 from . import batched, ref_impl
-from .batched import _not_ported
 from .engine import _window, cached_evaluator, check_spin
 from .ops.cmath import damped_phase
 from .ops.solve import svd_lstsq
@@ -232,32 +235,41 @@ def mismatch_t0_array(times, data, modes, Mf, chif, t0_array,
 
     engine: 'batched' (default) -- all start times on the complex fit core,
     any window method; 'fast' -- the factored kernel ('geq', t0_array
-    sorted ascending); 'loop' -- the reference-style serial NumPy loop
-    (``ref_impl``, on the host).  With (K,) Mf/chif time tracks 'batched'
-    and 'fast' run the dynamic-spectrum sweep (any window method, any
-    order).  dedup=True solves each distinct window once (exact for
+    sorted ascending); 'sharded' -- the factored kernel with the start
+    times sharded over ``mesh``'s 'sweep' ranks ('auto' when None: every
+    rank of the initialised torch.distributed process group; each rank
+    calls with the same arguments and gets the whole result); 'loop' --
+    the reference-style serial NumPy loop (``ref_impl``, on the host).  A
+    ``mesh`` given to 'batched' or 'fast' runs 'sharded'.  With (K,)
+    Mf/chif time tracks 'batched' and 'fast' run the dynamic-spectrum
+    sweep (any window method, any order), over ``mesh`` where one is
+    given.  dedup=True solves each distinct window once (exact for
     static spectra); 'loop' and the dynamic sweep always run per t0.
-    engine='sharded' and ``mesh`` are not ported.
     """
     _check_precision(precision)
     if engine == "loop":
         return ref_impl.mismatch_t0_array(
             times, data, modes, Mf, chif, t0_array, t0_method, T_array,
             spherical_modes, delta)
+    if engine not in ("batched", "fast", "sharded"):
+        raise ValueError(f"unknown engine {engine!r}")
     if np.ndim(Mf) != 0 or np.ndim(chif) != 0:
         if engine == "sharded":
             raise ValueError(
                 "engine='sharded' needs a static spectrum; use "
                 "engine='batched' or 'fast' for time-dependent Mf/chif")
         batched._no_delta(delta)
-        if mesh is not None:
-            _not_ported("mesh= (a device mesh)", "A.10")
         return batched.batch_mismatch_t0_dynamic(
             times, data, modes, Mf, chif, t0_array, t0_method=t0_method,
             T_array=T_array, spherical_modes=spherical_modes, engine=engine,
-            device=device)
+            mesh=mesh, device=device)
     if engine == "sharded" or mesh is not None:
-        _not_ported("engine='sharded' (a device mesh)", "A.10")
+        if t0_method != "geq":
+            raise ValueError("engine='sharded' supports t0_method='geq' only")
+        return batched.batch_mismatch_t0_sharded(
+            times, data, modes, Mf, chif, t0_array, T_array=T_array,
+            spherical_modes=spherical_modes, delta=delta, mesh=mesh,
+            dedup=dedup, device=device)
     if engine == "fast":
         if t0_method != "geq":
             raise ValueError("engine='fast' supports t0_method='geq' only")
@@ -265,8 +277,6 @@ def mismatch_t0_array(times, data, modes, Mf, chif, t0_array,
             times, data, modes, Mf, chif, t0_array, T_array=T_array,
             spherical_modes=spherical_modes, delta=delta, dedup=dedup,
             device=device)
-    if engine != "batched":
-        raise ValueError(f"unknown engine {engine!r}")
     return batched.batch_mismatch_t0(
         times, data, modes, Mf, chif, t0_array, t0_method=t0_method,
         T_array=T_array, spherical_modes=spherical_modes, delta=delta,
@@ -294,10 +304,13 @@ def mismatch_t0_mode_sets(times, data, mode_sets, Mf, chif, t0_array,
     (any window method and order, never deduplicated).  Runs on
     ``device``.  Returns mm (S, B), or (S, R, B) with a remnant axis; with
     return_amplitudes=True also a list of per-set complex (B,
-    len(mode_set)) (or (R, B, len)) arrays.  ``mesh`` is not ported.
+    len(mode_set)) (or (R, B, len)) arrays.  ``mesh`` (a
+    ``parallel.mesh.sweep_mesh``, or 'auto': every rank of the initialised
+    torch.distributed process group) shards the start times over its
+    'sweep' ranks: 'geq' windows for a static spectrum, any window method
+    with dynamic=True; every rank calls with the same arguments and gets
+    the whole result.
     """
-    if mesh is not None:
-        _not_ported("mesh= (the sharded mode-set sweep)", "A.10")
     if dynamic:
         if bucket:
             raise ValueError("bucket=True is not supported for the "
@@ -305,18 +318,26 @@ def mismatch_t0_mode_sets(times, data, mode_sets, Mf, chif, t0_array,
         return batched.batch_mismatch_t0_modesets_dynamic(
             times, data, mode_sets, Mf, chif, t0_array, t0_method=t0_method,
             T_array=T_array, spherical_modes=spherical_modes,
-            return_amplitudes=return_amplitudes, device=device)
+            return_amplitudes=return_amplitudes, mesh=mesh, device=device)
     return batched.batch_mismatch_t0_modesets(
         times, data, mode_sets, Mf, chif, t0_array, T_array=T_array,
         spherical_modes=spherical_modes, return_amplitudes=return_amplitudes,
-        t0_method=t0_method, bucket=bucket, dedup=dedup, device=device)
+        t0_method=t0_method, bucket=bucket, dedup=dedup, mesh=mesh,
+        device=device)
 
 
-def _grid_engine(engine, mesh, ported):
-    if mesh is not None or engine == "sharded":
-        _not_ported("engine='sharded' or mesh= (a device mesh)", "A.10")
-    if engine not in ported:
+def _grid_engine(engine, mesh, engines):
+    """The grid's engine, and its mesh: 'sharded' runs 'fast' over
+    ``mesh`` ('auto' when None); a mesh is taken by the engines that
+    shard ('fast', 'fast-full'), and refused by the others."""
+    if engine not in engines + ("sharded",):
         raise ValueError(f"unknown engine {engine!r}")
+    if engine == "sharded":
+        return "fast", "auto" if mesh is None else mesh
+    if mesh is not None and engine not in ("fast", "fast-full"):
+        raise ValueError(f"engine={engine!r} takes no mesh; use "
+                         "engine='sharded'")
+    return engine, mesh
 
 
 @solves_on_device
@@ -329,19 +350,23 @@ def mismatch_M_chi_grid(times, data, modes, Mf_minmax, chif_minmax, t0,
     chunks of summed-Gram fits, one launch of the CUDA solve), 'fast' (the
     stacked engine: closed-form Grams on the shared window and one solve
     for the whole grid, on uniform time grids) or 'loop' (the
-    reference-style NumPy loop).  engine='sharded' and ``mesh`` are not
-    ported."""
+    reference-style NumPy loop).  engine='sharded' runs 'fast' with the
+    grid points sharded over ``mesh``'s 'sweep' ranks ('auto' when None:
+    every rank of the initialised torch.distributed process group); a
+    mesh given to 'fast' does the same."""
     _check_precision(precision)
-    _grid_engine(engine, mesh, ("batched", "fast", "loop"))
+    engine, mesh = _grid_engine(engine, mesh, ("batched", "fast", "loop"))
     if engine == "loop":
         return ref_impl.mismatch_M_chi_grid(
             times, data, modes, Mf_minmax, chif_minmax, t0, t0_method, T,
             res, spherical_modes, delta)
-    grid = (batched.batch_mismatch_M_chi_fast if engine == "fast"
-            else batched.batch_mismatch_M_chi)
-    return grid(times, data, modes, Mf_minmax, chif_minmax, t0,
-                t0_method=t0_method, T=T, res=res,
-                spherical_modes=spherical_modes, delta=delta, device=device)
+    kw = dict(t0_method=t0_method, T=T, res=res,
+              spherical_modes=spherical_modes, delta=delta, device=device)
+    if engine == "fast":
+        return batched.batch_mismatch_M_chi_fast(
+            times, data, modes, Mf_minmax, chif_minmax, t0, mesh=mesh, **kw)
+    return batched.batch_mismatch_M_chi(times, data, modes, Mf_minmax,
+                                        chif_minmax, t0, **kw)
 
 
 @solves_on_device
@@ -355,18 +380,24 @@ def mismatch_omega_grid(times, data, modes, Mf, chif, re_minmax, im_minmax,
     CUDA solve), 'fast' (the bordered fixed block, factored once, with a
     bordered solve per grid point), 'fast-full' (the stacked engine of
     the (Mf, chif) grid, every grid point a full fit) or 'loop'.
-    engine='sharded' and ``mesh`` are not ported."""
+    engine='sharded' runs 'fast' with the Re axis sharded over ``mesh``'s
+    'sweep' ranks ('auto' when None); a mesh given to 'fast' or
+    'fast-full' shards their grid the same way."""
     _check_precision(precision)
-    _grid_engine(engine, mesh, ("batched", "fast", "fast-full", "loop"))
+    engine, mesh = _grid_engine(engine, mesh,
+                                ("batched", "fast", "fast-full", "loop"))
     if engine == "loop":
         return ref_impl.mismatch_omega_grid(
             times, data, modes, Mf, chif, re_minmax, im_minmax, t0,
             t0_method, T, res)
+    kw = dict(t0_method=t0_method, T=T, res=res, device=device)
+    if engine != "batched":
+        kw["mesh"] = mesh
     grid = {"fast": batched.batch_mismatch_omega_bordered,
             "fast-full": batched.batch_mismatch_omega_fast,
             "batched": batched.batch_mismatch_omega}[engine]
     return grid(times, data, modes, Mf, chif, re_minmax, im_minmax, t0,
-                t0_method=t0_method, T=T, res=res, device=device)
+                **kw)
 
 
 @solves_on_device

@@ -13,9 +13,9 @@ Hessian pass launches the hand-written CUDA solve).
   time in lock-step batches: a deterministic seed grid (the free
   frequency's scored by the bordered fixed-block solve of
   ``engine_real``), then a fixed number of damped-Newton steps with exact
-  2 x 2 Hessians from a double backward.
-
-``mesh=`` (a device mesh) is not ported (ROADMAP A.10).
+  2 x 2 Hessians from a double backward.  With ``mesh=`` the distinct
+  windows are sharded over the mesh's 'sweep' ranks: each rank runs the
+  same lock-step optimiser on its block and the results are gathered.
 """
 
 from __future__ import annotations
@@ -24,7 +24,7 @@ import numpy as np
 import torch
 
 from . import RDTYPE, resolve_device
-from .batched import (_canon, _check_t0_method, _cplx, _not_ported,
+from .batched import (_canon, _check_t0_method, _cplx, _mesh_for,
                       _omega_fixed, _prep, _real, _window_dedup,
                       _window_dedup_closest)
 from .engine import (_window, cached_evaluator, check_spin, chunk_bounds,
@@ -308,17 +308,30 @@ def free_frequency_fit_gradient(times, data, t0, modes=[], Mf=None,
 # Every start time: seed grid + damped Newton in lock-step batches
 # ---------------------------------------------------------------------------
 
-def _windows(times, t0_array, T_array, t0_method, dedup):
+def _windows(times, t0_array, T_array, t0_method, dedup, mesh=None):
+    """The distinct windows (t0s, Ts) of a call, this rank's block of them
+    where a mesh shards them, their dedup map and their count."""
     t0s = np.asarray(t0_array, float)
     Ts = np.ascontiguousarray(
         np.broadcast_to(np.asarray(T_array, float), t0s.shape))
     dd = _optimizer_dedup(times, t0s, Ts, t0_method) if dedup else None
     if dd is not None:
         t0s, Ts = t0s[dd[0]], Ts[dd[0]]
-    return t0s, Ts, dd
+    n = len(t0s)
+    if mesh is not None:
+        from .parallel.mesh import _block, _pad_to, _size
+        t0s, Ts = (_block(mesh, _pad_to(x, _size(mesh, "sweep"))[0])
+                   for x in (t0s, Ts))
+    return t0s, Ts, dd, n
 
 
-def _scatter(dd, *outs):
+def _scatter(dd, mesh, n, *outs):
+    """Per-window results to NumPy over the caller's start times: gathered
+    over the mesh's 'sweep' ranks and trimmed to the n distinct windows,
+    then scattered over their duplicates."""
+    if mesh is not None:
+        from .parallel.mesh import gather_sweep
+        outs = [gather_sweep(mesh, o)[:n] for o in outs]
     outs = [o.cpu().numpy() for o in outs]
     return outs if dd is None else [o[dd[1]] for o in outs]
 
@@ -345,16 +358,19 @@ def free_frequency_fit_array(times, data, t0_array, modes=[], Mf=None,
     trial fit), clipped to the box; ``ok`` marks a final gradient norm
     below 1e-7.  Windows run in lock-step chunks
     (``free_frequency_chunks``).  dedup=True optimises each distinct
-    window once.  Returns omega (B,) complex; with return_mismatch=True
-    also the (B,) mismatch at the optimum and the (B,) success mask.
-    ``mesh`` is not ported."""
-    if mesh is not None:
-        _not_ported("mesh= (the sharded optimiser sweep)", "A.10")
+    window once.  ``mesh`` (a ``parallel.mesh.sweep_mesh``, or 'auto')
+    shards the distinct windows over its 'sweep' ranks; every rank calls
+    with the same arguments and gets the whole result.  Returns omega
+    (B,) complex; with return_mismatch=True also the (B,) mismatch at the
+    optimum and the (B,) success mask."""
     _check_t0_method(t0_method)
     _require_remnant(modes, Mf, chif)
     check_spin(chif)
     dev = resolve_device(device)
-    t0s, Ts, dd = _windows(times, t0_array, T_array, t0_method, dedup)
+    if mesh is not None:
+        mesh = _mesh_for(mesh, dev)
+    t0s, Ts, dd, n_win = _windows(times, t0_array, T_array, t0_method,
+                                  dedup, mesh)
     prob = _Problem(times, np.asarray(data, complex)[None], t0s, Ts,
                     t0_method, dev, solve)
     fixed = _cplx(_omega_fixed(modes, Mf, chif), dev)
@@ -393,7 +409,8 @@ def free_frequency_fit_array(times, data, t0_array, modes=[], Mf=None,
         xs.append(x)
         fxs.append(fx)
         oks.append(torch.linalg.vector_norm(_grad(mm_fn, x), dim=1) < 1e-7)
-    x, mm, ok = _scatter(dd, torch.cat(xs), torch.cat(fxs), torch.cat(oks))
+    x, mm, ok = _scatter(dd, mesh, n_win, torch.cat(xs), torch.cat(fxs),
+                         torch.cat(oks))
     omega = x[:, 0] + 1j * x[:, 1]
     if return_mismatch:
         return omega, mm, ok
@@ -435,16 +452,18 @@ def calculate_epsilon_array(times, data, modes, Mf, chif, t0_array,
     or eps alone with return_remnant=False; return_mismatch=True (not in
     the JAX package, which computes and drops it) appends the (B,)
     mismatch at the optimum and the (B,) mask of final gradient norms
-    below 1e-7.  ``mesh`` is not ported."""
-    if mesh is not None:
-        _not_ported("mesh= (the sharded optimiser sweep)", "A.10")
+    below 1e-7.  ``mesh`` (or 'auto') shards the distinct windows over its
+    'sweep' ranks, as in ``free_frequency_fit_array``."""
     _check_t0_method(t0_method)
     check_spin(chif)
     dev = resolve_device(device)
+    if mesh is not None:
+        mesh = _mesh_for(mesh, dev)
     times, rows, sph = _prep(times, data, spherical_modes)
     ev = cached_evaluator(_canon(modes), sph)
     df = _delta_factor(0.0 if sph is not None else delta, len(modes))
-    t0s, Ts, dd = _windows(times, t0_array, T_array, t0_method, dedup)
+    t0s, Ts, dd, n_win = _windows(times, t0_array, T_array, t0_method,
+                                  dedup, mesh)
     prob = _Problem(times, rows, t0s, Ts, t0_method, dev, solve)
     J, K = len(modes), prob.times.shape[0]
     x0_t = _real(np.asarray(x0 if x0 is not None else [Mf, chif],
@@ -500,9 +519,10 @@ def calculate_epsilon_array(times, data, modes, Mf, chif, t0_array,
         if return_mismatch:
             g = _grad(lambda x: prob.mm(*spectrum(x), win), x)
             oks.append(torch.linalg.vector_norm(g, dim=1) < 1e-7)
-    x, = _scatter(dd, torch.cat(xs))
+    x, = _scatter(dd, mesh, n_win, torch.cat(xs))
     eps = np.sqrt((x[:, 0] - Mf) ** 2 + (x[:, 1] - chif) ** 2)
     out = (eps, x[:, 0], x[:, 1]) if return_remnant else (eps,)
     if return_mismatch:
-        out += tuple(_scatter(dd, torch.cat(fxs), torch.cat(oks)))
+        out += tuple(_scatter(dd, mesh, n_win, torch.cat(fxs),
+                              torch.cat(oks)))
     return out if len(out) > 1 else eps

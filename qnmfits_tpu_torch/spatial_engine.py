@@ -19,7 +19,9 @@ mapping fit with a materialised design matrix and np.linalg.lstsq per fit
 * ``mapping_design`` -- the mapping fit's per-spherical-mode mixing rows
   as an (I, J) matrix: exactly the ``mu`` of a multimode sweep, so the
   mapping sweep ``mapping_mismatch_t0_array`` runs on the port's sweeps
-  and their batched Hermitian solve (the CUDA kernels on the card).
+  and their batched Hermitian solve (the CUDA kernels on the card), its
+  'sharded' engine over a mesh of torch.distributed ranks
+  (``parallel.mesh.sharded_t0_sweep_factored``).
 
 The Qmu and eigensystem work stays host NumPy, as in the JAX package;
 only the sweep runs on the device.
@@ -356,13 +358,20 @@ def mapping_mismatch_t0_array(times, data_dict, modes, Mf, chif, t0_array,
       engine='fast'     -- the factored sweep
                            (``engine_real.sweep_t0_factored_real``;
                            t0_method='geq', t0_array sorted ascending);
+      engine='sharded'  -- the factored sweep with the start times
+                           sharded over ``mesh``'s 'sweep' ranks
+                           (``parallel.mesh.sharded_t0_sweep_factored``;
+                           'auto' when None: every rank of the
+                           initialised torch.distributed process group);
       engine='loop'     -- serial ``spatial.mapping_multimode_ringdown_fit``
                            calls (SVD least squares), the oracle.
 
-    engine='sharded' and ``mesh`` are not ported (ROADMAP A.10).  The
-    only precision is 'x64' (others raise), so the JAX function's rule
+    A ``mesh`` given to 'batched' or 'fast' runs 'sharded'.
+
+    The only precision is 'x64' (others raise), so the JAX function's rule
     that its f32 'batched' sweep never deduplicates has no counterpart
-    here.  The 'fast' checks run on the caller's t0_array, before dedup.
+    here.  The 'fast' and 'sharded' checks run on the caller's t0_array,
+    before dedup.
     ``solve`` substitutes the batched Hermitian solve.
 
     Returns mm (B,); with return_amplitudes=True also C (B, J) complex in
@@ -371,20 +380,21 @@ def mapping_mismatch_t0_array(times, data_dict, modes, Mf, chif, t0_array,
     static design); the 'loop' oracle always runs per t0.
     """
     from . import resolve_device
-    from .batched import (_cplx, _dedup_for, _not_ported, _real, _safe_chunk,
+    from .batched import (_cplx, _dedup_for, _mesh_for, _real, _safe_chunk,
                           _scatter, _uniform_spacing, sweep_t0_core)
     from .engine import check_spin
     from .engine_real import sweep_t0_factored_real
     from .fitting import _check_precision
 
     _check_precision(precision)
-    if engine == "sharded" or mesh is not None:
-        _not_ported("engine='sharded' or mesh= (the sharded mapping sweep)",
-                    "A.10")
-    if engine not in ("batched", "fast", "loop"):
+    if engine not in ("batched", "fast", "sharded", "loop"):
         raise ValueError(f"unknown engine {engine!r}")
     check_spin(chif)
     dev = resolve_device(device)
+    if mesh is not None and engine in ("batched", "fast"):
+        engine = "sharded"
+    if engine == "sharded":
+        mesh = _mesh_for("auto" if mesh is None else mesh, dev)
 
     if spherical_modes is None:
         spherical_modes = list(data_dict.keys())
@@ -413,9 +423,10 @@ def mapping_mismatch_t0_array(times, data_dict, modes, Mf, chif, t0_array,
     # The caller's inputs are checked before dedup compresses them: the
     # dedup representatives are ascending, which would let an unsorted
     # t0_array past the factored sweep's contract.
-    if engine == "fast":
+    if engine in ("fast", "sharded"):
         if t0_method != "geq":
-            raise ValueError("engine='fast' supports t0_method='geq' only")
+            raise ValueError(f"engine={engine!r} supports t0_method='geq' "
+                             "only")
         if np.any(np.diff(t0s) < 0):
             raise ValueError("t0_array must be sorted ascending")
 
@@ -426,11 +437,14 @@ def mapping_mismatch_t0_array(times, data_dict, modes, Mf, chif, t0_array,
 
     args = (_real(times, dev), _cplx(rows, dev), _cplx(omega, dev),
             _cplx(mu, dev), _real(t0s, dev), _real(Ts, dev))
-    if engine == "fast":
+    if engine in ("fast", "sharded"):
         ck = _safe_chunk(t0s, float(np.max(np.abs(omega.imag))), chunk)
-        C, mm = sweep_t0_factored_real(*args, chunk=ck,
-                                       analytic=_uniform_spacing(times),
-                                       solve=solve)
+        kw = dict(chunk=ck, analytic=_uniform_spacing(times), solve=solve)
+        if engine == "sharded":
+            from .parallel.mesh import sharded_t0_sweep_factored
+            C, mm = sharded_t0_sweep_factored(*args, mesh, **kw)
+        else:
+            C, mm = sweep_t0_factored_real(*args, **kw)
     else:
         C, mm = sweep_t0_core(*args, t0_method, solve=solve)
     mm, C = _scatter(dd, t0s_full, mm, C, omega, return_amplitudes)

@@ -1,5 +1,7 @@
 """Synthetic waveforms for tests and the smoke run (port of
-qnmfits_tpu/testing.py::synthetic_multimode)."""
+qnmfits_tpu/testing.py::synthetic_multimode), and ``run_world``, which
+runs a function on the ranks of a fresh torch.distributed process group
+(the mesh's tests and the smoke run's mesh phase)."""
 
 from __future__ import annotations
 
@@ -7,7 +9,7 @@ import numpy as np
 
 from .engine import SpectrumEvaluator
 
-__all__ = ["bench_mode_sets", "random_hermitian_systems",
+__all__ = ["bench_mode_sets", "random_hermitian_systems", "run_world",
            "synthetic_multimode"]
 
 
@@ -81,3 +83,92 @@ def random_hermitian_systems(B, n, seed=0, n_pad=0):
     G[:, range(live, n), range(live, n)] = 1.0
     b[:, live:] = 0.0
     return G, b
+
+
+def _rank_main(fn, rank, world, backend, tmp, args):
+    """One rank of ``run_world``: joins the group through a file store in
+    ``tmp`` (no network), runs fn(*args) and pickles its result, or its
+    traceback, into ``tmp``."""
+    import os
+    import pickle
+    import traceback
+
+    import torch
+    import torch.distributed as dist
+
+    from .parallel.mesh import TIMEOUT
+    torch.set_num_threads(1)
+    try:
+        dist.init_process_group(backend,
+                                init_method=f"file://{tmp}/store",
+                                rank=rank, world_size=world, timeout=TIMEOUT)
+        try:
+            out = fn(*args)
+        finally:
+            dist.destroy_process_group()
+        with open(os.path.join(tmp, f"rank{rank}.pkl"), "wb") as f:
+            pickle.dump(out, f)
+    except BaseException:
+        with open(os.path.join(tmp, f"rank{rank}.err"), "w") as f:
+            f.write(traceback.format_exc())
+        raise
+
+
+def run_world(fn, world, args=(), backend="gloo", timeout=300.0):
+    """fn(*args) on ``world`` spawned processes, the ranks of one process
+    group (``backend``; every collective times out after
+    ``parallel.mesh.TIMEOUT``, and each process runs one CPU thread).
+    fn must be importable by name (a module-level function).  Waits at
+    most ``timeout`` seconds in all, kills every rank still running when
+    one fails or the time is up, and raises RuntimeError with the failed
+    ranks' tracebacks.  Returns the ranks' results, in rank order."""
+    import os
+    import pickle
+    import shutil
+    import tempfile
+    import time
+
+    import torch.multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    tmp = tempfile.mkdtemp(prefix="qnm_world_")
+    procs = []
+    try:
+        procs = [ctx.Process(target=_rank_main,
+                             args=(fn, r, world, backend, tmp, args))
+                 for r in range(world)]
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + timeout
+        while any(p.is_alive() for p in procs):
+            if (time.monotonic() > deadline
+                    or any(p.exitcode not in (None, 0) for p in procs)):
+                break
+            time.sleep(0.05)
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+            p.join()
+        errors = []
+        for r, p in enumerate(procs):
+            err = os.path.join(tmp, f"rank{r}.err")
+            if os.path.exists(err):
+                with open(err) as f:
+                    errors.append(f"rank {r}:\n{f.read()}")
+            elif p.exitcode != 0:
+                errors.append(f"rank {r}: exit {p.exitcode}")
+        if errors:
+            raise RuntimeError(f"{len(errors)} of {world} ranks failed "
+                               f"(or were stopped after {timeout:.0f} s):\n"
+                               + "\n".join(errors))
+        out = []
+        for r in range(world):
+            with open(os.path.join(tmp, f"rank{r}.pkl"), "rb") as f:
+                out.append(pickle.load(f))
+        return out
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        shutil.rmtree(tmp, ignore_errors=True)

@@ -65,7 +65,8 @@ def main():
     p = chip_smoke.build_problem(**chip_smoke.FULL)
     deep, sph = bench_mode_sets()[chip_smoke.DEEPEST], chip_smoke.SPH
     dev = torch.device("cuda")
-    t0s, Ts, _ = optimize._windows(p["times"], p["t0s"], p["T"], "geq", True)
+    t0s, Ts = optimize._windows(p["times"], p["t0s"], p["T"], "geq",
+                                True)[:2]
     rows = np.stack([p["data"][lm] for lm in sph])
     prob = optimize._Problem(p["times"], rows, t0s, Ts, "geq", dev, None)
     spectrum = optimize.epsilon_spectrum(cached_evaluator(deep, sph), sph,

@@ -600,3 +600,37 @@ def test_on_demand_solve_on_card_matches_cpu(cuda, tmp_path, monkeypatch):
     assert out["cpu"][0] == 0 and out["cuda"][0] > 0
     assert np.max(np.abs(out["cuda"][1] - out["cpu"][1])) <= 1e-12
     assert np.max(np.abs(out["cuda"][2] - out["cpu"][2])) <= 1e-10
+
+
+def _nccl_rank(dedup):
+    """A one-rank NCCL mesh's main path (test_one_rank_nccl_mesh...): the
+    mismatches and the rank's solve launches."""
+    import chip_smoke
+    from qnmfits_tpu_torch import mismatch_t0_mode_sets
+    from qnmfits_tpu_torch.parallel.mesh import sweep_mesh
+    problem = chip_smoke.build_problem(**chip_smoke.SMALL)
+    mesh = sweep_mesh(device_type="cuda")
+    chol_cuda.launches = 0
+    mm = mismatch_t0_mode_sets(
+        problem["times"], problem["data"], problem["mode_sets"],
+        chip_smoke.MF, chip_smoke.CHIF, problem["t0s"],
+        T_array=problem["T"], spherical_modes=chip_smoke.SPH, dedup=dedup,
+        mesh=mesh, device="cuda")
+    return mm, chol_cuda.launches
+
+
+def test_one_rank_nccl_mesh_matches_unsharded(cuda):
+    """The main path on a one-rank NCCL mesh on the card (complex results
+    gathered through their real view) against mesh=None: one solve launch
+    on the rank, <= 1e-12 in mismatch for t0 >= 0."""
+    import chip_smoke
+    from qnmfits_tpu_torch.testing import run_world
+    problem = chip_smoke.build_problem(**chip_smoke.SMALL)
+    keep = problem["t0s"] >= 0
+    for dedup in (True, False):
+        (mm, launches), = run_world(_nccl_rank, 1, (dedup,),
+                                    backend="nccl", timeout=240)
+        ref = chip_smoke.sweep(problem, "cuda", dedup=dedup)
+        assert launches == 1
+        assert np.max(np.abs(mm - ref)[:, keep]) <= 1e-12
+        assert np.max(np.abs(mm - ref)) <= 1e-8

@@ -241,7 +241,7 @@ def test_modesets_dynamic_raises(problem):
     with pytest.raises(ValueError, match="tracks"):
         tq.mismatch_t0_mode_sets(times, data, SETS, problem["Mf_t"][:-1],
                                  problem["chif_t"], T0S, **kw)
-    with pytest.raises(NotImplementedError, match="A.10"):
+    with pytest.raises(ValueError, match="init_process_group"):
         tb.batch_mismatch_t0_modesets_dynamic(*args, mesh="auto",
                                               spherical_modes=SPH,
                                               device="cpu")
@@ -409,9 +409,12 @@ def test_fit_events_raises(catalog):
     with pytest.raises(ValueError, match="geq"):
         tq.fit_events(*args, c["chifs"], c["t0s"], engine="fast",
                       t0_method="closest", device="cpu")
-    with pytest.raises(NotImplementedError, match="A.10"):
+    with pytest.raises(ValueError, match="init_process_group"):
         tq.fit_events(*args, c["chifs"], c["t0s"], mesh="auto",
                       device="cpu")
+    with pytest.raises(ValueError, match="geq"):
+        tq.fit_events(*args, c["chifs"], c["t0s"], mesh="auto",
+                      t0_method="closest", device="cpu")
 
 
 # ---------------------------------------------------------------------------

@@ -268,9 +268,12 @@ def test_t0_sweep_unported_and_bad_input_raise(single):
         with pytest.raises(ValueError, match="tracks"):
             tq.mismatch_t0_array(*args, chif_t[:-1], T0S, engine=engine,
                                  device="cpu")
-    with pytest.raises(NotImplementedError, match="A.10"):
+    with pytest.raises(ValueError, match="init_process_group"):
         tq.mismatch_t0_array(*args, s["chif"], T0S, engine="sharded",
                              device="cpu")
+    with pytest.raises(ValueError, match="geq"):
+        tq.mismatch_t0_array(*args, s["chif"], T0S, mesh="auto",
+                             t0_method="closest", device="cpu")
     with pytest.raises(ValueError, match="sorted"):
         tq.mismatch_t0_array(*args, s["chif"], T0S[::-1], engine="fast",
                              device="cpu")
@@ -323,11 +326,15 @@ def test_omega_grid_matches_jax(single, n_fixed, engine):
 def test_grids_unported_and_bad_input_raise(single, multi):
     s = single
     args = (s["times"], s["data"], s["modes"][:2])
-    for kw in (dict(engine="sharded"), dict(mesh="auto")):
-        with pytest.raises(NotImplementedError, match="A.10"):
+    # 'sharded' (and a mesh for 'fast') need a process group; 'batched'
+    # takes no mesh.
+    for kw, match in ((dict(engine="sharded"), "init_process_group"),
+                      (dict(engine="fast", mesh="auto"), "init_process_group"),
+                      (dict(mesh="auto"), "takes no mesh")):
+        with pytest.raises(ValueError, match=match):
             tq.mismatch_M_chi_grid(*args, (0.9, 1.0), (0.6, 0.8), t0=0.0,
                                    device="cpu", **kw)
-        with pytest.raises(NotImplementedError, match="A.10"):
+        with pytest.raises(ValueError, match=match):
             tq.mismatch_omega_grid(*args, s["Mf"], s["chif"], (0.4, 0.6),
                                    (-0.2, -0.05), t0=0.0, device="cpu", **kw)
     with pytest.raises(ValueError, match="single data series"):

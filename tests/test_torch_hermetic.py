@@ -26,8 +26,9 @@ import qnmfits_tpu_torch
 from qnmfits_tpu_torch import (batched, engine, engine_real, filters,
                                fitting, harmonics, optimize, orthonormal,
                                plotting, qnm_api, ref_impl, spatial,
-                               spatial_engine, stability, testing,
+                               parallel, spatial_engine, stability, testing,
                                uncertainty, utils, waveforms)
+from qnmfits_tpu_torch.parallel import mesh
 from qnmfits_tpu_torch.utils import checkpoint, diagnostics
 from qnmfits_tpu_torch.waveforms import base, custom, surrogate, sxs
 from qnmfits_tpu_torch.ops import (cf_cuda, chol, chol_cuda, cmath, solve,
@@ -57,6 +58,12 @@ paths += chip_smoke.run_mapping(problem, "cpu")[0]
 paths += chip_smoke.run_waveforms(problem, "cpu")[0]
 paths += chip_smoke.run_spectrum(problem, "cpu")[0]
 assert len(paths) == 45 and all(p["launches"] == 0 for p in paths)
+# Phase 13 on gloo CPU ranks: N1 on one rank (NCCL needs the card), N4 on
+# four; the ranks report the JAX modules they loaded (none).
+layouts = chip_smoke.run_mesh(problem, "cpu")["layouts"]
+assert [(k, v["world"], v["backend"]) for k, v in layouts.items()] == [
+    ("N1", 1, "gloo"), ("N4", 4, "gloo")]
+assert len(layouts["N1"]["paths"]) == 12 and len(layouts["N4"]["paths"]) == 7
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "qnmfits_tpu")
                 and sys.modules[m] is not None)
@@ -109,6 +116,8 @@ def test_port_and_smoke_run_without_jax(tmp_path):
     assert "S3 (11,2,0) on demand (cpu)" in r.stdout
     assert "S3 (5,5,8) on demand (cpu)" in r.stdout
     assert "phase 12" in r.stdout
+    assert "phase 13 N4 sharded_t0_sweep_factored_2d" in r.stdout
+    assert "phase 13: the mesh" in r.stdout
     new = _listing() - before
     assert not new, f"files written into the repository: {sorted(new)}"
     # JAX's own tests may add tracks of its 400-spin tables meanwhile; the

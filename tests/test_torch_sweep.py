@@ -196,8 +196,11 @@ def test_unsorted_and_unported_raise(problem):
                               bucket=True, **kw)
     with pytest.raises(ValueError, match="t0_method"):
         mismatch_t0_mode_sets(*args, 0.692, t0s, t0_method="GEQ", **kw)
-    with pytest.raises(NotImplementedError, match="A.10"):
+    with pytest.raises(ValueError, match="init_process_group"):
         mismatch_t0_mode_sets(*args, 0.692, t0s, mesh="auto", **kw)
+    with pytest.raises(ValueError, match="t0_method='geq'"):
+        mismatch_t0_mode_sets(*args, 0.692, t0s, mesh="auto",
+                              t0_method="closest", **kw)
     with pytest.raises(ValueError, match="bucket"):
         mismatch_t0_mode_sets(*args, np.full(len(times), 0.692), t0s,
                               dynamic=True, bucket=True, **kw)
