@@ -8,15 +8,18 @@ flushed line each with elapsed seconds:
 
 1. the card's name and power limit (nvidia-smi);
 2. the build of the solve kernels (csrc/chol_solve.cu, sm_90a) and the
-   Leaver CF kernel (csrc/leaver_cf.cu), one nvcc each, started together,
-   from this checkout into build/qnmfits_tpu_torch/, and ptxas's
-   registers and spills for each solve instantiation (no spill allowed);
+   Leaver CF kernel (csrc/leaver_cf.cu, FP64 and double-double), one nvcc
+   each, started together, from this checkout into
+   build/qnmfits_tpu_torch/, and ptxas's registers and spills for each
+   instantiation (no spill allowed);
 3. the kernels against their plain PyTorch version on the card, on
    random batches with dead columns and padding: the team kernel at every
    n = 1..16, at B = 8208 and at batches that leave partial slabs (B = 1,
    15, 17, 1000), and at B = 131072 for n = 8; the wide kernel at n =
    17..200 on each side of its thresholds (threads a block, stages, shared
-   memory or the global workspace) at B = 1, 15, 17, 1000; then the wide
+   memory or the global workspace) at B = 1, 15, 17, 1000;
+   ``ops/solve.gram_cholesky(jitter_scale=)`` through both kernels
+   against the same call on the CPU; then the wide
    kernel timed at B = 8208 for n = 17, 40 and 64 beside its bound, its
    plain version and torch.linalg, and at B = 1000 for n = 200 (the
    global workspace) beside its bound and torch.linalg;
@@ -156,7 +159,15 @@ flushed line each with elapsed seconds:
    shape; S1 the CF kernel against its plain version on random batches
    near real modes (B = 1, 17, 400, 4096 at N = 2000, 8192, 32768), with
    each launch's team and segment, gated relative to |U| + |T| and timed
-   beside its bound; then the kernel timed on F1's largest launch;
+   beside its bound; S1-X the kernel's double-double variant (spins
+   beyond chi = 0.985) against its plain version at the solver's
+   near-extremal tiers and retries (B = 1-256, N = 8192-884736) and at
+   every team, gated at 1e-17 of |U| + |T|, and a batch straddling chi =
+   0.985 whose FP64 elements are bit for bit an FP64-only call; then both
+   variants timed on F1's largest launches.  F1 also holds its (5,2,8) to
+   no point on the coarse track and, beyond chi = 0.985, to the JAX
+   package's 80-bit pins (PIN_528), and counts each solve's double-double
+   launches and their seconds by CUDA events;
 13. the mesh (``qnmfits_tpu_torch.parallel``): two layouts of ranks
    spawned after phase 2 built the kernels (``testing.run_world``; each
    layout's ranks bounded by MESH_TIMEOUT in all and every collective by
@@ -205,6 +216,9 @@ FULL = dict(t_range=(-50.0, 150.05), n_t0=8192, t0_range=(-5.0, 46.2),
             grid_res=200, qmu_spins=200, map_loop=32, wave_t0=8192,
             wave_dyn_t0=513, w3_ell=8, w3_K=20001,
             cf_batches=(1, 17, 400, 4096), cf_depths=(2000, 8192, 32768),
+            cf_dd_shapes=((1, 8192), (2, 16384), (24, 32768), (256, 8192),
+                          (2, 98304), (6, 294912), (2, 884736),
+                          (256, 884736)),
             resolve_rows=6, resolve_stride=1, multiplet_chi_max=0.3,
             spectrum_chi=None, mesh_opt=(64, 16))
 SMALL = dict(t_range=(-10.0, 30.05), n_t0=64, t0_range=(-2.0, 10.0),
@@ -212,7 +226,8 @@ SMALL = dict(t_range=(-10.0, 30.05), n_t0=64, t0_range=(-2.0, 10.0),
              event_t=(-5.0, 35.0), event_T=25.0, opt_maxiter=8, grid_res=8,
              qmu_spins=8, map_loop=8, wave_t0=64, wave_dyn_t0=17, w3_ell=4,
              w3_K=2001, cf_batches=(1, 17), cf_depths=(300, 700),
-             resolve_rows=1, resolve_stride=40, multiplet_chi_max=None,
+             cf_dd_shapes=((2, 300), (5, 700)), resolve_rows=1,
+             resolve_stride=40, multiplet_chi_max=None,
              spectrum_chi=tuple(sorted({*np.linspace(0.0, 0.75, 51).round(6),
                                         0.68, 0.692, 0.7})), mesh_opt=(8, 4))
 STRATA = (-5.0, -1.0, 0.5, 2.5, 10.0, 25.0, 40.0)     # bench.py:160-179
@@ -244,7 +259,8 @@ def build_problem(t_range, n_t0, t0_range, T, sets, res=6, spins=3,
                   events=48, event_t=(-5.0, 35.0), event_T=25.0,
                   opt_maxiter=8, grid_res=8, qmu_spins=8, map_loop=8,
                   wave_t0=64, wave_dyn_t0=17, w3_ell=4, w3_K=2001,
-                  cf_batches=(1, 17), cf_depths=(300, 700), resolve_rows=1,
+                  cf_batches=(1, 17), cf_depths=(300, 700),
+                  cf_dd_shapes=((2, 300),), resolve_rows=1,
                   resolve_stride=40, multiplet_chi_max=None,
                   spectrum_chi=None, mesh_opt=(8, 4)):
     """The bench problem: a synthetic (2,2,n<8) ringdown with mixing
@@ -254,7 +270,8 @@ def build_problem(t_range, n_t0, t0_range, T, sets, res=6, spins=3,
     resolution of phase 9, phase 10's spins of the Qmu axis and start
     times of the 'loop' oracle, phase 11's start times (of the main
     paths, and of the dynamic and wide sweeps) and W3's ellMax and
-    samples, and phase 12's CF batches and depths, its number of re-solved
+    samples, and phase 12's CF batches and depths (and the double-double
+    variant's (batch, depth) pairs), its number of re-solved
     rows and their spin stride, the multiplets' largest spin (None: S4
     not run) and the spins of its tables (None: the tracked tables' 400;
     a few spins up to past CHIF cut S3 and F1's on-demand solves to CPU
@@ -280,7 +297,8 @@ def build_problem(t_range, n_t0, t0_range, T, sets, res=6, spins=3,
                 qmu_spins=qmu_spins, map_loop=map_loop, wave_t0=wave_t0,
                 wave_dyn_t0=wave_dyn_t0, w3_ell=w3_ell, w3_K=w3_K,
                 cf_batches=cf_batches, cf_depths=cf_depths,
-                resolve_rows=resolve_rows, resolve_stride=resolve_stride,
+                cf_dd_shapes=cf_dd_shapes, resolve_rows=resolve_rows,
+                resolve_stride=resolve_stride,
                 multiplet_chi_max=multiplet_chi_max,
                 spectrum_chi=spectrum_chi, mesh_opt=mesh_opt,
                 build_kw=build_kw)
@@ -586,6 +604,36 @@ def check_build():
         raise RuntimeError(f"ptxas reports CF kernels {sorted(cf)} "
                            f"(expected {cf_cuda.KERNELS}) or spills: {cf}")
     return regs, spill
+
+
+def check_jitter(device, jitter=1e-6):
+    """``ops/solve.gram_cholesky(jitter_scale=)`` on the card: the floor
+    goes through the solve kernels (one team launch at n = 6, one wide
+    launch at n = 20), within KERNEL_RTOL of the same call on the CPU."""
+    import torch
+    from qnmfits_tpu_torch.ops import chol_cuda, solve
+    from qnmfits_tpu_torch.testing import random_hermitian_systems
+    out = {}
+    for n in (6, 20):
+        G, b = random_hermitian_systems(64, n, seed=n, n_pad=1)
+        before = chol_cuda.launches, chol_cuda.wide_launches
+        x = solve.gram_cholesky(torch.as_tensor(G, device=device),
+                                torch.as_tensor(b, device=device),
+                                jitter_scale=jitter).cpu()
+        launched = (chol_cuda.launches - before[0],
+                    chol_cuda.wide_launches - before[1])
+        ref = solve.gram_cholesky(torch.as_tensor(G), torch.as_tensor(b),
+                                  jitter_scale=jitter)
+        out[n] = rel_err(x, ref)
+        if launched != (1, int(n > chol_cuda.TEAM_MAX_N)):
+            raise RuntimeError(f"gram_cholesky(jitter_scale=) at n={n} "
+                               f"launched {launched}")
+    log(f"gram_cholesky(jitter_scale={jitter}) through the solve kernels "
+        f"(n = 6 team, 20 wide) vs the CPU route: {out} (bound "
+        f"{KERNEL_RTOL:.0e})")
+    if max(out.values()) > KERNEL_RTOL:
+        raise RuntimeError(f"jittered solve off its CPU route: {out}")
+    return out
 
 
 def check_kernel_sizes(device):
@@ -3039,6 +3087,20 @@ CF_OPS_PER_STEP = 40
 CF_OPS_ONCE = 120
 CF_BYTES = 68
 CF_SEED = 13
+# S1-X: the double-double variant (spins beyond cf_cuda.CHI_EXTENDED)
+# against its plain version, relative to |U| + |T|: both carry ~106 bits
+# and round once, so they part by at most one rounding of an FP64 result
+# that itself is far below |U| + |T| near a root.
+CF_DD_TOL = 1e-17
+# Its work, FP64 operations (a fused multiply-add counted as 2) a
+# double-double step of the segmented product: tau_k 66, R_k 168, the two
+# rows 640 (csrc/leaver_cf.cu: a double-double sum 20, product 10, product
+# with a double 8; a complex product 80, a complex sum 40); and once an
+# element, the coefficients (~60 complex operations), the tail's start and
+# the finish (~40), ~100 x 60.
+CF_DD_OPS_PER_STEP = 874
+CF_DD_OPS_ONCE = 6000
+CF_DD_CHI = (0.985, 0.9995)
 PROFILED_EIGS = 8
 # S2: baked rows (s, l, m, n) re-solved over the table's spins, bypassing
 # the table, each held to its row for chi <= RESOLVE_SPLIT and beyond:
@@ -3050,6 +3112,9 @@ RESOLVE_ROWS = ((-2, 2, 2, 0), (-2, 2, 2, 7), (-2, 3, -3, 5), (-2, 4, 4, 0),
                 (-1, 2, 1, 0), (0, 0, 0, 2))
 RESOLVE_SPLIT = 0.985
 RESOLVE_TOL = dict(omega=(1e-11, 1e-8), A=(1e-11, 1e-8), mu=(1e-10, 1e-8))
+# (3,-3,5) beyond RESOLVE_SPLIT, the near-extremal tiers' row: omega within
+# this of the row (PERF.md, section 6).
+RESOLVE_335_TOL = 3.5e-10
 # S3: the JAX package's pin of the on-demand (11,2,0)
 # (tests/test_spectrum.py:481).
 PIN_MODE, PIN_CHI = (11, 2, 0), 0.68
@@ -3064,24 +3129,62 @@ MULTIPLET_CHI_MIN = 0.05
 MULTIPLET_TOL = 1e-8
 # F1: the bench's (2,2,n<4) set with the on-demand (5,2,8).
 F1_SET = [(2, 2, n, 1) for n in range(4)] + [(5, 2, 8, 1)]
+# F1's (5,2,8) at the s = -2 table's spins beyond chi = 0.985 (omega, M = 1
+# units, and A): the JAX package's track_mode with its 80-bit native CF, on
+# the CPU (PYTHONPATH=. python tests/test_torch_extremal.py).  F1's omega is
+# held to them within PIN_528_TOL.
+PIN_528 = {
+    0.9853425983505129: (1.0962006169750012 - 0.8229986663007255j,
+                         27.219321142165523 + 1.057895753617208j),
+    0.9866610259985805: (1.0958696818842026 - 0.8461711028607607j,
+                         27.230763613591495 + 1.0902958348345728j),
+    0.9879731754197524: (1.0901434768922627 - 0.823912171923649j,
+                         27.225066167858234 + 1.060308595719232j),
+    0.9892790466140289: (1.090607036799784 - 0.8383840537061834j,
+                         27.23087115044567 + 1.0817311025524174j),
+    0.9905786395814097: (1.0751254894248368 - 0.8051774586359035j,
+                         27.232266308883364 + 1.0322760660464578j),
+    0.991871954321895: (1.072528909250729 - 0.8121359165499469j,
+                        27.23801112437893 + 1.0420985416835389j),
+    0.9931589908354848: (1.0649790852231786 - 0.805089137616678j,
+                         27.242899776046833 + 1.0310525766003373j),
+    0.9944397491221789: (1.071888752253038 - 0.8305232037780387j,
+                         27.246148985789972 + 1.070055001980229j),
+    0.9957142291819776: (1.0711100362782882 - 0.8383233843111347j,
+                         27.250187711833348 + 1.0820156445418103j),
+    0.9969824310148806: (1.07129039863154 - 0.8357522828049027j,
+                         27.247335221564715 + 1.0808790959822385j),
+    0.9982443546208881: (1.069532876237053 - 0.83545852405038j,
+                         27.248283838364276 + 1.0816636511388251j),
+    0.9995: (1.0681572880044379 - 0.8349959552720283j,
+             27.24864776250752 + 1.0824205784939513j),
+}
+PIN_528_TOL = 1e-8
 
 
 class SolverClock:
     """While active, times the solver's CF calls (CUDA events around each
-    launch on the card; the host clock for the plain version) and its
+    call of the wrapper on the card, and around each launch of the
+    double-double kernel; the host clock for the plain version) and its
     eigendecompositions (the host clock, the device synchronised on each
     side: torch.linalg.eig of a CUDA tensor synchronises with the host
-    anyway), and keeps the (B, N) of every CF call and a copy of the
-    inputs of the largest."""
+    anyway), and keeps the (B, N) of every CF call and of every launch of
+    each variant, and a copy of the inputs of the largest call and of the
+    largest double-double launch."""
 
     def __enter__(self):
         import torch
+        from qnmfits_tpu_torch.ops import cf_cuda
         from qnmfits_tpu_torch.spectrum import solver
-        self.events, self.cf_host_s, self.eig_s = [], 0.0, 0.0
+        self.events, self.dd_events = [], []
+        self.cf_host_s, self.eig_s = 0.0, 0.0
         self.eig_calls = self.eig_matrices = self.largest_work = 0
         self.shapes, self.largest = {}, None
+        self.launch_shapes = {False: {}, True: {}}
+        self.largest_dd, self._largest_dd_work = None, 0
         self._orig = orig_cf, orig_eig = (solver.leaver_cf,
                                           solver._batched_angular_eig)
+        self._orig_launch = orig_launch = cf_cuda._launch
 
         def cf(omega, aL, A, s, m, n_inv, N):
             key = (omega.shape[0], N)
@@ -3103,6 +3206,24 @@ class SolverClock:
             self.events.append(ev)
             return out
 
+        def launch(omega, a, A, s, m, n_inv, N, team, extended=False):
+            key = (omega.shape[0], N)
+            book = self.launch_shapes[extended]
+            book[key] = book.get(key, 0) + 1
+            if not extended:
+                return orig_launch(omega, a, A, s, m, n_inv, N, team)
+            if key[0] * N > self._largest_dd_work:
+                self._largest_dd_work = key[0] * N
+                self.largest_dd = tuple(x.clone() if torch.is_tensor(x)
+                                        else x for x in
+                                        (omega, a, A, s, m, n_inv, N))
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            out = orig_launch(omega, a, A, s, m, n_inv, N, team, extended)
+            ev[1].record()
+            self.dd_events.append(ev)
+            return out
+
         def eig(s, m, c, nl, vectors=True):
             if c.is_cuda:
                 torch.cuda.synchronize()
@@ -3116,51 +3237,157 @@ class SolverClock:
             return out
 
         solver.leaver_cf, solver._batched_angular_eig = cf, eig
+        cf_cuda._launch = launch
         return self
 
     def __exit__(self, *exc):
+        from qnmfits_tpu_torch.ops import cf_cuda
         from qnmfits_tpu_torch.spectrum import solver
         solver.leaver_cf, solver._batched_angular_eig = self._orig
+        cf_cuda._launch = self._orig_launch
+
+    @staticmethod
+    def _events_s(events):
+        import torch
+        torch.cuda.synchronize()
+        return sum(a.elapsed_time(b) for a, b in events) / 1e3
 
     def cf_s(self):
         """Seconds in the CF: device time of the launches on the card."""
-        if not self.events:
-            return self.cf_host_s
-        import torch
-        torch.cuda.synchronize()
-        return sum(a.elapsed_time(b) for a, b in self.events) / 1e3
+        return self._events_s(self.events) if self.events else self.cf_host_s
 
     def summary(self, wall):
         cf, eig = self.cf_s(), self.eig_s
+
+        def shapes(book):
+            return {f"{b}x{n}": c for (b, n), c in sorted(book.items())}
+
         return dict(wall_s=wall, cf_s=cf, eig_s=eig, rest_s=wall - cf - eig,
                     cf_calls=sum(self.shapes.values()),
                     eig_calls=self.eig_calls,
                     eig_matrices=self.eig_matrices,
-                    cf_shapes={f"{b}x{n}": c
-                               for (b, n), c in sorted(self.shapes.items())})
+                    cf_shapes=shapes(self.shapes),
+                    cf_dd_s=(self._events_s(self.dd_events)
+                             if self.dd_events else None),
+                    cf_dd_launch_shapes=shapes(self.launch_shapes[True]))
+
+
+class NewtonWatch:
+    """While active, records each lockstep Newton call of the solver
+    (``solver._newton_coupled_vec_a``: a depth tier of the fine pass, then
+    its retries at 3x, 9x and 27x the depth): its depth, points,
+    iterations and how many points ended converged (a step under tol
+    |omega|), softly converged (after the 60 iterations, a last step under
+    1e-9 |omega|) or unconverged, with the spins of the last; and the
+    coarse pass's failed points (``_newton_coupled``), which it substeps,
+    by spin.  A point still unconverged after its tier's last retry keeps
+    the interpolated coarse track (``solver.track_mode``).  The CF wrapper,
+    which SolverClock brackets with CUDA events, is left alone."""
+
+    def __init__(self, solver):
+        self.solver = solver
+        self.lockstep, self.coarse_failed_chi = [], []
+        self.coarse_calls = 0
+
+    def __enter__(self):
+        import torch
+        sv = self.solver
+        self._orig = vec, step, coupled = (sv._newton_coupled_vec_a,
+                                           sv._newton_step,
+                                           sv._newton_coupled)
+        state = {}
+
+        def watched_step(omega, f, h, active=None):
+            out = step(omega, f, h, active)
+            if state:
+                state["iterations"] += 1
+                state["done"].append((out.abs() < state["tol"] * torch.clamp(
+                    omega.abs(), min=1.0)).sum())
+            return out
+
+        def watched_vec(omega_L, aL_vec, A_guess, s, l, m, n_inv, nl, N, tol,
+                        maxiter=60):
+            state.update(iterations=0, done=[], tol=tol)
+            try:
+                out = vec(omega_L, aL_vec, A_guess, s, l, m, n_inv, nl, N,
+                          tol, maxiter)
+            finally:
+                iterations, done = state["iterations"], state["done"]
+                state.clear()
+            ok = out[3]
+            hard = int(sum(int(d) for d in done))
+            self.lockstep.append(dict(
+                N=int(N), points=int(ok.numel()), iterations=iterations,
+                converged=hard, soft=int(ok.sum()) - hard,
+                unconverged=int((~ok).sum()),
+                unconverged_chi=[2.0 * float(a) for a in aL_vec[~ok]]))
+            return out
+
+        def watched_coupled(omega_L, aL, A_guess, s, l, m, n_inv, nl, N, tol,
+                            maxiter=60):
+            out = coupled(omega_L, aL, A_guess, s, l, m, n_inv, nl, N, tol,
+                          maxiter)
+            self.coarse_calls += 1
+            if not bool(out[2][0]):
+                self.coarse_failed_chi.append(2.0 * float(aL))
+            return out
+
+        (sv._newton_coupled_vec_a, sv._newton_step,
+         sv._newton_coupled) = watched_vec, watched_step, watched_coupled
+        return self
+
+    def __exit__(self, *exc):
+        (self.solver._newton_coupled_vec_a, self.solver._newton_step,
+         self.solver._newton_coupled) = self._orig
+
+    def tiers(self):
+        """The lockstep calls grouped by tier (a power-of-two depth and its
+        retries), with the points each tier left unconverged."""
+        out = []
+        for call in self.lockstep:
+            if call["N"] & (call["N"] - 1) == 0:
+                out.append(dict(tier=call["N"], calls=[]))
+            out[-1]["calls"].append(call)
+        for tier in out:
+            last = tier["calls"][-1]
+            tier["fell_back"] = last["unconverged"]
+            tier["fell_back_chi"] = last["unconverged_chi"]
+        return out
+
+    def on_coarse_track(self, points):
+        """Points of a track of ``points`` spins that kept the coarse track:
+        those its tiers left unconverged, and those past a failed coarse
+        pass, which no tier took."""
+        tiers = self.tiers()
+        solved = sum(t["calls"][0]["points"] for t in tiers)
+        return sum(t["fell_back"] for t in tiers) + points - solved
 
 
 def _clocked(fn):
-    """(fn(), SolverClock summary, CF kernel launches), the launch count
-    set to 0 just before and read just after."""
+    """(fn(), SolverClock summary, the clock), the CF kernels' launch
+    counts set to 0 just before and read just after."""
     from qnmfits_tpu_torch.ops import cf_cuda
-    cf_cuda.launches = 0
+    cf_cuda.launches = cf_cuda.dd_launches = 0
     with SolverClock() as clk:
         t = time.perf_counter()
         out = fn()
         wall = time.perf_counter() - t
     rec = clk.summary(wall)
     rec["cf_launches"] = cf_cuda.launches
+    rec["cf_dd_launches"] = cf_cuda.dd_launches
     rec["timed_by"] = SOLVE_TIMED_BY
     return out, rec, clk
 
 
-def cf_bound_ms(B, N):
+def cf_bound_ms(B, N, extended=False):
     """Least time of one CF launch of B elements at depth N: the larger of
     the bytes over HBM bandwidth and the FP64 operations (N + 1 recursion
-    steps an element, upward and backward together) over the FP64 peak."""
+    steps an element, upward and backward together; double-double steps
+    where ``extended``) over the FP64 peak."""
+    per_step, once = ((CF_DD_OPS_PER_STEP, CF_DD_OPS_ONCE) if extended
+                      else (CF_OPS_PER_STEP, CF_OPS_ONCE))
     t_bytes = B * CF_BYTES / HBM_BYTES_PER_S
-    t_ops = B * (CF_OPS_PER_STEP * (N + 1) + CF_OPS_ONCE) / FP64_FLOP_PER_S
+    t_ops = B * (per_step * (N + 1) + once) / FP64_FLOP_PER_S
     return (1e3 * max(t_bytes, t_ops),
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -3183,9 +3410,10 @@ def _timed_ms(fn, device, reps):
     return start.elapsed_time(end) / reps
 
 
-def cf_kernel_ms(fn, reps=20):
+def cf_kernel_ms(fn, reps=20, kernel="leaver_cf_kernel"):
     """Mean device time of the CF kernel's launches in fn() (one a call),
-    from torch.profiler's records of ``leaver_cf_kernel`` over reps calls:
+    from torch.profiler's records of ``kernel`` (``leaver_cf_kernel``, or
+    ``leaver_cf_dd_kernel`` for the double-double one) over reps calls:
     the wrapper's own copies and the host's launch cost are left out (at
     the solver's small batches they take longer than the kernel).  A
     profile without the kernel's records is taken again, up to three
@@ -3205,11 +3433,11 @@ def cf_kernel_ms(fn, reps=20):
             torch.cuda.synchronize()
         recs = [e for e in prof.key_averages()
                 if e.device_type == DeviceType.CUDA and e.count
-                and "leaver_cf_kernel" in e.key]
+                and kernel in e.key]
         count = sum(e.count for e in recs)
         if count:
             return sum(e.self_device_time_total for e in recs) / count / 1e3
-    raise RuntimeError("torch.profiler recorded no CF kernel in three "
+    raise RuntimeError(f"torch.profiler recorded no {kernel} in three "
                        "profiles")
 
 
@@ -3232,42 +3460,63 @@ SOLVE_TIMED_BY = dict(
     eig_s="host clock, the device synchronised on each side")
 
 
-def check_cf(inputs, device, reps=10):
-    """The CF kernel (its wrapper, the plain version on the CPU) against
-    its plain version on one batch, with both timed: on the card ``ms`` is
-    the kernel's device time and ``call_ms`` the wrapper call's (CUDA
-    events around reps calls), on the CPU both the plain version's host
-    time.  Returns its record, with the launch's team and segment length
-    (None on the CPU); raises beyond CF_TOL."""
+def _kernel_name(extended):
+    return "leaver_cf_dd_kernel" if extended else "leaver_cf_kernel"
+
+
+def check_cf(inputs, device, reps=10, extended=False):
+    """One variant of the CF kernel (FP64, or double-double where
+    ``extended``), launched on the whole batch with ``cf_cuda.plan``'s team,
+    against its plain version (``cf_parts``, ``cf_dd``), with both
+    timed: on the card ``ms`` is the kernel's device time and ``call_ms``
+    the launch call's (CUDA events around reps calls), on the CPU both the
+    plain version's host time.  Returns its record, with the launch's team
+    and segment length (None on the CPU); raises beyond CF_TOL
+    (CF_DD_TOL)."""
     import torch
     from qnmfits_tpu_torch.ops import cf_cuda
     w, a, A, s, m, n_inv, N = inputs
-    before = cf_cuda.launches
-    f, scale = cf_cuda.leaver_cf(w, a, A, s, m, n_inv, N, with_scale=True)
-    team = segment = None
-    if device != "cpu":
-        if cf_cuda.launches != before + 1:
-            raise RuntimeError("leaver_cf did not launch its kernel")
-        team, segment = cf_cuda.last_plan
+    B = w.shape[0]
+    tol = CF_DD_TOL if extended else CF_TOL
     plain = {}
 
     def run_plain():
-        plain["UT"] = cf_cuda.cf_parts(w, a, A, s, m, n_inv, N)
+        if extended:
+            plain["f"] = cf_cuda.cf_dd(w, a, A, s, m, n_inv, N)
+        else:
+            U, T = cf_cuda.cf_parts(w, a, A, s, m, n_inv, N)
+            plain["f"] = (U - T, U.abs() + T.abs())
 
     plain_ms = _timed_ms(run_plain, device, 1)
-    U, T = plain["UT"]
-    ref = U - T
+    ref, ref_scale = plain["f"]
+    team = segment = None
+    if device == "cpu":
+        call = run_plain
+        f, scale = ref, ref_scale
+    else:
+        team = cf_cuda.plan(B, N, torch.cuda.get_device_properties(
+            w.device).multi_processor_count)[0]
+
+        def call():
+            return cf_cuda._launch(w, a, A, s, m, n_inv, N, team,
+                                   extended=extended)
+
+        before = cf_cuda.dd_launches if extended else cf_cuda.launches
+        f, scale = call()
+        after = cf_cuda.dd_launches if extended else cf_cuda.launches
+        if after != before + 1:
+            raise RuntimeError(f"{_kernel_name(extended)} did not launch")
+        team, segment = cf_cuda.last_plan
     err = float(((f - ref).abs() / scale).max())
-    err_scale = float(((scale - (U.abs() + T.abs())).abs() / scale).max())
-    B = w.shape[0]
-    bound, by = cf_bound_ms(B, N)
-    call = lambda: cf_cuda.leaver_cf(w, a, A, s, m, n_inv, N)  # noqa: E731
+    err_scale = float(((scale - ref_scale).abs() / scale).max())
+    bound, by = cf_bound_ms(B, N, extended)
     call_ms = _timed_ms(call, device, reps)
-    ms = call_ms if device == "cpu" else cf_kernel_ms(call)
-    if not (err <= CF_TOL and err_scale <= CF_TOL):
-        raise RuntimeError(f"CF kernel vs plain at B={B}, N={N}: "
-                           f"{err:.3e} of |U| + |T| (scale {err_scale:.3e}); "
-                           f"bound {CF_TOL:.0e}")
+    ms = (call_ms if device == "cpu"
+          else cf_kernel_ms(call, kernel=_kernel_name(extended)))
+    if not (err <= tol and err_scale <= tol):
+        raise RuntimeError(f"{_kernel_name(extended)} vs plain at B={B}, "
+                           f"N={N}: {err:.3e} of |U| + |T| (scale "
+                           f"{err_scale:.3e}); bound {tol:.0e}")
     return dict(batch=B, N=N, chain_steps=N + 1, team=team, segment=segment,
                 rel_err=err, scale_err=err_scale,
                 max_abs_err=float((f - ref).abs().max()), ms=ms,
@@ -3276,31 +3525,40 @@ def check_cf(inputs, device, reps=10):
                 timed_by=CF_TIMED_BY_CPU if device == "cpu" else CF_TIMED_BY)
 
 
-def cf_replay_s(shapes, device):
-    """Device seconds of the CF kernel over a solve's launches, replayed:
-    the kernel timed at each (B, N) of the solve's calls (``shapes``, as
-    SolverClock keeps them) on S1's inputs, times that shape's count.  The
-    CUDA events of SolverClock bracket each wrapper call and so also count
-    the host's work in it, which at these shapes outlasts the kernel.
-    (Profiles of 5 calls recorded no CF kernel after phases 1-11; those of
-    cf_kernel_ms's 20 do.)"""
+def cf_replay_s(shapes, device, extended=False):
+    """Device seconds of one CF kernel variant over a solve's launches,
+    replayed: the kernel timed at each (B, N) of its launches (``shapes``,
+    as SolverClock keeps them by variant) on S1's inputs (S1-X's for the
+    double-double variant), times that shape's count; and the ms of one
+    launch by shape.  The CUDA events of SolverClock bracket each wrapper
+    call and so also count the host's work in it, which at these shapes
+    outlasts the kernel.  (Profiles of 5 calls recorded no CF kernel after
+    phases 1-11; those of cf_kernel_ms's 20 do.)"""
+    import torch
     from qnmfits_tpu_torch.ops import cf_cuda
     rng = np.random.default_rng(CF_SEED)
-    total = 0.0
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    total, by_shape = 0.0, {}
     for (B, N), count in sorted(shapes.items()):
-        w, a, A, s, m, n_inv, _ = cf_inputs(rng, B, N, device)
-        total += count * cf_kernel_ms(
-            lambda: cf_cuda.leaver_cf(w, a, A, s, m, n_inv, N)) / 1e3
-    return total
+        w, a, A, s, m, n_inv, _ = cf_inputs(
+            rng, B, N, device, CF_DD_CHI if extended else None)
+        team = cf_cuda.plan(B, N, sms)[0]
+        ms = cf_kernel_ms(lambda: cf_cuda._launch(
+            w, a, A, s, m, n_inv, N, team, extended=extended),
+            kernel=_kernel_name(extended))
+        by_shape[f"{B}x{N}"] = ms
+        total += count * ms / 1e3
+    return total, by_shape
 
 
-def cf_inputs(rng, B, N, device):
+def cf_inputs(rng, B, N, device, chi=None):
     """CF inputs near real modes from rng (S1's distribution: omega, spin
-    to chi = 0.999 and A per element, n_inv 0..8, s = -2, m = 2) at depth
-    N, as the wrapper takes them."""
+    to chi = 0.999, or in the range ``chi``, and A per element, n_inv 0..8,
+    s = -2, m = 2) at depth N, as the wrapper takes them."""
     import torch
     w = 2.0 * (0.3 + 0.6 * rng.random(B) - 1j * (0.05 + 0.6 * rng.random(B)))
-    a = 0.5 * 0.999 * rng.random(B)
+    lo, hi = chi or (0.0, 0.999)
+    a = 0.5 * (lo + (hi - lo) * rng.random(B))
     A = 4.0 + 2.0 * rng.random(B) + 0.2j * (rng.random(B) - 0.5)
     n_inv = rng.integers(0, 9, B)
     return tuple(torch.as_tensor(x, device=device) for x in (w, a, A)) + (
@@ -3308,9 +3566,9 @@ def cf_inputs(rng, B, N, device):
 
 
 def cf_checks(problem, device, gpu):
-    """S1: the CF kernel against its plain version on random batches near
-    real modes (omega, spin and A per element, n_inv 0..8, s = -2, m = 2)
-    at each batch and depth of the problem."""
+    """S1: the FP64 CF kernel against its plain version on random batches
+    near real modes (omega, spin and A per element, n_inv 0..8, s = -2, m =
+    2) at each batch and depth of the problem."""
     rng = np.random.default_rng(CF_SEED)
     out = []
     for N in problem["cf_depths"]:
@@ -3325,6 +3583,71 @@ def cf_checks(problem, device, gpu):
                 f"{r['plain_ms']:.2f} ms, bound {r['bound_ms']:.3e} ms "
                 f"({r['bound_by']}), share {r['bound_share']:.2e}")
     return out
+
+
+def cf_dd_checks(problem, device, gpu):
+    """S1-X: the double-double variant against its plain version on random
+    batches at spins CF_DD_CHI (the solver's near-extremal tiers and
+    retries) at each (B, N) of the problem with ``plan``'s team, then at
+    every team of TEAMS on the first; and a mixed batch: spins on both
+    sides of CHI_EXTENDED through ``leaver_cf``, its FP64 elements bit for
+    bit an FP64-only call of them, the others a double-double-only one."""
+    import torch
+    from qnmfits_tpu_torch.ops import cf_cuda
+    rng = np.random.default_rng(CF_SEED + 1)
+    out = []
+    for B, N in problem["cf_dd_shapes"]:
+        r = check_cf(cf_inputs(rng, B, N, device, CF_DD_CHI), device,
+                     reps=10 if B * N < 2e6 else 3, extended=True)
+        out.append(r)
+        log(f"S1-X double-double CF kernel vs plain on {gpu or device}, "
+            f"B={B}, N={N} (team {r['team']}, {r['segment']} steps a "
+            f"thread): {r['rel_err']:.3e} of |U| + |T| (bound "
+            f"{CF_DD_TOL:.0e}); {r['ms']:.4f} ms (call {r['call_ms']:.4f} "
+            f"ms), plain {r['plain_ms']:.2f} ms, bound {r['bound_ms']:.3e} ms "
+            f"({r['bound_by']}), share {r['bound_share']:.2e}")
+    teams = {}
+    if device != "cpu":
+        B, N = problem["cf_dd_shapes"][0]
+        inputs = cf_inputs(rng, B, N, device, CF_DD_CHI)
+        ref, scale = cf_cuda.cf_dd(*inputs)
+        for team in cf_cuda.TEAMS:
+            f, _ = cf_cuda._launch(*inputs, team, extended=True)
+            teams[team] = float(((f - ref).abs() / scale).max())
+        log(f"S1-X every team at B={B}, N={N}: largest error "
+            f"{max(teams.values()):.3e} of |U| + |T| (bound {CF_DD_TOL:.0e})")
+        if max(teams.values()) > CF_DD_TOL:
+            raise RuntimeError(f"S1-X: a team misses its plain version: "
+                               f"{teams}")
+    # The mixed batch: spins 0.97-0.999, a tier straddling CHI_EXTENDED.
+    B, N = 64, 8192 if device != "cpu" else 300
+    w, _, A, s, m, n_inv, _ = cf_inputs(rng, B, N, device)
+    a = torch.as_tensor(0.5 * np.linspace(0.97, 0.999, B), device=device)
+    ext = 2.0 * a > cf_cuda.CHI_EXTENDED
+    before = (cf_cuda.launches, cf_cuda.dd_launches)
+    f, scale = cf_cuda.leaver_cf(w, a, A, s, m, n_inv, N, with_scale=True)
+    mixed_launches = (cf_cuda.launches - before[0],
+                      cf_cuda.dd_launches - before[1])
+    same = {}
+    for name, sel in (("fp64", ~ext), ("dd", ext)):
+        g, g_scale = cf_cuda.leaver_cf(w[sel], a[sel], A[sel], s, m,
+                                       n_inv[sel], N, with_scale=True)
+        same[name] = bool(torch.equal(f[sel], g)
+                          and torch.equal(scale[sel], g_scale))
+    log(f"S1-X mixed batch (B={B}, N={N}, {int(ext.sum())} elements beyond "
+        f"chi = {cf_cuda.CHI_EXTENDED}): FP64 elements bit for bit an "
+        f"FP64-only call: {same['fp64']}; double-double elements a "
+        f"double-double-only call: {same['dd']}; launches (FP64, "
+        f"double-double) {mixed_launches}")
+    if not (same["fp64"] and same["dd"]):
+        raise RuntimeError("S1-X: the mixed batch's elements differ from "
+                           "their single-arithmetic calls")
+    if device != "cpu" and mixed_launches != (1, 1):
+        raise RuntimeError(f"S1-X: the mixed batch launched {mixed_launches}")
+    return out, dict(teams=teams, mixed=dict(batch=B, N=N,
+                                             extended=int(ext.sum()),
+                                             launches=list(mixed_launches),
+                                             **same))
 
 
 def _table_rows(s):
@@ -3417,8 +3740,12 @@ def resolve_rows(problem, device, gpu):
             f"{rec['cf_s']:.2f} s by events in {rec['cf_launches']} "
             f"launches, eig "
             f"{rec['eig_s']:.2f} s in {rec['eig_calls']} calls "
-            f"({rec['eig_matrices']} matrices), rest {rec['rest_s']:.2f} s")
+            f"({rec['eig_matrices']} matrices), rest {rec['rest_s']:.2f} s; "
+            f"double-double CF {rec['cf_dd_launches']} launches, "
+            f"{_opt_s(rec['cf_dd_s'])} by events")
         for k, (tol_lo, tol_hi) in RESOLVE_TOL.items():
+            if (s, l, m, n) == (-2, 3, -3, 5) and k == "omega":
+                tol_hi = RESOLVE_335_TOL
             if not (g[k][0] <= tol_lo and g[k][1] <= tol_hi):
                 raise RuntimeError(f"S2 ({l},{m},{n}) s={s}: {k} gap {g[k]} "
                                    f"beyond {(tol_lo, tol_hi)}")
@@ -3476,8 +3803,9 @@ def on_demand_modes(problem, device):
     pin_gap = abs(w11 - PIN_OMEGA)
     log(f"S3 (11,2,0) on demand ({device}): omega({PIN_CHI}) = {w11:.10f}, "
         f"{pin_gap:.2e} from the JAX package's pin (bound {PIN_TOL:.0e}); "
-        f"{rec['wall_s']:.2f} s, {rec['cf_launches']} CF launches, CF "
-        f"{rec['cf_s']:.2f} s by events, eig {rec['eig_s']:.2f} s")
+        f"{rec['wall_s']:.2f} s, {rec['cf_launches']} CF launches (and "
+        f"{rec['cf_dd_launches']} double-double), CF {rec['cf_s']:.2f} s by "
+        f"events, eig {rec['eig_s']:.2f} s")
     if not (pin_gap <= PIN_TOL and abs(step2 - step1) < 0.05 * step1
             and abs(w11.imag - w10.imag) < 0.01):
         raise RuntimeError("S3: (11,2,0) misses the pin or the eikonal trend")
@@ -3493,7 +3821,7 @@ def on_demand_modes(problem, device):
     log(f"S3 (5,5,8) on demand ({device}): omega(0.7) = {w8:.10f} below "
         f"(5,5,7) {w7:.10f}, a step {ratio:.3f} x the (5,5,6) -> (5,5,7) "
         f"one (bound 0.5-2); {rec8['wall_s']:.2f} s, {rec8['cf_launches']} "
-        f"CF launches")
+        f"CF launches (and {rec8['cf_dd_launches']} double-double)")
     if not (w8.imag < w7.imag < 0 and w8.real > 0 and nz[0]
             and 0.5 < ratio < 2.0):
         raise RuntimeError("S3: (5,5,8) fails the ordering checks")
@@ -3518,8 +3846,8 @@ def multiplet_check(problem, device):
     chi = z["chi"][sel]
     tracks, rec, clk = _clocked(
         lambda: multiplet_tracks(2, chi, s=-2, verbose=False, device=device))
-    rec["cf_kernel_s"] = (None if device == "cpu"
-                          else cf_replay_s(clk.shapes, device))
+    rec["cf_kernel_s"] = (None if device == "cpu" else cf_replay_s(
+        clk.launch_shapes[False], device)[0])
     baked = sorted(int(n) for l, m, n in z["keys"]
                    if l == 2 and m == 2 and n >= 8)
     held = chi >= MULTIPLET_CHI_MIN
@@ -3551,10 +3879,15 @@ def on_demand_fit(problem, device):
     on-demand (5,2,8) through ``mismatch_t0_mode_sets`` at the problem's
     width with dedup on: the mode solved on the card inside the call (the
     CF kernel), then one team launch of the solve; held to the plain-solve
-    route and the NumPy oracle.  Returns (record, the largest CF launch's
+    route and the NumPy oracle.  The solve's points that kept the coarse
+    track are counted (NewtonWatch): none may; and where the tables hold
+    the full spin grid, its omega beyond chi = 0.985 is held to the JAX
+    package's 80-bit pins (PIN_528).  Returns (record, the solve's
+    SolverClock: the largest CF call's and double-double launch's
     inputs)."""
     from qnmfits_tpu_torch import batched, engine, mismatch_t0_mode_sets
     from qnmfits_tpu_torch.ops import chol_cuda
+    from qnmfits_tpu_torch.spectrum import solver
     if (5, 2, 8) in engine.default_tables().row:
         raise RuntimeError("F1: (5,2,8) is already in the tables")
     sets = [F1_SET]
@@ -3563,10 +3896,24 @@ def on_demand_fit(problem, device):
     kw = dict(T_array=problem["T"], spherical_modes=SPH, dedup=True,
               device=device)
     chol_cuda.launches = chol_cuda.wide_launches = 0
-    mm, rec, clk = _clocked(lambda: mismatch_t0_mode_sets(*args, **kw))
+    with NewtonWatch(solver) as watch:
+        mm, rec, clk = _clocked(lambda: mismatch_t0_mode_sets(*args, **kw))
     launches, wide = chol_cuda.launches, chol_cuda.wide_launches
-    rec["cf_kernel_s"] = (None if device == "cpu"
-                          else cf_replay_s(clk.shapes, device))
+    rec["cf_kernel_s"] = rec["cf_dd_kernel_s"] = None
+    if device != "cpu":
+        rec["cf_kernel_s"] = cf_replay_s(clk.launch_shapes[False], device)[0]
+        rec["cf_dd_kernel_s"], rec["cf_dd_kernel_ms_by_shape"] = cf_replay_s(
+            clk.launch_shapes[True], device, extended=True)
+    tables = engine.default_tables()
+    chi = tables.chi
+    w528 = tables.omega[tables.row[(5, 2, 8)]]
+    coarse = watch.on_coarse_track(len(chi))
+    pins = [(c, abs(w528[i] - PIN_528[float(c)][0]))
+            for i, c in enumerate(chi) if c > RESOLVE_SPLIT]
+    pin_gap = max((g for _, g in pins), default=None)
+    if pins and len(pins) != len(PIN_528):
+        raise RuntimeError(f"F1: the tables' spins beyond {RESOLVE_SPLIT} "
+                           f"are not PIN_528's")
     t = time.perf_counter()
     mismatch_t0_mode_sets(*args, **kw)
     warm = time.perf_counter() - t
@@ -3585,6 +3932,17 @@ def on_demand_fit(problem, device):
         f"solve (CF {rec['cf_s']:.2f} s by events, kernel "
         f"{_opt_s(rec['cf_kernel_s'])} replayed, eig {rec['eig_s']:.2f} s), "
         f"{warm:.3f} s warm")
+    tiers = [(t["tier"], [c["N"] for c in t["calls"]]) for t in watch.tiers()]
+    log(f"F1 (5,2,8): {coarse} of {len(chi)} points on the coarse track "
+        f"(bound 0); tiers and their calls' depths {tiers}; omega beyond "
+        f"chi = {RESOLVE_SPLIT} "
+        + (f"{pin_gap:.2e} from the JAX package's 80-bit pins (bound "
+           f"{PIN_528_TOL:.0e})" if pins else "not held (no such spins at "
+           "this size)")
+        + f"; double-double CF {rec['cf_dd_launches']} launches of "
+        f"{rec['cf_dd_launches'] + rec['cf_launches']}, "
+        f"{_opt_s(rec['cf_dd_s'])} by events, kernel "
+        f"{_opt_s(rec['cf_dd_kernel_s'])} replayed")
     if mm.shape != (1, len(problem["t0s"])) or not np.all(np.isfinite(mm)):
         raise RuntimeError("F1: bad mismatches")
     if device != "cpu" and (launches != 1 or wide or not rec["cf_launches"]):
@@ -3593,20 +3951,31 @@ def on_demand_fit(problem, device):
     if not (route[0] <= MAIN_TOL and route[1] <= PRE_TOL
             and oracle[0] <= ORACLE_TOL):
         raise RuntimeError("F1 disagrees with its plain route or the oracle")
+    if coarse or (pins and not pin_gap <= PIN_528_TOL):
+        raise RuntimeError(f"F1's (5,2,8): {coarse} points on the coarse "
+                           f"track; {pin_gap} from the 80-bit pins")
+    if device != "cpu" and pins and not rec["cf_dd_launches"]:
+        raise RuntimeError("F1 solved its extremal spins without the "
+                           "double-double kernel")
     path = dict(key="f1", name="F1 (2,2,n<4) + on-demand (5,2,8)",
                 launches=launches, wide_launches=wide,
                 expected_launches=1, cf_launches=rec["cf_launches"],
+                cf_dd_launches=rec["cf_dd_launches"],
                 wall_s=rec["wall_s"], warm_wall_s=warm, route_in=route[0],
                 route_pre=route[1], oracle_in=oracle[0],
-                oracle_pre=oracle[1], solve=rec)
-    return path, clk.largest
+                oracle_pre=oracle[1], coarse_track_points=coarse,
+                pin_gap=pin_gap, tiers=watch.tiers(),
+                coarse_calls=watch.coarse_calls,
+                coarse_failed_chi=watch.coarse_failed_chi, solve=rec)
+    return path, clk
 
 
 def run_spectrum(problem, device, gpu=None):
     """Phase 12: S1-S4 and F1, with the track cache in a temporary
     directory (and, where the problem cuts the tables' spins, the entry
     points' tables swapped for the cut ones for the phase).  Returns (path
-    records, the CF kernel's JSON record, the phase's wall)."""
+    records, the CF kernels' JSON records (FP64, double-double), the
+    phase's wall)."""
     import shutil
     import tempfile
     from qnmfits_tpu_torch import engine
@@ -3621,24 +3990,37 @@ def run_spectrum(problem, device, gpu=None):
         engine._cached_evaluator.cache_clear()
     try:
         # The solves first, S1's profiles of the kernel after them.
-        f1, largest = on_demand_fit(problem, device)
+        f1, f1_clock = on_demand_fit(problem, device)
         s2 = resolve_rows(problem, device, gpu)
         s3 = on_demand_modes(problem, device)
         s4 = multiplet_check(problem, device)
         s1 = cf_checks(problem, device, gpu)
+        s1x, s1x_more = cf_dd_checks(problem, device, gpu)
     finally:
         tables.TRACK_CACHE, engine.default_tables = saved
         engine._cached_evaluator.cache_clear()
         shutil.rmtree(cache, ignore_errors=True)
-    # The kernel on the largest launch of F1's solve, as the main path
-    # gave it.
-    main = check_cf(largest, device)
-    log(f"CF kernel on F1's largest launch (B={main['batch']}, "
+    # The FP64 kernel on the largest CF call of F1's solve, all its
+    # elements (those beyond CHI_EXTENDED too), as PR 14 timed it; and the
+    # double-double kernel on its largest launch in that solve.
+    main = check_cf(f1_clock.largest, device)
+    log(f"CF kernel on F1's largest call (B={main['batch']}, "
         f"N={main['N']}, team {main['team']}, {main['segment']} steps a "
         f"thread) on {gpu or device}: {main['ms']:.4f} ms (call "
         f"{main['call_ms']:.4f} ms), plain {main['plain_ms']:.2f} ms, bound "
         f"{main['bound_ms']:.3e} ms ({main['bound_by']}); "
         f"{main['rel_err']:.3e} of |U| + |T|")
+    dd_main = (None if f1_clock.largest_dd is None else
+               check_cf(f1_clock.largest_dd, device, extended=True))
+    if dd_main is not None:
+        log(f"double-double CF kernel on F1's largest launch of it "
+            f"(B={dd_main['batch']}, N={dd_main['N']}, team "
+            f"{dd_main['team']}) on {gpu or device}: {dd_main['ms']:.4f} ms "
+            f"(call {dd_main['call_ms']:.4f} ms), plain "
+            f"{dd_main['plain_ms']:.2f} ms, bound {dd_main['bound_ms']:.3e} "
+            f"ms ({dd_main['bound_by']}); {dd_main['rel_err']:.3e} of "
+            f"|U| + |T|")
+    dd_ref = dd_main or s1x[-1]
     record = dict(
         name="leaver_cf", route="cuda",
         source="qnmfits_tpu_torch/csrc/leaver_cf.cu",
@@ -3656,11 +4038,28 @@ def run_spectrum(problem, device, gpu=None):
         rel_err_max=max([main["rel_err"]] + [r["rel_err"] for r in s1]),
         checks=s1, f1_solve=f1["solve"], resolve=s2, on_demand=s3,
         multiplets=s4)
+    dd_record = dict(
+        name="leaver_cf_dd", route="cuda",
+        source="qnmfits_tpu_torch/csrc/leaver_cf.cu",
+        replaces="qnmfits_tpu/spectrum/csrc/cf_kernel.cpp:100",
+        launches=f1["cf_dd_launches"],
+        max_abs_err=max(r["max_abs_err"] for r in s1x + [dd_ref]),
+        ms=dd_ref["ms"], plain_ms=dd_ref["plain_ms"],
+        bound_ms=dd_ref["bound_ms"], bound_by=dd_ref["bound_by"],
+        library_ms=None,
+        library="none: no PyTorch call evaluates a continued fraction",
+        arithmetic="double-double, spins beyond cf_cuda.CHI_EXTENDED",
+        bound_share=dd_ref["bound_share"], batch=dd_ref["batch"],
+        N=dd_ref["N"], team=dd_ref["team"], segment=dd_ref["segment"],
+        call_ms=dd_ref["call_ms"], timed_by=dd_ref["timed_by"],
+        from_f1=dd_main is not None,
+        rel_err_max=max(r["rel_err"] for r in s1x + [dd_ref]),
+        checks=s1x, **s1x_more)
     wall = time.perf_counter() - t
     rows = sum(r["key"] != "eig_where" for r in s2)
-    log(f"phase 12: S1 {len(s1)} batches, S2 {rows} rows, S3, "
-        f"S4 {'run' if s4 else 'not run'}, F1 in {wall:.1f} s")
-    return [f1], record, wall
+    log(f"phase 12: S1 {len(s1)} batches, S1-X {len(s1x)}, S2 {rows} rows, "
+        f"S3, S4 {'run' if s4 else 'not run'}, F1 in {wall:.1f} s")
+    return [f1], [record, dd_record], wall
 
 
 # ---------------------------------------------------------------------------
@@ -4029,6 +4428,7 @@ def main():
 
     device = "cuda"
     max_abs = check_kernel_sizes(device)
+    check_jitter(device)
     random_wide = time_wide(gpu)
     t = time.perf_counter()
     problem = build_problem(**FULL)
@@ -4076,7 +4476,7 @@ def main():
         rec["waveform_paths"] = {p["key"]: _summary(p) for p in waveforms
                                  if (p["wide_launches"] > 0) == (rec is wide)}
     record["waveforms"] = wave_info
-    spectrum, cf_record, phase12_wall = run_spectrum(problem, device, gpu)
+    spectrum, cf_records, phase12_wall = run_spectrum(problem, device, gpu)
     mesh = run_mesh(problem, device, gpu)
     record["mesh_paths"] = {
         f"{layout}/{key}": dict(launches=p["launches"],
@@ -4096,7 +4496,7 @@ def main():
                       "phase11_wall_s": phase11_wall,
                       "phase12_wall_s": phase12_wall}), flush=True)
     print(json.dumps({"mesh": mesh}), flush=True)
-    print(json.dumps({"kernels": [record, wide, cf_record]}), flush=True)
+    print(json.dumps({"kernels": [record, wide, *cf_records]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

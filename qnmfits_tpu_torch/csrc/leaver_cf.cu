@@ -1,13 +1,19 @@
-// Batched Leaver continued fraction for Kerr QNMs, in FP64 for Hopper
-// (sm_90a), a team of threads on each element.
+// Batched Leaver continued fraction for Kerr QNMs for Hopper (sm_90a), a
+// team of threads on each element, in FP64 and in double-double.
 //
 // Replaces the native CPU kernel of the JAX package's on-demand spectrum
 // solver, qnmfits_tpu/spectrum/csrc/cf_kernel.cpp::radial_cf_batch (bound
 // by qnmfits_tpu/spectrum/cf_native.py), which evaluates
 // qnmfits_tpu/spectrum/solver.py::_cf_vec_a in 80-bit long double.  CUDA
-// has no long double: this kernel runs in FP64, the precision of the JAX
-// package's NumPy path.  Its plain version is
-// qnmfits_tpu_torch/ops/cf_cuda.py::cf_parts.
+// has no long double.  leaver_cf_kernel runs in FP64, the precision of the
+// JAX package's NumPy path (its plain version is
+// qnmfits_tpu_torch/ops/cf_cuda.py::cf_parts); leaver_cf_dd_kernel runs the
+// same design in double-double (~106 bits; plain version cf_cuda.py::cf_dd)
+// for the elements whose spin passes cf_cuda.CHI_EXTENDED (chi = 0.985):
+// there an FP64 CF's rounding noise over |f'| exceeds the step the
+// solver's Newton accepts, and the 80-bit CF converges the points FP64
+// leaves on the coarse track.  The wrapper launches each on its own subset
+// of a batch, so FP64 elements run as in an FP64-only batch.
 //
 // Per element i of a batch of B, with its own omega (Leaver units), spin
 // a, separation constant A and inversion count n_inv, and shared s, m and
@@ -80,7 +86,10 @@
 // combine (a 2 x 2 complex product and a rescale a tree level).  The work
 // spreads over B x team threads: the solver's batches (2 in the sequential
 // continuation, <= ~800 on a spin grid) take teams of 64..256 an element,
-// S1's 4096 teams of 8.
+// S1's 4096 teams of 8.  A double-double step takes 874 FP64 operations
+// (a fused multiply-add counted as 2: tau_k 66, R_k 168, the two rows
+// 640) and ~2.3x the registers; the near-extremal batches are small (a few
+// elements at depths 8192..884736), so teams of 128..256 carry them.
 
 #include <cfloat>
 #include <cmath>
@@ -371,24 +380,342 @@ QNM_HD void finish(const Mat2& P, int n_inv, int N, double a, cplx w,
   *scale = cabs_(U) + cabs_(T);
 }
 
+
+// ---------------------------------------------------------------------------
+// The double-double variant, for spins beyond ops/cf_cuda.py's
+// CHI_EXTENDED: each real an unevaluated sum hi + lo of two doubles
+// (|lo| <= ulp(hi) / 2, about 106 bits), the same segmented product in the
+// same basis.  Two-sum is written out; two-prod takes an explicit fused
+// multiply-add (__fma_rn on the card, std::fma on the host), which no
+// contraction flag touches and which rounds alike on both.  Leaver's
+// coefficients, tau_k, R_k and the Nollert tail are formed in
+// double-double from the FP64 inputs; f = U - T and |U| + |T| are rounded
+// once to FP64 at the end.  Its plain version is
+// ops/cf_cuda.py::cf_dd.
+// ---------------------------------------------------------------------------
+
+QNM_HD double exact_fma(double a, double b, double c) {
+#ifdef __CUDA_ARCH__
+  return __fma_rn(a, b, c);
+#else
+  return std::fma(a, b, c);
+#endif
+}
+
+struct dd {
+  double hi, lo;
+};
+
+QNM_HD dd two_sum(double a, double b) {
+  const double s = a + b, bb = s - a;
+  return dd{s, (a - (s - bb)) + (b - bb)};
+}
+// a + b where |a| >= |b| (or a = 0).
+QNM_HD dd fast_two_sum(double a, double b) {
+  const double s = a + b;
+  return dd{s, b - (s - a)};
+}
+QNM_HD dd two_prod(double a, double b) {
+  const double p = a * b;
+  return dd{p, exact_fma(a, b, -p)};
+}
+QNM_HD dd operator+(dd x, dd y) {
+  dd s = two_sum(x.hi, y.hi);
+  const dd t = two_sum(x.lo, y.lo);
+  s = fast_two_sum(s.hi, s.lo + t.hi);
+  return fast_two_sum(s.hi, s.lo + t.lo);
+}
+QNM_HD dd operator+(dd x, double y) {
+  const dd s = two_sum(x.hi, y);
+  return fast_two_sum(s.hi, s.lo + x.lo);
+}
+QNM_HD dd operator-(dd x) { return dd{-x.hi, -x.lo}; }
+QNM_HD dd operator-(dd x, dd y) { return x + (-y); }
+QNM_HD dd operator-(dd x, double y) { return x + (-y); }
+QNM_HD dd operator*(dd x, dd y) {
+  const dd p = two_prod(x.hi, y.hi);
+  return fast_two_sum(p.hi, p.lo + (x.hi * y.lo + x.lo * y.hi));
+}
+QNM_HD dd operator*(dd x, double y) {
+  const dd p = two_prod(x.hi, y);
+  return fast_two_sum(p.hi, p.lo + x.lo * y);
+}
+QNM_HD dd operator/(dd x, dd y) {
+  const double q1 = x.hi / y.hi;
+  const dd r1 = x - y * q1;
+  const double q2 = r1.hi / y.hi;
+  const dd r2 = r1 - y * q2;
+  return fast_two_sum(q1, q2) + r2.hi / y.hi;
+}
+// One Newton step from the FP64 root: s + (x - s^2) / (2 s).
+QNM_HD dd dd_sqrt(dd x) {
+  if (!(x.hi > 0.0)) return dd{0.0, 0.0};
+  const double s = sqrt(x.hi);
+  const dd s2 = two_prod(s, s);
+  return fast_two_sum(s, ((x.hi - s2.hi) - s2.lo + x.lo) / (2.0 * s));
+}
+QNM_HD dd dd_of(double x) { return dd{x, 0.0}; }
+// x * f for f a power of two: exact on both parts.
+QNM_HD dd scaled(dd x, double f) { return dd{x.hi * f, x.lo * f}; }
+
+// A complex double-double.
+struct zdd {
+  dd re, im;
+};
+
+QNM_HD zdd widen(cplx x) { return zdd{dd_of(x.re), dd_of(x.im)}; }
+QNM_HD zdd operator+(zdd x, zdd y) { return zdd{x.re + y.re, x.im + y.im}; }
+QNM_HD zdd operator-(zdd x, zdd y) { return zdd{x.re - y.re, x.im - y.im}; }
+QNM_HD zdd operator-(zdd x) { return zdd{-x.re, -x.im}; }
+QNM_HD zdd operator+(zdd x, double y) { return zdd{x.re + y, x.im}; }
+QNM_HD zdd operator-(zdd x, double y) { return zdd{x.re - y, x.im}; }
+QNM_HD zdd operator*(zdd x, zdd y) {
+  return zdd{x.re * y.re - x.im * y.im, x.re * y.im + x.im * y.re};
+}
+QNM_HD zdd operator*(zdd x, dd y) { return zdd{x.re * y, x.im * y}; }
+QNM_HD zdd operator*(zdd x, double y) { return zdd{x.re * y, x.im * y}; }
+QNM_HD zdd operator/(zdd x, zdd y) {
+  const dd den = y.re * y.re + y.im * y.im;
+  return zdd{(x.re * y.re + x.im * y.im) / den,
+             (x.im * y.re - x.re * y.im) / den};
+}
+QNM_HD zdd operator/(zdd x, dd y) { return zdd{x.re / y, x.im / y}; }
+// i x, exact.
+QNM_HD zdd times_i(zdd x) { return zdd{-x.im, x.re}; }
+QNM_HD zdd scaled(zdd x, double f) { return zdd{scaled(x.re, f), scaled(x.im, f)}; }
+QNM_HD dd zabs(zdd x) { return dd_sqrt(x.re * x.re + x.im * x.im); }
+// Principal square root (branch cut on the negative real axis).
+QNM_HD zdd zsqrt(zdd z) {
+  if (z.re.hi == 0.0 && z.im.hi == 0.0) return zdd{dd_of(0.0), z.im};
+  const dd t = dd_sqrt(scaled(dd_sqrt(z.re * z.re + z.im * z.im) +
+                                  (z.re.hi < 0.0 ? -z.re : z.re),
+                              0.5));
+  const dd half_im = scaled(z.im, 0.5) / t;
+  if (z.re.hi >= 0.0) return zdd{t, half_im};
+  return zdd{z.im.hi < 0.0 ? -half_im : half_im, z.im.hi < 0.0 ? -t : t};
+}
+QNM_HD double rounded(dd x) { return x.hi + x.lo; }
+
+// The recurrence's coefficients (as Rec) in double-double, and the
+// basis's, which the team's segments read.
+struct RecDD {
+  zdd c0, A1, B1, c3, G1, G0;
+  zdd t1, t0, r3, r2, r1, r0;
+};
+struct BasisDD {
+  zdd t1, t0, r3, r2, r1, r0;
+};
+
+QNM_HD dd spin_b_dd(double a) {
+  return dd_sqrt(dd_of(1.0) - scaled(two_prod(a, a), 4.0));
+}
+
+// Leaver's c0..c4 from the FP64 inputs, then the polynomials' coefficients,
+// as leaver_rec: q = 2 / b, so that 2i / b phi = i q phi, 4i / b phi = 2 i
+// q phi and (4 w + 2i) / b phi = (2 w + i) q phi.
+QNM_HD RecDD leaver_rec_dd(int s, int m, double a, cplx w_in, cplx A_in) {
+  const dd b = spin_b_dd(a);
+  const dd q = dd_of(2.0) / b;
+  const zdd w = widen(w_in), A = widen(A_in), iw = times_i(w);
+  const zdd phi{dd_of(0.5 * w_in.re) - two_prod(a, static_cast<double>(m)),
+                dd_of(0.5 * w_in.im)};
+  const zdd iq_phi = times_i(phi * q);
+  const zdd tail = ((scaled(w, 2.0) + zdd{dd_of(0.0), dd_of(1.0)}) * q) * phi;
+  const zdd w2 = w * w;
+  const zdd c0 = -iw - iq_phi + (1.0 - s);
+  const zdd c1 = scaled(iw, 2.0) * (b + 2.0) + scaled(iq_phi, 2.0) - 4.0;
+  const zdd c2 = -(iw * 3.0) - iq_phi + (s + 3.0);
+  const zdd c3 = w2 * (scaled(b, 2.0) + 4.0 - two_prod(a, a)) -
+                 w * two_prod(a, 2.0 * m) + iw * (b + 2.0) - A + tail -
+                 (s + 1.0);
+  const zdd c4 = -scaled(w2, 2.0) - iw * (2.0 * s + 3.0) - tail + (s + 1.0);
+  RecDD r;
+  r.c0 = c0;
+  r.A1 = c0 + 1.0;
+  r.B1 = c1 + 2.0;
+  r.c3 = c3;
+  r.G1 = c2 - 3.0;
+  r.G0 = c4 - c2 + 2.0;
+  const zdd g1 = r.G1 + 2.0, g0 = r.G1 + r.G0 + 1.0;
+  r.t1 = scaled(c1, 0.5);
+  r.t0 = scaled(r.t1 + c3 + 1.0, 0.5);
+  r.r3 = g1 + r.A1 + scaled(r.t1, 2.0);
+  r.r2 = g0 + r.A1 * g1 + c0 - r.t1 * r.t1 + scaled(r.t0, 2.0);
+  r.r1 = r.A1 * g0 + c0 * g1 - scaled(r.t1 * r.t0, 2.0);
+  r.r0 = c0 * g0 - r.t0 * r.t0;
+  return r;
+}
+
+QNM_HD BasisDD basis_dd(const RecDD& r) {
+  return BasisDD{r.t1, r.t0, r.r3, r.r2, r.r1, r.r0};
+}
+
+// n (an integer <= kMaxN) and n^2 are exact doubles.
+QNM_HD zdd alpha_dd(double n, const RecDD& r) {
+  return r.A1 * n + r.c0 + n * n;
+}
+QNM_HD zdd beta_dd(double n, const RecDD& r) {
+  return r.B1 * n + r.c3 + (-2.0 * (n * n));
+}
+QNM_HD zdd gamma_dd(double n, const RecDD& r) {
+  return r.G1 * n + r.G0 + n * n;
+}
+QNM_HD zdd tau_dd(double n, zdd t1, zdd t0) { return (t1 - n) * n + t0; }
+
+struct Mat2dd {
+  zdd a, b, c, d;
+};
+
+QNM_HD Mat2dd identity_dd() {
+  const zdd z{dd_of(0.0), dd_of(0.0)}, o{dd_of(1.0), dd_of(0.0)};
+  return Mat2dd{o, z, z, o};
+}
+QNM_HD Mat2dd operator*(const Mat2dd& x, const Mat2dd& y) {
+  return Mat2dd{x.a * y.a + x.b * y.c, x.a * y.b + x.b * y.d,
+                x.c * y.a + x.d * y.c, x.c * y.b + x.d * y.d};
+}
+QNM_HD int max_exp(const zdd& x) {
+  return imax(biased_exp(x.re.hi), biased_exp(x.im.hi));
+}
+QNM_HD double maxabs(const zdd& x) {
+  return fmax(fabs(x.re.hi), fabs(x.im.hi));
+}
+// As rescale(Mat2&), on the leading parts; both parts take the power of two.
+QNM_HD void rescale(Mat2dd& S) {
+  const int e = imax(imax(max_exp(S.a), max_exp(S.b)),
+                     imax(max_exp(S.c), max_exp(S.d)));
+  const double f =
+      e >= 1 && e <= 2045
+          ? pow2_of_exp(e)
+          : pow2_scale(fmax(fmax(maxabs(S.a), maxabs(S.b)),
+                            fmax(maxabs(S.c), maxabs(S.d))));
+  S.a = scaled(S.a, f);
+  S.b = scaled(S.b, f);
+  S.c = scaled(S.c, f);
+  S.d = scaled(S.d, f);
+}
+
+// S <- S Mh_k at n = k, as step().
+QNM_HD void step(Mat2dd& S, double n, const BasisDD& p) {
+  const zdd tau = tau_dd(n, p.t1, p.t0);
+  const zdd R = ((p.r3 * n + p.r2) * n + p.r1) * n + p.r0;
+  const zdd a = S.a * tau + S.b * R;
+  const zdd c = S.c * tau + S.d * R;
+  S.b = S.b * tau - S.a;
+  S.d = S.d * tau - S.c;
+  S.a = a;
+  S.c = c;
+}
+
+// As segment(): rescaled after every kRescale steps and after the last.
+QNM_HD Mat2dd segment(int lo, int hi, const BasisDD& p) {
+  Mat2dd S = identity_dd();
+  double n = static_cast<double>(lo);
+  for (int k = lo; k < hi; ++k) {
+    step(S, n, p);
+    n += 1.0;
+    if ((k - lo) % kRescale == kRescale - 1) rescale(S);
+  }
+  rescale(S);
+  return S;
+}
+
+// As upward().
+QNM_HD zdd upward_dd(int n_inv, const RecDD& r) {
+  zdd p0{dd_of(1.0), dd_of(0.0)}, p1 = beta_dd(0.0, r);
+  for (int k = 1; k <= n_inv; ++k) {
+    const double n = static_cast<double>(k);
+    const zdd p2 = beta_dd(n, r) * p1 -
+                   alpha_dd(n - 1.0, r) * gamma_dd(n, r) * p0;
+    p0 = p1;
+    p1 = p2;
+    if (k % kRescale == 0) {
+      const double f = pow2_scale(fmax(maxabs(p0), maxabs(p1)));
+      p0 = scaled(p0, f);
+      p1 = scaled(p1, f);
+    }
+  }
+  return p1 / p0;
+}
+
+// As finish(), the coefficients formed again from the inputs (the team's
+// shared memory holds only the basis).
+QNM_HD void finish_dd(const Mat2dd& P, int n_inv, int N, int s, int m,
+                      double a, cplx w_in, cplx A_in, cplx* f,
+                      double* scale) {
+  const RecDD r = leaver_rec_dd(s, m, a, w_in, A_in);
+  zdd u = -zsqrt(scaled(times_i(widen(w_in) * spin_b_dd(a)), -2.0));
+  if (u.re.hi > 0.0) u = -u;
+  const zdd v = scaled(u * u + 0.5 + r.G1 - r.A1, 0.5);
+  const double dN = static_cast<double>(N);
+  const zdd TN = -alpha_dd(dN, r) *
+                 (u / dd_sqrt(dd_of(dN)) + v / dd_of(dN) + 1.0);
+  const zdd xN = TN - tau_dd(dN, r.t1, r.t0);
+  const double lo = static_cast<double>(n_inv < N ? n_inv : N);
+  const zdd T = tau_dd(lo, r.t1, r.t0) + (P.c + P.d * xN) / (P.a + P.b * xN);
+  const zdd U = upward_dd(n_inv, r);
+  const zdd d = U - T;
+  *f = mk(rounded(d.re), rounded(d.im));
+  *scale = rounded(zabs(U) + zabs(T));
+}
+
+// The two arithmetics of one element, for the team's code below: what the
+// team's first warp leaves in shared memory (Coef), its segments' product
+// (Mat), and the finish.
+struct F64 {
+  using Coef = Rec;
+  using Mat = Mat2;
+  static QNM_HD Coef coef(int s, int m, double a, cplx w, cplx A) {
+    return leaver_rec(s, m, a, w, A);
+  }
+  static QNM_HD Mat ident() { return identity2(); }
+  static QNM_HD void fin(const Mat& P, int n_inv, int N, int, int, double a,
+                         cplx w, cplx, const Coef& c, cplx* f,
+                         double* scale) {
+    finish(P, n_inv, N, a, w, c, f, scale);
+  }
+};
+struct DD {
+  using Coef = BasisDD;
+  using Mat = Mat2dd;
+  static QNM_HD Coef coef(int s, int m, double a, cplx w, cplx A) {
+    return basis_dd(leaver_rec_dd(s, m, a, w, A));
+  }
+  static QNM_HD Mat ident() { return identity_dd(); }
+  static QNM_HD void fin(const Mat& P, int n_inv, int N, int s, int m,
+                         double a, cplx w, cplx A, const Coef&, cplx* f,
+                         double* scale) {
+    finish_dd(P, n_inv, N, s, m, a, w, A, f, scale);
+  }
+};
+
 }  // namespace
 
 #ifdef __CUDACC__
 
 namespace {
 
+__device__ __forceinline__ double shfl_down(double x, int off) {
+  return __shfl_down_sync(0xffffffffu, x, off);
+}
 __device__ __forceinline__ cplx shfl_down(cplx x, int off) {
-  return mk(__shfl_down_sync(0xffffffffu, x.re, off),
-            __shfl_down_sync(0xffffffffu, x.im, off));
+  return mk(shfl_down(x.re, off), shfl_down(x.im, off));
+}
+__device__ __forceinline__ dd shfl_down(dd x, int off) {
+  return dd{shfl_down(x.hi, off), shfl_down(x.lo, off)};
+}
+__device__ __forceinline__ zdd shfl_down(zdd x, int off) {
+  return zdd{shfl_down(x.re, off), shfl_down(x.im, off)};
 }
 
 // The ordered product of each group of `width` lanes' matrices (a power
 // of two <= 32; j the lane's index in its group) by the pairwise tree;
 // the group's first lane holds it.
-__device__ __forceinline__ Mat2 tree_product(Mat2 S, int j, int width) {
+template <class Mat>
+__device__ __forceinline__ Mat tree_product(Mat S, int j, int width) {
   for (int off = 1; off < width; off <<= 1) {
-    const Mat2 Q{shfl_down(S.a, off), shfl_down(S.b, off),
-                 shfl_down(S.c, off), shfl_down(S.d, off)};
+    const Mat Q{shfl_down(S.a, off), shfl_down(S.b, off),
+                shfl_down(S.c, off), shfl_down(S.d, off)};
     if ((j & (2 * off - 1)) == 0) {
       S = S * Q;
       rescale(S);
@@ -399,19 +726,19 @@ __device__ __forceinline__ Mat2 tree_product(Mat2 S, int j, int width) {
 
 // A team of `team` threads (a power of two, 1..256) an element; a block
 // of kThreads = max(team, 128) threads holds kThreads / team elements, so
-// teams below a warp share their warp's setup, tree and finish.
-template <int kThreads>
-__global__ void __launch_bounds__(kThreads)
-    leaver_cf_kernel(long long B, const double* __restrict__ w_re,
-                     const double* __restrict__ w_im,
-                     const double* __restrict__ a,
-                     const double* __restrict__ A_re,
-                     const double* __restrict__ A_im,
-                     const int* __restrict__ n_inv_in, int s, int m, int N,
-                     int team, double* __restrict__ f_re,
-                     double* __restrict__ f_im, double* __restrict__ scale) {
-  __shared__ Rec rec_s[kThreads <= 128 ? kThreads : 1];
-  __shared__ Mat2 warp_s[kThreads / 32];
+// teams below a warp share their warp's setup, tree and finish.  K is the
+// element's arithmetic (F64 or DD).
+template <int kThreads, class K>
+__device__ __forceinline__ void team_cf(
+    long long B, const double* __restrict__ w_re,
+    const double* __restrict__ w_im, const double* __restrict__ a,
+    const double* __restrict__ A_re, const double* __restrict__ A_im,
+    const int* __restrict__ n_inv_in, int s, int m, int N, int team,
+    double* __restrict__ f_re, double* __restrict__ f_im,
+    double* __restrict__ scale) {
+  using Mat = typename K::Mat;
+  __shared__ typename K::Coef rec_s[kThreads <= 128 ? kThreads : 1];
+  __shared__ Mat warp_s[kThreads / 32];
   const int t = threadIdx.x, e = t / team, j = t % team;
   const long long i = static_cast<long long>(blockIdx.x) * (kThreads / team) +
                       e;
@@ -420,58 +747,70 @@ __global__ void __launch_bounds__(kThreads)
   // The team's first warp (all of a team below a warp) forms the
   // coefficients.
   if (j < 32 && live) {
-    const Rec r = leaver_rec(s, m, a[i], mk(w_re[i], w_im[i]),
-                             mk(A_re[i], A_im[i]));
+    const typename K::Coef r =
+        K::coef(s, m, a[i], mk(w_re[i], w_im[i]), mk(A_re[i], A_im[i]));
     if (j == 0) rec_s[e] = r;
   }
   __syncthreads();
   int lo, hi;
   lane_range(j, team, n_inv, N, &lo, &hi);
-  Mat2 S = tree_product(segment(lo, hi, rec_s[e]), j & 31,
-                        team < 32 ? team : 32);
+  Mat S = tree_product(segment(lo, hi, rec_s[e]), j & 31,
+                       team < 32 ? team : 32);
   if (team > 32) {
     // The warps' products, in order, to the team's first warp.
     const int lane = t & 31, first = (t - j) >> 5;
     if (lane == 0) warp_s[t >> 5] = S;
     __syncthreads();
     if (j >= 32) return;
-    S = tree_product(lane < team / 32 ? warp_s[first + lane] : identity2(),
+    S = tree_product(lane < team / 32 ? warp_s[first + lane] : K::ident(),
                      lane, team / 32);
   }
   if (j != 0 || !live) return;
   cplx f;
   double sc;
-  finish(S, n_inv, N, a[i], mk(w_re[i], w_im[i]), rec_s[e], &f, &sc);
+  K::fin(S, n_inv, N, s, m, a[i], mk(w_re[i], w_im[i]),
+         mk(A_re[i], A_im[i]), rec_s[e], &f, &sc);
   f_re[i] = f.re;
   f_im[i] = f.im;
   scale[i] = sc;
 }
 
+#define QNM_CF_PARAMS                                                        \
+  long long B, const double *__restrict__ w_re,                              \
+      const double *__restrict__ w_im, const double *__restrict__ a,         \
+      const double *__restrict__ A_re, const double *__restrict__ A_im,      \
+      const int *__restrict__ n_inv, int s, int m, int N, int team,          \
+      double *__restrict__ f_re, double *__restrict__ f_im,                  \
+      double *__restrict__ scale
+#define QNM_CF_ARGS \
+  B, w_re, w_im, a, A_re, A_im, n_inv, s, m, N, team, f_re, f_im, scale
+
+// The FP64 kernel and the double-double one (spins beyond CHI_EXTENDED).
 template <int kThreads>
-int launch(long long B, int team, const double* w_re, const double* w_im,
-           const double* a, const double* A_re, const double* A_im,
-           const int* n_inv, int s, int m, int N, double* f_re, double* f_im,
-           double* scale, cudaStream_t stream) {
+__global__ void __launch_bounds__(kThreads)
+    leaver_cf_kernel(QNM_CF_PARAMS) {
+  team_cf<kThreads, F64>(QNM_CF_ARGS);
+}
+template <int kThreads>
+__global__ void __launch_bounds__(kThreads)
+    leaver_cf_dd_kernel(QNM_CF_PARAMS) {
+  team_cf<kThreads, DD>(QNM_CF_ARGS);
+}
+
+template <int kThreads>
+int launch(bool extended, cudaStream_t stream, QNM_CF_PARAMS) {
   const long long per_block = kThreads / team;
-  const long long blocks = (B + per_block - 1) / per_block;
-  leaver_cf_kernel<kThreads>
-      <<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
-          B, w_re, w_im, a, A_re, A_im, n_inv, s, m, N, team, f_re, f_im,
-          scale);
+  const unsigned blocks =
+      static_cast<unsigned>((B + per_block - 1) / per_block);
+  if (extended)
+    leaver_cf_dd_kernel<kThreads><<<blocks, kThreads, 0, stream>>>(
+        QNM_CF_ARGS);
+  else
+    leaver_cf_kernel<kThreads><<<blocks, kThreads, 0, stream>>>(QNM_CF_ARGS);
   return static_cast<int>(cudaGetLastError());
 }
 
-}  // namespace
-
-// Evaluate B elements on `stream` of device `device`, a team of `team`
-// threads (a power of two, 1..256) an element.  Returns the CUDA error of
-// the launch (0 on success).
-extern "C" int qnm_leaver_cf(long long B, const double* w_re,
-                             const double* w_im, const double* a,
-                             const double* A_re, const double* A_im,
-                             const int* n_inv, int s, int m, int N, int team,
-                             double* f_re, double* f_im, double* scale,
-                             int device, void* stream) {
+int entry(bool extended, int device, void* stream, QNM_CF_PARAMS) {
   if (B <= 0) return 0;
   if (N < 1 || N > kMaxN || B > 0x7fffffffLL || team < 1 || team > 256 ||
       (team & (team - 1)) != 0)
@@ -479,29 +818,40 @@ extern "C" int qnm_leaver_cf(long long B, const double* w_re,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (team <= 128)
-    return launch<128>(B, team, w_re, w_im, a, A_re, A_im, n_inv, s, m, N,
-                       f_re, f_im, scale, st);
-  return launch<256>(B, team, w_re, w_im, a, A_re, A_im, n_inv, s, m, N,
-                     f_re, f_im, scale, st);
+  if (team <= 128) return launch<128>(extended, st, QNM_CF_ARGS);
+  return launch<256>(extended, st, QNM_CF_ARGS);
+}
+
+}  // namespace
+
+// Evaluate B elements on `stream` of device `device`, a team of `team`
+// threads (a power of two, 1..256) an element, in FP64 (qnm_leaver_cf) or
+// in double-double (qnm_leaver_cf_dd).  Returns the CUDA error of the
+// launch (0 on success).
+extern "C" int qnm_leaver_cf(QNM_CF_PARAMS, int device, void* stream) {
+  return entry(false, device, stream, QNM_CF_ARGS);
+}
+extern "C" int qnm_leaver_cf_dd(QNM_CF_PARAMS, int device, void* stream) {
+  return entry(true, device, stream, QNM_CF_ARGS);
 }
 
 #else
 
+namespace {
+
 // Host build of the same arithmetic (g++ -x c++): the same segments for a
 // team of `team` threads (any team >= 1), combined by the same pairwise
 // tree, serially.  Returns 0, or 1 on arguments the kernel refuses.
-extern "C" int qnm_leaver_cf_host(long long B, const double* w_re,
-                                  const double* w_im, const double* a,
-                                  const double* A_re, const double* A_im,
-                                  const int* n_inv, int s, int m, int N,
-                                  int team, double* f_re, double* f_im,
-                                  double* scale) {
+template <class K>
+int host_cf(long long B, const double* w_re, const double* w_im,
+            const double* a, const double* A_re, const double* A_im,
+            const int* n_inv, int s, int m, int N, int team, double* f_re,
+            double* f_im, double* scale) {
   if (N < 1 || N > kMaxN || team < 1) return 1;
-  std::vector<Mat2> P(team);
+  std::vector<typename K::Mat> P(team);
   for (long long i = 0; i < B; ++i) {
-    const cplx w = mk(w_re[i], w_im[i]);
-    const Rec r = leaver_rec(s, m, a[i], w, mk(A_re[i], A_im[i]));
+    const cplx w = mk(w_re[i], w_im[i]), A = mk(A_re[i], A_im[i]);
+    const typename K::Coef r = K::coef(s, m, a[i], w, A);
     for (int j = 0; j < team; ++j) {
       int lo, hi;
       lane_range(j, team, n_inv[i], N, &lo, &hi);
@@ -514,11 +864,32 @@ extern "C" int qnm_leaver_cf_host(long long B, const double* w_re,
       }
     }
     cplx f;
-    finish(P[0], n_inv[i], N, a[i], w, r, &f, &scale[i]);
+    K::fin(P[0], n_inv[i], N, s, m, a[i], w, A, r, &f, &scale[i]);
     f_re[i] = f.re;
     f_im[i] = f.im;
   }
   return 0;
+}
+
+}  // namespace
+
+extern "C" int qnm_leaver_cf_host(long long B, const double* w_re,
+                                  const double* w_im, const double* a,
+                                  const double* A_re, const double* A_im,
+                                  const int* n_inv, int s, int m, int N,
+                                  int team, double* f_re, double* f_im,
+                                  double* scale) {
+  return host_cf<F64>(B, w_re, w_im, a, A_re, A_im, n_inv, s, m, N, team,
+                      f_re, f_im, scale);
+}
+extern "C" int qnm_leaver_cf_dd_host(long long B, const double* w_re,
+                                     const double* w_im, const double* a,
+                                     const double* A_re, const double* A_im,
+                                     const int* n_inv, int s, int m, int N,
+                                     int team, double* f_re, double* f_im,
+                                     double* scale) {
+  return host_cf<DD>(B, w_re, w_im, a, A_re, A_im, n_inv, s, m, N, team,
+                     f_re, f_im, scale);
 }
 
 #endif

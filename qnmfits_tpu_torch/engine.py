@@ -24,8 +24,8 @@ from .spectrum.tables import (ModeIndexSet, SpectrumTables, default_tables,
                               eval_spline_np)
 
 __all__ = ["SpectrumEvaluator", "cached_evaluator", "check_spin",
-           "chunk_bounds", "dynamic_fit_systems", "fit_core", "fit_systems",
-           "fit_mismatch", "solve_fits"]
+           "chunk_bounds", "dynamic_fit_core", "dynamic_fit_systems",
+           "fit_core", "fit_systems", "fit_mismatch", "solve_fits"]
 
 
 def _raise_if_bad_spin(c: float, hi: float) -> None:
@@ -288,6 +288,21 @@ def fit_core(times, data, omega, mu, t0, w, col_mask=None, solve=None):
     mm (...)."""
     G, rhs, G_tau, r_tau, data_norm = fit_systems(times, data, omega, mu,
                                                   t0, w, col_mask)
+    C = gram_cholesky(G, rhs, solve)
+    return C, fit_mismatch(C, G_tau, r_tau, data_norm)
+
+
+def dynamic_fit_core(times, data, omega_t, mu_t, t0, w, col_mask=None,
+                     solve=None):
+    """Fit with a time-dependent Kerr spectrum and its mismatch
+    (engine.py:262): one window of ``dynamic_fit_systems``, solved by
+    ``gram_cholesky``.  times (K,); data (I, K); omega_t (K, J); mu_t
+    (I, K, J) (ones for a single series); t0 a number or a 0-d tensor; w
+    (K,) {0,1}; col_mask (J,) bool (padding slots: exactly-zero
+    amplitudes).  Returns C (J,) and mm (a 0-d tensor)."""
+    t0 = torch.as_tensor(t0, dtype=torch.float64, device=data.device)
+    G, rhs, G_tau, r_tau, data_norm = dynamic_fit_systems(
+        times, data, omega_t, mu_t, t0, w, col_mask)
     C = gram_cholesky(G, rhs, solve)
     return C, fit_mismatch(C, G_tau, r_tau, data_norm)
 

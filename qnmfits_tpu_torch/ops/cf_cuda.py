@@ -1,19 +1,27 @@
-"""The batched Leaver continued fraction as a hand-written FP64 CUDA kernel
+"""The batched Leaver continued fraction as a hand-written CUDA kernel
 (``csrc/leaver_cf.cu``) for Hopper: a team of threads on each element, the
-backward recursion as a segmented product of 2 x 2 matrices.
+backward recursion as a segmented product of 2 x 2 matrices, in FP64 or,
+for spins beyond ``CHI_EXTENDED``, in double-double.
 
 It replaces the JAX package's native CPU kernel
 ``qnmfits_tpu/spectrum/csrc/cf_kernel.cpp::radial_cf_batch`` (80-bit, bound
 by ``cf_native.py``), the hot loop of the on-demand spectrum solver
-(``spectrum/solver.py``, ``spectrum/radial.py``).  Its plain PyTorch
-version is ``cf_parts`` here: ``leaver_cf`` runs it for tensors on the CPU
-and launches the kernel for tensors on a CUDA device.
+(``spectrum/solver.py``, ``spectrum/radial.py``).  ``leaver_cf`` holds the
+rule every caller follows: elements whose spin chi = 2a exceeds
+``CHI_EXTENDED`` (0.985) are evaluated in double-double (about 106 bits,
+where an FP64 CF's rounding noise over |f'| can pass the step the solver's
+Newton accepts and leave points on the coarse track), the others in FP64,
+bit for bit as an FP64-only batch.  The plain PyTorch versions are
+``cf_parts`` (FP64) and ``cf_dd`` (double-double, on ``ops/dd.py``):
+``leaver_cf`` runs them for tensors on the CPU and launches the kernel's
+two variants for tensors on a CUDA device.
 
 ``cf_parts`` forms the recurrence coefficients of a block of depths in one
 vectorised step, with the formulas and the order of operations of the JAX
 package (its spectrum/radial.py:40-119), and loops only the two operations
-of the backward recursion.  Leaver's 2M = 1 units: spin a in [0, 0.5),
-omega_L = 2 M omega.
+of the backward recursion.  ``cf_dd`` forms the kernel's product of 2 x 2
+matrices by a pairwise tree over the depth.  Leaver's 2M = 1 units: spin a
+in [0, 0.5), omega_L = 2 M omega.
 
 The source is compiled at first use with ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface under ``build/qnmfits_tpu_torch/``
@@ -39,17 +47,23 @@ from pathlib import Path
 
 import torch
 
+from . import dd
 from .chol_cuda import BUILD_DIR, NVCC_FLAGS, _nvcc
 
-__all__ = ["build", "cf_parts", "last_plan", "leaver_cf", "leaver_coeffs",
-           "launches", "plan", "ptxas_report"]
+__all__ = ["CHI_EXTENDED", "build", "cf_dd", "cf_parts", "dd_launches",
+           "last_plan", "leaver_cf", "leaver_coeffs", "launches", "plan",
+           "ptxas_report"]
 
 SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "leaver_cf.cu"
 BUILD_LOG = BUILD_DIR / "leaver_cf_build.log"
 CF_FLAGS = (*NVCC_FLAGS, "-fmad=false")
-# The kernel's instantiations by their block: teams of 1..128 threads run
-# in blocks of 128, a team of 256 in its own block.
-KERNELS = ("block<128>", "block<256>")
+# The kernel's instantiations by their block, FP64 and double-double: teams
+# of 1..128 threads run in blocks of 128, a team of 256 in its own block.
+KERNELS = ("block<128>", "block<256>", "dd block<128>", "dd block<256>")
+# Elements whose spin chi = 2a exceeds this take the double-double variant:
+# beyond it the FP64 CF's rounding noise over |f'| can exceed the step
+# (1e-9 |omega|) the solver's lockstep Newton accepts (PERF.md, section 6).
+CHI_EXTENDED = 0.985
 # Teams are powers of two up to a block; the card's depth limit
 # (csrc/leaver_cf.cu, kMaxN).
 TEAMS = (1, 2, 4, 8, 16, 32, 64, 128, 256)
@@ -57,13 +71,17 @@ MAX_N = 1 << 20
 # plan(): the threads a launch should give each SM (~7.5 warps hide a
 # step's latency; smaller teams share a warp's setup and finish among more
 # elements), and the fewest steps a thread's segment keeps; both from
-# scripts/torch_cf_teams.py's times of every team on an H100.
+# scripts/torch_cf_teams.py's times of every team on an H100, where the
+# same rule also picks the double-double variant's fastest team at each of
+# its shapes (--extended).
 THREADS_PER_SM = 240
 MIN_SEGMENT = 16
 
-# Kernel launches since the last reset (callers set it to 0 and read it),
-# and the (team, segment length) of the last launch.
+# Kernel launches since the last reset (callers set them to 0 and read
+# them), FP64 and double-double, and the (team, segment length) of the last
+# launch of either.
 launches = 0
+dd_launches = 0
 last_plan = None
 
 
@@ -168,12 +186,228 @@ def cf_parts(omega, a, A, s: int, m: int, n_inv, N: int):
     return U, T
 
 
+# cf_dd: the steps x elements whose matrices are formed and multiplied out
+# at once (a pairwise tree within the block, at most 2^14 steps), which
+# bounds its temporaries; and the upward recurrence's rescale cadence, the
+# kernel's kRescale.
+_DD_BLOCK = 1 << 21
+_RESCALE = 8
+# The identity, as a matrix of _dd_matmul's layout.
+_EYE = (1.0, 0.0, 0.0, 0.0, 0.0, 0.0, 1.0, 0.0)
+
+
+def _dd_rec(s, m, a, w, A):
+    """The double-double coefficients of ``csrc/leaver_cf.cu``'s
+    ``leaver_rec_dd``, in its order of operations, from (B,) float64 spins
+    and complex128 omega and A: a dict of complex double-doubles."""
+    one = torch.ones_like(a)
+    b = dd.sqrt(dd.sub(dd.of(one), dd.scaled(dd.two_prod(a, a), 4.0)))
+    q = dd.div(dd.of(2.0 * one), b)
+    wz = dd.zof(w)
+    iw = dd.ztimes_i(wz)
+    phi = (dd.sub(dd.of(0.5 * w.real), dd.two_prod(a, float(m) * one)),
+           dd.of(0.5 * w.imag))
+    iq_phi = dd.ztimes_i(dd.zmul_r(phi, q))
+    tail = dd.zmul(dd.zmul_r(dd.zadd(dd.zscaled(wz, 2.0),
+                                     (dd.of(0.0 * one), dd.of(one))), q), phi)
+    w2 = dd.zmul(wz, wz)
+    c0 = dd.zadd_d(dd.zsub(dd.zneg(iw), iq_phi), 1.0 - s)
+    c1 = dd.zadd_d(dd.zadd(dd.zmul_r(dd.zscaled(iw, 2.0), dd.add_d(b, 2.0)),
+                           dd.zscaled(iq_phi, 2.0)), -4.0)
+    c2 = dd.zadd_d(dd.zsub(dd.zneg(dd.zmul_d(iw, 3.0)), iq_phi), s + 3.0)
+    c3 = dd.zmul_r(w2, dd.sub(dd.add_d(dd.scaled(b, 2.0), 4.0),
+                              dd.two_prod(a, a)))
+    c3 = dd.zsub(c3, dd.zmul_r(wz, dd.two_prod(a, 2.0 * m * one)))
+    c3 = dd.zadd(c3, dd.zmul_r(iw, dd.add_d(b, 2.0)))
+    c3 = dd.zadd_d(dd.zadd(dd.zsub(c3, dd.zof(A)), tail), -(s + 1.0))
+    c4 = dd.zsub(dd.zsub(dd.zneg(dd.zscaled(w2, 2.0)),
+                         dd.zmul_d(iw, 2.0 * s + 3.0)), tail)
+    c4 = dd.zadd_d(c4, s + 1.0)
+    G1, G0 = dd.zadd_d(c2, -3.0), dd.zadd_d(dd.zsub(c4, c2), 2.0)
+    A1 = dd.zadd_d(c0, 1.0)
+    g1, g0 = dd.zadd_d(G1, 2.0), dd.zadd_d(dd.zadd(G1, G0), 1.0)
+    t1 = dd.zscaled(c1, 0.5)
+    t0 = dd.zscaled(dd.zadd_d(dd.zadd(t1, c3), 1.0), 0.5)
+    r3 = dd.zadd(dd.zadd(g1, A1), dd.zscaled(t1, 2.0))
+    r2 = dd.zadd(dd.zsub(dd.zadd(dd.zadd(g0, dd.zmul(A1, g1)), c0),
+                         dd.zmul(t1, t1)), dd.zscaled(t0, 2.0))
+    r1 = dd.zsub(dd.zadd(dd.zmul(A1, g0), dd.zmul(c0, g1)),
+                 dd.zscaled(dd.zmul(t1, t0), 2.0))
+    r0 = dd.zsub(dd.zmul(c0, g0), dd.zmul(t0, t0))
+    return dict(c0=c0, A1=A1, B1=dd.zadd_d(c1, 2.0), c3=c3, G1=G1, G0=G0,
+                t1=t1, t0=t0, r3=r3, r2=r2, r1=r1, r0=r0, b=b)
+
+
+def _dd_poly(r, n, lin, const, quad):
+    """lin n + const + quad n^2 (n exact doubles, broadcast with the
+    coefficients), as the kernel's alpha_dd, beta_dd, gamma_dd."""
+    return dd.zadd_d(dd.zadd(dd.zmul_d(r[lin], n), r[const]), quad * n * n)
+
+
+def _dd_tau(r, n):
+    """tau_n = (t1 - n) n + t0."""
+    return dd.zadd(dd.zmul_d(dd.zadd_d(r["t1"], -n), n), r["t0"])
+
+
+# The 32 real products of a 2 x 2 complex matrix product, on matrices laid
+# out as 8 reals (a, b, c, d; real then imaginary part): for each entry
+# (row, col) and each k, x_re y_re, -x_im y_im (the real part's terms),
+# x_re y_im, x_im y_re (the imaginary part's).
+_MAT_X, _MAT_Y, _MAT_SIGN = [], [], []
+for _r in (0, 1):
+    for _c in (0, 1):
+        for _k in (0, 1):
+            _x, _y = 2 * (2 * _r + _k), 2 * (2 * _k + _c)
+            _MAT_X += [_x, _x + 1, _x, _x + 1]
+            _MAT_Y += [_y, _y + 1, _y + 1, _y]
+            _MAT_SIGN += [1.0, -1.0, 1.0, 1.0]
+
+
+def _dd_matmul(X, Y):
+    """Products X_i Y_i of complex double-double 2 x 2 matrices (hi, lo),
+    each (..., 8), in the kernel's order: per entry, each term's complex
+    product, then their sum."""
+    sign = torch.tensor(_MAT_SIGN, dtype=X[0].dtype, device=X[0].device)
+    p = dd.mul((X[0][..., _MAT_X] * sign, X[1][..., _MAT_X] * sign),
+               (Y[0][..., _MAT_Y], Y[1][..., _MAT_Y]))
+    lead = p[0].shape[:-1]
+    p = tuple(t.reshape(*lead, 4, 2, 2, 2) for t in p)
+    q = dd.add((p[0][..., 0], p[1][..., 0]), (p[0][..., 1], p[1][..., 1]))
+    out = dd.add((q[0][..., 0, :], q[1][..., 0, :]),
+                 (q[0][..., 1, :], q[1][..., 1, :]))
+    return tuple(t.reshape(*lead, 8) for t in out)
+
+
+def _pow2_scale(mx):
+    """The power of two that brings mx (> 0) into [1, 2); 1 where mx is
+    0 (the kernel's pow2_scale)."""
+    _, e = torch.frexp(mx)
+    return torch.where(mx > 0, torch.ldexp(torch.ones_like(mx), 1 - e), 1.0)
+
+
+def _dd_rescaled(X):
+    f = _pow2_scale(X[0].abs().amax(dim=-1, keepdim=True))
+    return X[0] * f, X[1] * f
+
+
+def _dd_tree(X):
+    """The ordered product X_0 X_1 ... X_{K-1} of (K, ..., 8) matrices by a
+    pairwise tree, each level rescaled by powers of two."""
+    eye = torch.tensor(_EYE, dtype=X[0].dtype, device=X[0].device)
+    while X[0].shape[0] > 1:
+        if X[0].shape[0] % 2:
+            pad = eye.expand(1, *X[0].shape[1:])
+            X = (torch.cat([X[0], pad]), torch.cat([X[1], pad * 0.0]))
+        X = _dd_rescaled(_dd_matmul((X[0][0::2], X[1][0::2]),
+                                    (X[0][1::2], X[1][1::2])))
+    return X[0][0], X[1][0]
+
+
+def _dd_where(cond, x, y):
+    """Complex double-doubles x where cond, else y."""
+    return tuple(tuple(torch.where(cond, p, q) for p, q in zip(xp, yp))
+                 for xp, yp in zip(x, y))
+
+
+def cf_dd(omega, a, A, s: int, m: int, n_inv, N: int):
+    """The plain version of the kernel's double-double variant: U - T and
+    |U| + |T| of the n_inv-times-inverted Leaver CF, each real carried as
+    a double-double (``ops/dd.py``) from the FP64 inputs and rounded once
+    at the end.  Arguments as ``cf_parts``; returns (f, scale), (B,)
+    complex128 and float64.
+
+    The backward recursion is the kernel's product of the Mh_k = [[tau_k,
+    -1], [R_k, tau_k]] in the basis of their nearly double fixed point
+    (``csrc/leaver_cf.cu``), formed by a pairwise tree over k: log2 N
+    vectorised levels of 2 x 2 products, each rescaled by a power of two,
+    in blocks of steps of at most ``_DD_BLOCK`` matrices."""
+    omega = torch.as_tensor(omega, dtype=torch.complex128)
+    B, dev = omega.shape[0], omega.device
+    a = _per_element(a, B, torch.float64, dev)
+    A = _per_element(A, B, torch.complex128, dev)
+    n_inv = _per_element(n_inv, B, torch.int64, dev)
+    r = _dd_rec(s, m, a, omega, A)
+
+    # The backward product P = Mh_{n_inv} ... Mh_{N-1}, the identity below
+    # each element's n_inv.
+    eye = torch.tensor(_EYE, dtype=torch.float64, device=dev)
+    n_lo = min(int(n_inv.min()), N) if B else N
+    step = max(64, min(1 << 14, _DD_BLOCK // max(B, 1)))
+    blocks = []
+    for lo in range(n_lo, N, step):
+        k = torch.arange(lo, min(lo + step, N), dtype=torch.float64,
+                         device=dev)[:, None]
+        tau = _dd_tau(r, k)
+        R = r["r3"]
+        for c in ("r2", "r1", "r0"):
+            R = dd.zadd(dd.zmul_d(R, k), r[c])
+        minus_one = torch.full_like(tau[0][0], -1.0)
+        zero = torch.zeros_like(minus_one)
+        hi = torch.stack([tau[0][0], tau[1][0], minus_one, zero, R[0][0],
+                          R[1][0], tau[0][0], tau[1][0]], dim=-1)
+        lo_ = torch.stack([tau[0][1], tau[1][1], zero, zero, R[0][1],
+                           R[1][1], tau[0][1], tau[1][1]], dim=-1)
+        skip = (k < n_inv[None, :])[..., None]
+        blocks.append(_dd_tree((torch.where(skip, eye, hi),
+                                torch.where(skip, 0.0, lo_))))
+    if blocks:
+        P = _dd_tree((torch.stack([b[0] for b in blocks]),
+                      torch.stack([b[1] for b in blocks])))
+    else:
+        P = (eye.expand(B, 8), torch.zeros(B, 8, dtype=torch.float64,
+                                           device=dev))
+
+    def entry(j):
+        return ((P[0][:, 2 * j], P[1][:, 2 * j]),
+                (P[0][:, 2 * j + 1], P[1][:, 2 * j + 1]))
+
+    Pa, Pb, Pc, Pd = (entry(j) for j in range(4))
+
+    # The tail's start and T at n_inv (T_N where n_inv >= N).
+    u = dd.zneg(dd.zsqrt(dd.zscaled(dd.ztimes_i(dd.zmul_r(dd.zof(omega),
+                                                          r["b"])), -2.0)))
+    u = _dd_where(u[0][0] > 0.0, dd.zneg(u), u)
+    v = dd.zscaled(dd.zsub(dd.zadd(dd.zadd_d(dd.zmul(u, u), 0.5), r["G1"]),
+                           r["A1"]), 0.5)
+    dN = float(N)
+    sqrt_N = dd.sqrt(dd.of(torch.full_like(a, dN)))
+    N_dd = dd.of(torch.full_like(a, dN))
+    TN = dd.zmul(dd.zneg(_dd_poly(r, dN, "A1", "c0", 1.0)),
+                 dd.zadd_d(dd.zadd(dd.zdiv_r(u, sqrt_N), dd.zdiv_r(v, N_dd)),
+                           1.0))
+    xN = dd.zsub(TN, _dd_tau(r, dN))
+    lo_k = torch.clamp(n_inv, max=N).to(torch.float64)
+    T = dd.zadd(_dd_tau(r, lo_k), dd.zdiv(dd.zadd(Pc, dd.zmul(Pd, xN)),
+                                           dd.zadd(Pa, dd.zmul(Pb, xN))))
+
+    # U = p_{n_inv} / p_{n_inv - 1} of the forward recurrence p_k = beta_k
+    # p_{k-1} - alpha_{k-1} gamma_k p_{k-2}, p_{-1} = 1, p_0 = beta_0.
+    p0 = (dd.of(torch.ones_like(a)), dd.of(torch.zeros_like(a)))
+    p1 = _dd_poly(r, 0.0, "B1", "c3", -2.0)
+    for k in range(1, int(n_inv.max()) + 1 if B else 1):
+        n = float(k)
+        p2 = dd.zsub(dd.zmul(_dd_poly(r, n, "B1", "c3", -2.0), p1),
+                     dd.zmul(dd.zmul(_dd_poly(r, n - 1.0, "A1", "c0", 1.0),
+                                     _dd_poly(r, n, "G1", "G0", 1.0)), p0))
+        new0, new1 = p1, p2
+        if k % _RESCALE == 0:
+            mx = torch.stack([x[0].abs() for x in (*new0, *new1)]).amax(0)
+            f = _pow2_scale(mx)
+            new0, new1 = dd.zscaled(new0, f), dd.zscaled(new1, f)
+        live = k <= n_inv
+        p0, p1 = _dd_where(live, new0, p0), _dd_where(live, new1, p1)
+    U = dd.zdiv(p1, p0)
+    d = dd.zsub(U, T)
+    f = torch.complex(dd.rounded(d[0]), dd.rounded(d[1]))
+    return f, dd.rounded(dd.add(dd.zabs(U), dd.zabs(T)))
+
+
 def plan(B: int, N: int, sm_count: int) -> tuple[int, int]:
     """(team, segment length) of a launch of B elements at depth N on a
-    card of sm_count SMs: the smallest team of ``TEAMS`` whose B x team
-    threads give each SM ``THREADS_PER_SM``, or the largest that keeps
-    ``MIN_SEGMENT`` steps a thread where none does; the segment is
-    ceil(N / team)."""
+    card of sm_count SMs, for either variant: the smallest team of
+    ``TEAMS`` whose B x team threads give each SM ``THREADS_PER_SM``, or
+    the largest that keeps ``MIN_SEGMENT`` steps a thread where none does;
+    the segment is ceil(N / team)."""
     want = THREADS_PER_SM * sm_count
     team = TEAMS[0]
     for t in TEAMS[1:]:
@@ -220,13 +454,14 @@ def ptxas_report() -> dict:
     report = {}
     # The template argument (the block) is mangled as ILi<n>E.
     for block in text.split("Compiling entry function")[1:]:
-        threads = re.search(r"leaver_cf_kernelILi(\d+)E", block)
+        threads = re.search(r"leaver_cf_(dd_)?kernelILi(\d+)E", block)
         if not threads:
             raise RuntimeError(f"unknown kernel in {BUILD_LOG}")
         spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                           block)
         regs = re.search(r"Used (\d+) registers", block)
-        report[f"block<{threads[1]}>"] = dict(registers=int(regs[1]),
+        name = f"{'dd ' if threads[1] else ''}block<{threads[2]}>"
+        report[name] = dict(registers=int(regs[1]),
                                               spill_stores=int(spill[1]),
                                               spill_loads=int(spill[2]))
     return report
@@ -236,11 +471,11 @@ def ptxas_report() -> dict:
 def _lib():
     lib = ctypes.CDLL(str(build()))
     ptr = ctypes.c_void_p
-    lib.qnm_leaver_cf.argtypes = [ctypes.c_longlong, ptr, ptr, ptr, ptr, ptr,
-                                  ptr, ctypes.c_int, ctypes.c_int,
-                                  ctypes.c_int, ctypes.c_int, ptr, ptr, ptr,
-                                  ctypes.c_int, ptr]
-    lib.qnm_leaver_cf.restype = ctypes.c_int
+    for fn in (lib.qnm_leaver_cf, lib.qnm_leaver_cf_dd):
+        fn.argtypes = [ctypes.c_longlong, ptr, ptr, ptr, ptr, ptr, ptr,
+                       ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                       ptr, ptr, ptr, ctypes.c_int, ptr]
+        fn.restype = ctypes.c_int
     return lib
 
 
@@ -266,31 +501,78 @@ def leaver_cf(omega, a, A, s: int, m: int, n_inv, N: int,
     for a batch: ``omega``, ``A`` (B,) complex128 (Leaver units), ``a`` a
     float or (B,) float64 spins, ``n_inv`` an int or (B,) integers.  With
     ``with_scale`` also |U| + |T|, the scale its cancellation is judged
-    against.  CUDA tensors launch the kernel, with ``plan``'s team; CPU
-    tensors run the plain version."""
+    against.
+
+    Elements whose spin chi = 2a exceeds ``CHI_EXTENDED`` are evaluated in
+    double-double, the others in FP64 (bit for bit as an FP64-only batch of
+    them).  CUDA tensors launch the kernel, each arithmetic on its own
+    subset with ``plan``'s team; CPU tensors run the plain versions,
+    ``cf_parts`` and ``cf_dd``."""
+    B = omega.shape[0]
+    if omega.is_cuda:
+        if omega.dtype != torch.complex128 or omega.dim() != 1:
+            raise TypeError("leaver_cf takes a (B,) complex128 omega")
+        if not 1 <= N <= MAX_N:
+            raise ValueError(f"leaver_cf takes depths 1..{MAX_N}, not {N}")
+    ext = _extended(a, B, omega.device)
+    if ext is None:
+        f, scale = _fp64(omega, a, A, s, m, n_inv, N)
+    elif ext is True:
+        f, scale = _dd(omega, a, A, s, m, n_inv, N)
+    else:
+        dev = omega.device
+        per = [_per_element(x, B, t, dev) for x, t in
+               ((a, torch.float64), (A, torch.complex128),
+                (n_inv, torch.int32 if omega.is_cuda else torch.int64))]
+        f = torch.empty(B, dtype=torch.complex128, device=dev)
+        scale = torch.empty(B, dtype=torch.float64, device=dev)
+        for idx, run in zip(ext, (_fp64, _dd)):
+            a_i, A_i, n_i = (x[idx] for x in per)
+            f[idx], scale[idx] = run(omega[idx], a_i, A_i, s, m, n_i, N)
+    return (f, scale) if with_scale else f
+
+
+def _extended(a, B, dev):
+    """Which elements take the double-double arithmetic: None (none), True
+    (all), or the indices (FP64's, double-double's).  A spin tensor on the
+    card costs one synchronisation (two where the batch is mixed)."""
+    if not torch.is_tensor(a) or a.numel() == 1:
+        return True if 2.0 * float(a) > CHI_EXTENDED else None
+    ext = torch.broadcast_to(2.0 * a.to(dev) > CHI_EXTENDED, (B,))
+    idx = torch.nonzero(ext).flatten()
+    if idx.numel() == 0:
+        return None
+    if idx.numel() == B:
+        return True
+    return torch.nonzero(~ext).flatten(), idx
+
+
+def _fp64(omega, a, A, s, m, n_inv, N):
     if not omega.is_cuda:
         U, T = cf_parts(omega, a, A, s, m, n_inv, N)
-        return (U - T, U.abs() + T.abs()) if with_scale else U - T
-    if omega.dtype != torch.complex128 or omega.dim() != 1:
-        raise TypeError("leaver_cf takes a (B,) complex128 omega")
-    if not 1 <= N <= MAX_N:
-        raise ValueError(f"leaver_cf takes depths 1..{MAX_N}, not {N}")
+        return U - T, U.abs() + T.abs()
     team, _ = plan(omega.shape[0], N, _sm_count(_index(omega.device)))
-    f, scale = _launch(omega, a, A, s, m, n_inv, N, team)
-    return (f, scale) if with_scale else f
+    return _launch(omega, a, A, s, m, n_inv, N, team)
+
+
+def _dd(omega, a, A, s, m, n_inv, N):
+    if not omega.is_cuda:
+        return cf_dd(omega, a, A, s, m, n_inv, N)
+    team, _ = plan(omega.shape[0], N, _sm_count(_index(omega.device)))
+    return _launch(omega, a, A, s, m, n_inv, N, team, extended=True)
 
 
 def _index(dev) -> int:
     return torch.cuda.current_device() if dev.index is None else dev.index
 
 
-def _launch(omega, a, A, s, m, n_inv, N, team):
+def _launch(omega, a, A, s, m, n_inv, N, team, extended=False):
     """One launch of the kernel on a (B,) complex128 CUDA ``omega``, with
-    ``team`` threads an element: (U - T, |U| + |T|).  ``leaver_cf`` passes
-    ``plan``'s team; checks and scripts force others.  Raises when the
-    launch fails (the C entry refuses a team that is not a power of two
-    of 1..256)."""
-    global launches, last_plan
+    ``team`` threads an element, in FP64 or (``extended``) double-double:
+    (U - T, |U| + |T|).  ``leaver_cf`` passes ``plan``'s team; checks and
+    scripts force others.  Raises when the launch fails (the C entry
+    refuses a team that is not a power of two of 1..256)."""
+    global launches, dd_launches, last_plan
     dev = omega.device
     B = omega.shape[0]
     w_ri = _split(omega)
@@ -300,14 +582,18 @@ def _launch(omega, a, A, s, m, n_inv, N, team):
     out = torch.empty((3, B), dtype=torch.float64, device=dev)
     if B:
         index = _index(dev)
-        err = _lib().qnm_leaver_cf(
+        entry = _lib().qnm_leaver_cf_dd if extended else _lib().qnm_leaver_cf
+        err = entry(
             B, *(t.data_ptr() for t in args), int(s), int(m), int(N),
             int(team), out[0].data_ptr(), out[1].data_ptr(),
             out[2].data_ptr(), index,
             torch.cuda.current_stream(dev).cuda_stream)
         if err != 0:
-            raise RuntimeError(f"leaver_cf kernel launch failed: CUDA error "
-                               f"{err}")
-        launches += 1
+            raise RuntimeError(f"leaver_cf{'_dd' if extended else ''} kernel "
+                               f"launch failed: CUDA error {err}")
+        if extended:
+            dd_launches += 1
+        else:
+            launches += 1
         last_plan = (int(team), -(-N // int(team)))
     return torch.complex(out[0], out[1]), out[2]

@@ -16,8 +16,9 @@ u = -sqrt(-2 i b omega_L) (Re u <= 0), v = (u^2 + 1/2 + G1 - A1) / 2, and
 recursed downward.
 
 The CF itself is ``ops/cf_cuda.leaver_cf``: the CUDA kernel
-``csrc/leaver_cf.cu`` for tensors on the card, its plain version
-(``cf_parts``, with ``leaver_coeffs``) for tensors on the CPU.
+``csrc/leaver_cf.cu`` for tensors on the card, its plain versions
+(``cf_parts``, with ``leaver_coeffs``, and ``cf_dd``) for tensors on the
+CPU; in double-double beyond chi = ``cf_cuda.CHI_EXTENDED``.
 """
 
 from __future__ import annotations

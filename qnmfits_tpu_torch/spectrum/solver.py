@@ -15,9 +15,13 @@ Per track, in two passes:
 
 Each Newton iteration evaluates the CF at omega and omega + h in one call
 of ``ops/cf_cuda.leaver_cf``: the CUDA kernel ``csrc/leaver_cf.cu`` for
-tensors on the card, its plain version for tensors on the CPU.  The
-lockstep Newton shrinks its active set each iteration, which costs one
-host sync an iteration.
+tensors on the card, its plain versions for tensors on the CPU.  The CF is
+FP64 up to chi = ``cf_cuda.CHI_EXTENDED`` (0.985) and double-double beyond,
+where an FP64 CF's rounding noise over |f'| would keep the step above the
+soft bar (1e-9 |omega|) and leave points on the coarse track; the JAX
+package evaluates every CF in 80-bit long double.  The lockstep Newton
+shrinks its active set each iteration, which costs one host sync an
+iteration (and the CF's spin rule one more on the card).
 
 m < 0 modes are the retrograde branch with Re(omega) > 0 (the `qnm`
 package's labelling), solved directly with m < 0 from the same

@@ -1,5 +1,6 @@
 """Synthetic waveforms for tests and the smoke run (port of
-qnmfits_tpu/testing.py::synthetic_multimode), and ``run_world``, which
+qnmfits_tpu/testing.py's synthetic_single and synthetic_multimode), and
+``run_world``, which
 runs a function on the ranks of a fresh torch.distributed process group
 (the mesh's tests and the smoke run's mesh phase)."""
 
@@ -10,11 +11,42 @@ import numpy as np
 from .engine import SpectrumEvaluator
 
 __all__ = ["bench_mode_sets", "random_hermitian_systems", "run_world",
-           "synthetic_multimode"]
+           "synthetic_multimode", "synthetic_single"]
 
 
 def default_time_grid(t_min=-50.0, t_max=150.0, dt=0.1):
     return np.arange(t_min, t_max, dt)
+
+
+def synthetic_single(modes=None, amplitudes=None, Mf=0.952, chif=0.692,
+                     times=None, noise=0.0, seed=0):
+    """Single-series synthetic ringdown h(t) = sum C_j exp(-i w_j t) for t
+    >= 0, zero before, with the tables' frequencies (``qnm_api``).
+    Amplitudes default to complex normals from
+    np.random.default_rng(seed); ``noise`` adds white complex noise of that
+    scale from np.random.default_rng(seed + 1).  Returns dict(times, data,
+    modes, amplitudes, frequencies, Mf, chif)."""
+    from .qnm_api import get_qnm
+    from .ref_impl import ringdown
+
+    if modes is None:
+        modes = [(2, 2, n, 1) for n in range(3)]
+    if amplitudes is None:
+        rng = np.random.default_rng(seed)
+        amplitudes = (rng.standard_normal(len(modes))
+                      + 1j * rng.standard_normal(len(modes)))
+    if times is None:
+        times = default_time_grid()
+
+    freqs = np.array(get_qnm().omega_list(modes, chif, Mf))
+    data = ringdown(times, 0.0, amplitudes, freqs)
+    if noise:
+        rng = np.random.default_rng(seed + 1)
+        data = data + noise * (rng.standard_normal(len(times))
+                               + 1j * rng.standard_normal(len(times)))
+    return dict(times=times, data=data, modes=modes,
+                amplitudes=np.asarray(amplitudes, complex),
+                frequencies=freqs, Mf=Mf, chif=chif)
 
 
 def synthetic_multimode(modes=None, spherical_modes=None, amplitudes=None,

@@ -25,7 +25,8 @@ default) and drives it with this checkout's ``chip_smoke.py``:
   spins of the last.  A point still unconverged after its tier's last
   retry keeps the interpolated coarse track (``solver.track_mode``).  The
   coarse pass's failed points (``_newton_coupled``), which it substeps,
-  are listed by spin.
+  are listed by spin (``chip_smoke.NewtonWatch``), and the double-double
+  CF's launches and seconds by CUDA events.
 
 Prints the card's name and power limit, then one JSON line.  Run each
 version in its own process, in turns (A, B, B, A), within one call: the
@@ -40,83 +41,6 @@ import sys
 import tempfile
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-
-
-class NewtonWatch:
-    """While active, records each lockstep Newton call of the solver (see
-    the module's docstring) through wrappers of ``_newton_coupled_vec_a``,
-    ``_newton_step`` and ``_newton_coupled``; the CF wrapper, which
-    chip_smoke's SolverClock brackets with CUDA events, is left alone."""
-
-    def __init__(self, solver):
-        self.solver = solver
-        self.lockstep, self.coarse_failed_chi = [], []
-        self.coarse_calls = 0
-
-    def __enter__(self):
-        import torch
-        sv = self.solver
-        self._orig = vec, step, coupled = (sv._newton_coupled_vec_a,
-                                           sv._newton_step,
-                                           sv._newton_coupled)
-        state = {}
-
-        def watched_step(omega, f, h, active=None):
-            out = step(omega, f, h, active)
-            if state:
-                state["iterations"] += 1
-                state["done"].append((out.abs() < state["tol"] * torch.clamp(
-                    omega.abs(), min=1.0)).sum())
-            return out
-
-        def watched_vec(omega_L, aL_vec, A_guess, s, l, m, n_inv, nl, N, tol,
-                        maxiter=60):
-            state.update(iterations=0, done=[], tol=tol)
-            try:
-                out = vec(omega_L, aL_vec, A_guess, s, l, m, n_inv, nl, N,
-                          tol, maxiter)
-            finally:
-                iterations, done = state["iterations"], state["done"]
-                state.clear()
-            ok = out[3]
-            hard = int(sum(int(d) for d in done))
-            self.lockstep.append(dict(
-                N=int(N), points=int(ok.numel()), iterations=iterations,
-                converged=hard, soft=int(ok.sum()) - hard,
-                unconverged=int((~ok).sum()),
-                unconverged_chi=[2.0 * float(a) for a in aL_vec[~ok]]))
-            return out
-
-        def watched_coupled(omega_L, aL, A_guess, s, l, m, n_inv, nl, N, tol,
-                            maxiter=60):
-            out = coupled(omega_L, aL, A_guess, s, l, m, n_inv, nl, N, tol,
-                          maxiter)
-            self.coarse_calls += 1
-            if not bool(out[2][0]):
-                self.coarse_failed_chi.append(2.0 * float(aL))
-            return out
-
-        (sv._newton_coupled_vec_a, sv._newton_step,
-         sv._newton_coupled) = watched_vec, watched_step, watched_coupled
-        return self
-
-    def __exit__(self, *exc):
-        (self.solver._newton_coupled_vec_a, self.solver._newton_step,
-         self.solver._newton_coupled) = self._orig
-
-    def tiers(self):
-        """The lockstep calls grouped by tier (a power-of-two depth and its
-        retries), with the points each tier left unconverged."""
-        out = []
-        for call in self.lockstep:
-            if call["N"] & (call["N"] - 1) == 0:
-                out.append(dict(tier=call["N"], calls=[]))
-            out[-1]["calls"].append(call)
-        for tier in out:
-            last = tier["calls"][-1]
-            tier["fell_back"] = last["unconverged"]
-            tier["fell_back_chi"] = last["unconverged_chi"]
-        return out
 
 
 def main():
@@ -138,7 +62,7 @@ def main():
     sys.path.insert(0, root)
     import qnmfits_tpu_torch
     from qnmfits_tpu_torch.ops import cf_cuda, chol_cuda
-    from qnmfits_tpu_torch.spectrum import solver, tables
+    from qnmfits_tpu_torch.spectrum import tables
     if not qnmfits_tpu_torch.__file__.startswith(root + os.sep):
         raise RuntimeError(f"imported {qnmfits_tpu_torch.__file__}, not "
                            f"the package under {root}")
@@ -165,18 +89,19 @@ def main():
           for N in problem["cf_depths"] for B in problem["cf_batches"]]
 
     tables.TRACK_CACHE = tempfile.mkdtemp(prefix="qnm_track_cache_")
-    with NewtonWatch(solver) as watch:
-        path, largest = chip_smoke.on_demand_fit(problem, "cuda")
+    path, clock = chip_smoke.on_demand_fit(problem, "cuda")
     rec = path["solve"]
     line = json.dumps(dict(
         label=args.label, root=root, card=smi, s1_kernel=s1,
-        f1_largest=kernel_ms(largest), wall_s=rec["wall_s"],
+        f1_largest=kernel_ms(clock.largest), wall_s=rec["wall_s"],
         cf_s_events=rec["cf_s"], cf_kernel_s_replayed=rec["cf_kernel_s"],
         eig_s=rec["eig_s"], rest_s=rec["rest_s"],
         cf_launches=rec["cf_launches"], eig_calls=rec["eig_calls"],
         cf_shapes=rec["cf_shapes"], route_in=path["route_in"],
-        oracle_in=path["oracle_in"], coarse_calls=watch.coarse_calls,
-        coarse_failed_chi=watch.coarse_failed_chi, tiers=watch.tiers()))
+        oracle_in=path["oracle_in"], coarse_calls=path["coarse_calls"],
+        coarse_failed_chi=path["coarse_failed_chi"], tiers=path["tiers"],
+        coarse_track_points=path["coarse_track_points"],
+        cf_dd_launches=rec["cf_dd_launches"], cf_dd_s_events=rec["cf_dd_s"]))
     print(line, flush=True)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """The Leaver CF kernel at every team size, on one GPU: time and error.
 
-    python3 scripts/torch_cf_teams.py [--out FILE]
+    python3 scripts/torch_cf_teams.py [--extended] [--out FILE]
     python3 scripts/torch_cf_teams.py --host [--out FILE]
 
 Builds ``qnmfits_tpu_torch/csrc/leaver_cf.cu`` (nvcc, sm_90a) and prints
@@ -12,8 +12,10 @@ kernel with every team of ``cf_cuda.TEAMS`` and prints, per team, the
 segment length (steps a thread), the largest error against the plain
 version on the same card relative to |U| + |T|, and the kernel's device
 time (torch.profiler, ``chip_smoke.cf_kernel_ms``), marking the team that
-``cf_cuda.plan`` picks.  The card's name and power limit head the output.
-Needs CUDA and nvcc.
+``cf_cuda.plan`` picks.  With ``--extended`` the same for the double-double
+variant at SHAPES_DD, on S1-X's distribution (``chip_smoke.CF_DD_CHI``,
+spins beyond chi = 0.985), against its plain version ``cf_dd``.  The
+card's name and power limit head the output.  Needs CUDA and nvcc.
 
 With ``--host`` it measures accuracy on the CPU instead: it builds the
 kernel's host twin (the same source, ``g++ -ffp-contract=off``) and the
@@ -22,16 +24,20 @@ JAX package's 80-bit CF (``qnmfits_tpu/spectrum/csrc/cf_kernel.cpp``) into
 error against the 80-bit CF relative to |U| + |T| of the host twin at
 teams 1, 8, 32 and 256 and of the plain version ``cf_parts``: S1's
 distribution (spins to chi = 0.999) at the depths of a grid tier, and
-spins at chi = 0.998-0.9995 at the solver's deep tiers and retries.
-Then it solves F1's on-demand mode (5,2,8) on the s = -2 table's spins on
-the CPU (``spectrum.solver.track_mode``) twice, its CF evaluated once by
-the host twin (with the team ``cf_cuda.plan`` gives the launch on an
-H100's 132 SMs) and once by the 80-bit CF, and prints, for each depth
-tier of the fine pass, how many points ended converged, softly converged
-or unconverged (``scripts/torch_cf_ab.py``'s ``NewtonWatch``; a point
-unconverged after its tier's last retry keeps the interpolated coarse
-track), and the largest gap between the two tracks to chi = 0.985 and
-beyond.  Needs g++.
+spins at chi = 0.998-0.9995 at the solver's deep tiers and retries, where
+it also reads the double-double variant (``cf_dd`` and its host twin) and
+times ``cf_dd``; then ``cf_dd``'s seconds a call at B = 2, N = 32768 and
+884736.  Then it solves F1's on-demand mode (5,2,8) on the s = -2 table's
+spins on the CPU (``spectrum.solver.track_mode``) three times, its CF
+evaluated by the FP64 host twin at every spin, by the host twins under
+``cf_cuda.leaver_cf``'s rule (double-double beyond chi = 0.985), each with
+the team ``cf_cuda.plan`` gives the launch on an H100's 132 SMs, and by
+the 80-bit CF, and prints, for each depth tier of the fine pass, how many
+points ended converged, softly converged or unconverged
+(``chip_smoke.NewtonWatch``; a point unconverged after its tier's last
+retry keeps the interpolated coarse track), and the largest gap between
+each twin's track and the 80-bit one to chi = 0.985 and beyond.  Needs
+g++.
 """
 
 import argparse
@@ -39,6 +45,7 @@ import json
 import os
 import subprocess
 import sys
+import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # The solver's shapes (B = 2 in the sequential continuation, F1's largest
@@ -46,6 +53,13 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SHAPES = ((1, 2000), (2, 2000), (2, 8192), (17, 2000), (1, 32768),
           (17, 32768), (400, 8192), (792, 8192), (4096, 2000),
           (4096, 32768))
+# --extended: the double-double variant's (B, N): the solver's
+# near-extremal tiers and their retries, and S1-X's corners.
+SHAPES_DD = ((1, 8192), (2, 16384), (24, 32768), (256, 8192), (2, 98304),
+             (2, 884736))
+# --extended: teams whose segment passes this many steps are not timed
+# (plan never picks them; a thread takes ~us a double-double step).
+MAX_DD_SEGMENT = 1 << 15
 SEED = 14
 # --host: (depth, spin range as chi, batch, seeds); n_inv 0..20.
 HOST_CASES = [(N, (0.0, 0.999), 400, (1000, 1001, 1002, 1003))
@@ -72,24 +86,29 @@ def host_builds():
                     "-O2", "-shared", "-fPIC", "-o", twin_so,
                     str(cf_cuda.SOURCE)], check=True, timeout=300)
     ptr = ctypes.c_void_p
-    twin = ctypes.CDLL(twin_so).qnm_leaver_cf_host
-    twin.argtypes = ([ctypes.c_longlong] + [ptr] * 6 + [ctypes.c_int] * 4
-                     + [ptr] * 3)
+    lib = ctypes.CDLL(twin_so)
+    twin, twin_dd = lib.qnm_leaver_cf_host, lib.qnm_leaver_cf_dd_host
+    for fn in (twin, twin_dd):
+        fn.argtypes = ([ctypes.c_longlong] + [ptr] * 6 + [ctypes.c_int] * 4
+                       + [ptr] * 3)
     cf80 = ctypes.CDLL(cf80_so).radial_cf_batch
     cf80.argtypes = ([ctypes.c_int] + [ptr] * 5 + [ctypes.c_int] * 2
                      + [ptr, ctypes.c_int, ptr, ptr])
-    return twin, cf80
+    return twin, twin_dd, cf80
 
 
-def host_accuracy(twin, cf80):
+def host_accuracy(twin, twin_dd, cf80):
     """Records of the host twin's and the plain version's largest error
-    against the 80-bit CF at each case of HOST_CASES (the --host mode)."""
+    against the 80-bit CF at each case of HOST_CASES (the --host mode); at
+    the near-extremal cases also those of the double-double variant (its
+    plain version ``cf_dd`` and its host twin at team 256), and the plain
+    double-double call's seconds."""
     import numpy as np
     import torch
     from qnmfits_tpu_torch.ops import cf_cuda
     records = []
     for N, (chi_lo, chi_hi), B, seeds in HOST_CASES:
-        worst = {}
+        worst, dd_s = {}, []
         for seed in seeds:
             rng = np.random.default_rng(seed)
             w = 2.0 * (0.3 + 0.6 * rng.random(B)
@@ -114,27 +133,57 @@ def host_accuracy(twin, cf80):
                         -2, 2, N, team, *(o.ctypes.data for o in f)):
                     raise RuntimeError(f"host twin refused N={N}")
                 errs[f"team {team}"] = f[0] + 1j * f[1]
+            if chi_lo > cf_cuda.CHI_EXTENDED:
+                t = time.perf_counter()
+                f_dd, _ = cf_cuda.cf_dd(torch.as_tensor(w), torch.as_tensor(a),
+                                        torch.as_tensor(A), -2, 2,
+                                        torch.as_tensor(n_inv), N)
+                dd_s.append(time.perf_counter() - t)
+                errs["plain dd"] = f_dd.numpy()
+                f = np.empty((3, B))
+                if twin_dd(B, *(x.ctypes.data for x in ins),
+                           n_inv.ctypes.data, -2, 2, N, 256,
+                           *(o.ctypes.data for o in f)):
+                    raise RuntimeError(f"host twin refused N={N}")
+                errs["dd team 256"] = f[0] + 1j * f[1]
             for k, v in errs.items():
                 worst[k] = max(worst.get(k, 0.0),
                                float(np.max(np.abs(v - ref) / scale)))
         records.append(dict(N=N, chi=[chi_lo, chi_hi], batch=B,
-                            seeds=list(seeds), **worst))
+                            seeds=list(seeds), plain_dd_s=dd_s, **worst))
         print(f"N={N:6d}, chi {chi_lo}-{chi_hi}, {len(seeds)} x {B}, "
               "against the 80-bit CF: " + ", ".join(
-                  f"{k} {e:.2e}" for k, e in worst.items()), flush=True)
+                  f"{k} {e:.2e}" for k, e in worst.items())
+              + (f"; plain dd {max(dd_s):.2f} s a call" if dd_s else ""),
+              flush=True)
+    # The plain double-double call alone at the coarse pass's batch (B =
+    # 2) at the deepest tier and at the retries' deepest depth.
+    for N in (32768, 884736):
+        rng = np.random.default_rng(N)
+        w = torch.as_tensor(2.0 * (0.3 + 0.6 * rng.random(2)
+                                   - 1j * (0.05 + 0.6 * rng.random(2))))
+        a = torch.full((2,), 0.499, dtype=torch.float64)
+        t = time.perf_counter()
+        cf_cuda.cf_dd(w, a, torch.full((2,), 27.0 + 1.0j), -2, 2, 8, N)
+        sec = time.perf_counter() - t
+        records.append(dict(N=N, batch=2, plain_dd_s=[sec],
+                            threads=torch.get_num_threads()))
+        print(f"plain dd, B=2, N={N}: {sec:.2f} s a call "
+              f"({torch.get_num_threads()} CPU threads)", flush=True)
     return records
 
 
-def host_track(twin, cf80):
-    """F1's (5,2,8) solved on the CPU through the host twin and through the
-    80-bit CF: each tier's convergence and the tracks' gap (the --host
-    mode)."""
+def host_track(twin, twin_dd, cf80):
+    """F1's (5,2,8) solved on the CPU through the host twins and through
+    the 80-bit CF: each tier's convergence and the tracks' gaps (the --host
+    mode).  "kernel" follows ``cf_cuda.leaver_cf``'s rule (the
+    double-double twin beyond CHI_EXTENDED), "FP64 kernel" the FP64 twin
+    at every spin."""
     import numpy as np
     import torch
     from qnmfits_tpu_torch.ops import cf_cuda
     from qnmfits_tpu_torch.spectrum import solver, tables
-    sys.path.insert(0, os.path.join(ROOT, "scripts"))
-    from torch_cf_ab import NewtonWatch
+    from chip_smoke import NewtonWatch
 
     def host_cf(by):
         def cf(omega, aL, A, s, m, n_inv, N):
@@ -150,10 +199,20 @@ def host_track(twin, cf80):
             if by == "80-bit":
                 cf80(B, *(x.ctypes.data for x in ins), s, m, ni.ctypes.data,
                      N, out[0].ctypes.data, out[1].ctypes.data)
-            elif twin(B, *(x.ctypes.data for x in ins), ni.ctypes.data, s,
-                      m, N, cf_cuda.plan(B, N, 132)[0],
-                      *(o.ctypes.data for o in out)):
-                raise RuntimeError(f"host twin refused N={N}")
+                return torch.complex(torch.as_tensor(out[0]),
+                                     torch.as_tensor(out[1]))
+            ext = (2.0 * ins[2] > cf_cuda.CHI_EXTENDED if by == "kernel"
+                   else np.zeros(B, bool))
+            for sel, fn in ((~ext, twin), (ext, twin_dd)):
+                if not sel.any():
+                    continue
+                sub = [np.ascontiguousarray(x[sel]) for x in ins + [ni]]
+                res = np.empty((3, int(sel.sum())))
+                if fn(len(res[0]), *(x.ctypes.data for x in sub), s, m, N,
+                      cf_cuda.plan(len(res[0]), N, 132)[0],
+                      *(o.ctypes.data for o in res)):
+                    raise RuntimeError(f"host twin refused N={N}")
+                out[:, sel] = res
             return torch.complex(torch.as_tensor(out[0]),
                                  torch.as_tensor(out[1]))
         return cf
@@ -164,7 +223,7 @@ def host_track(twin, cf80):
     tracks, record = {}, {}
     saved = solver.leaver_cf
     try:
-        for by in ("kernel", "80-bit"):
+        for by in ("FP64 kernel", "kernel", "80-bit"):
             solver.leaver_cf = host_cf(by)
             with NewtonWatch(solver) as watch:
                 tracks[by] = solver.track_mode(5, 2, 8, seeds[(5, 8)], chi,
@@ -183,13 +242,14 @@ def host_track(twin, cf80):
                       f"{t['fell_back_chi']}", flush=True)
     finally:
         solver.leaver_cf = saved
-    gap = np.abs(tracks["kernel"] - tracks["80-bit"])
-    lo = chi <= 0.985
-    record.update(gap_to_0985=float(gap[lo].max()),
-                  gap_beyond=float(gap[~lo].max()))
-    print(f"(5,2,8): the kernel's track from the 80-bit one: "
-          f"{record['gap_to_0985']:.2e} to chi = 0.985, "
-          f"{record['gap_beyond']:.2e} beyond", flush=True)
+    lo = chi <= cf_cuda.CHI_EXTENDED
+    for by in ("FP64 kernel", "kernel"):
+        gap = np.abs(tracks[by] - tracks["80-bit"])
+        record[by].update(gap_to_0985=float(gap[lo].max()),
+                          gap_beyond=float(gap[~lo].max()))
+        print(f"(5,2,8): the {by}'s track from the 80-bit one: "
+              f"{record[by]['gap_to_0985']:.2e} to chi = 0.985, "
+              f"{record[by]['gap_beyond']:.2e} beyond", flush=True)
     return record
 
 
@@ -198,14 +258,16 @@ def main():
     ap.add_argument("--out", help="also write the records (JSON lines) here")
     ap.add_argument("--host", action="store_true",
                     help="measure the host twin's accuracy on the CPU")
+    ap.add_argument("--extended", action="store_true",
+                    help="the double-double variant on the card")
     args = ap.parse_args()
 
     import numpy as np
     import torch
     sys.path.insert(0, ROOT)
     if args.host:
-        twin, cf80 = host_builds()
-        records = host_accuracy(twin, cf80) + [host_track(twin, cf80)]
+        builds = host_builds()
+        records = host_accuracy(*builds) + [host_track(*builds)]
         if args.out:
             _write(args.out, records)
         return 0
@@ -220,24 +282,35 @@ def main():
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()[0], flush=True)
     cf_cuda.build()
-    print(f"ptxas by largest team: {cf_cuda.ptxas_report()}", flush=True)
+    print(f"ptxas by kernel and block: {cf_cuda.ptxas_report()}",
+          flush=True)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     rng = np.random.default_rng(SEED)
+    ext = args.extended
     records = []
-    for B, N in SHAPES:
-        inputs = chip_smoke.cf_inputs(rng, B, N, "cuda")
+    for B, N in SHAPES_DD if ext else SHAPES:
+        inputs = chip_smoke.cf_inputs(rng, B, N, "cuda",
+                                      chip_smoke.CF_DD_CHI if ext else None)
         w, a, A, s, m, n_inv, _ = inputs
-        U, T = cf_cuda.cf_parts(w, a, A, s, m, n_inv, N)
-        ref, ref_scale = U - T, U.abs() + T.abs()
+        if ext:
+            ref, ref_scale = cf_cuda.cf_dd(*inputs)
+        else:
+            U, T = cf_cuda.cf_parts(*inputs)
+            ref, ref_scale = U - T, U.abs() + T.abs()
         chosen = cf_cuda.plan(B, N, sms)[0]
-        bound, _ = chip_smoke.cf_bound_ms(B, N)
+        bound, _ = chip_smoke.cf_bound_ms(B, N, ext)
         for team in cf_cuda.TEAMS:
-            f, scale = cf_cuda._launch(w, a, A, s, m, n_inv, N, team)
+            if ext and -(-N // team) > MAX_DD_SEGMENT:
+                continue
+            f, scale = cf_cuda._launch(*inputs, team, extended=ext)
             err = float(((f - ref).abs() / ref_scale).max())
             err_scale = float(((scale - ref_scale).abs() / ref_scale).max())
             ms = chip_smoke.cf_kernel_ms(
-                lambda: cf_cuda._launch(w, a, A, s, m, n_inv, N, team))
-            rec = dict(batch=B, N=N, team=team, segment=-(-N // team),
+                lambda: cf_cuda._launch(*inputs, team, extended=ext),
+                reps=20 if -(-N // team) < 4096 else 3,
+                kernel=chip_smoke._kernel_name(ext))
+            rec = dict(extended=ext, batch=B, N=N, team=team,
+                       segment=-(-N // team),
                        planned=team == chosen, rel_err=err,
                        scale_err=err_scale, ms=ms, bound_ms=bound,
                        bound_share=bound / ms)

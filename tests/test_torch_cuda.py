@@ -474,11 +474,12 @@ def test_debug_nans_sees_the_kernels_output(cuda, monkeypatch):
     assert not chol_cuda.check_nans
 
 
-def _cf_inputs(B, seed, n_inv_max=8):
-    """CF inputs near real modes: (Leaver-unit) omega, spin, A, n_inv."""
+def _cf_inputs(B, seed, n_inv_max=8, chi=(0.0, 0.999)):
+    """CF inputs near real modes: (Leaver-unit) omega, spin (chi in the
+    range ``chi``), A, n_inv."""
     rng = np.random.default_rng(seed)
     w = 2.0 * (0.3 + 0.6 * rng.random(B) - 1j * (0.05 + 0.6 * rng.random(B)))
-    a = 0.5 * 0.999 * rng.random(B)
+    a = 0.5 * (chi[0] + (chi[1] - chi[0]) * rng.random(B))
     A = 4.0 + 2.0 * rng.random(B) + 0.2j * (rng.random(B) - 0.5)
     return w, a, A, rng.integers(0, n_inv_max + 1, B)
 
@@ -491,21 +492,34 @@ def _cf_inputs(B, seed, n_inv_max=8):
 def test_cf_kernel_matches_plain(cuda, B, N):
     """The Leaver CF kernel against its plain version on the same card,
     relative to |U| + |T| (U - T cancels near a root), with the team the
-    wrapper reports the one its plan picks for (B, N)."""
+    wrapper reports the one its plan picks: the FP64 elements against
+    ``cf_parts``, those beyond CHI_EXTENDED (launched after them) against
+    the double-double ``cf_dd``."""
     from qnmfits_tpu_torch.ops import cf_cuda
     w, a, A, n_inv = (torch.as_tensor(x, device=cuda)
                       for x in _cf_inputs(B, seed=B + N))
-    before = cf_cuda.launches
+    ext = 2.0 * a > cf_cuda.CHI_EXTENDED
+    n_ext = int(ext.sum())
+    before = cf_cuda.launches, cf_cuda.dd_launches
     f, scale = cf_cuda.leaver_cf(w, a, A, -2, 2, n_inv, N, with_scale=True)
-    assert cf_cuda.launches == before + 1
+    assert cf_cuda.launches == before[0] + (n_ext < B)
+    assert cf_cuda.dd_launches == before[1] + (n_ext > 0)
     sms = torch.cuda.get_device_properties(cuda).multi_processor_count
     team, segment = cf_cuda.last_plan
-    assert (team, segment) == cf_cuda.plan(B, N, sms)
+    assert (team, segment) == cf_cuda.plan(n_ext or B, N, sms)
     assert team in cf_cuda.TEAMS and segment == -(-N // team)
-    U, T = cf_cuda.cf_parts(w, a, A, -2, 2, n_inv, N)
-    torch.cuda.synchronize()
-    assert float(((f - (U - T)).abs() / scale).max()) <= 1e-13
-    assert float(((scale - (U.abs() + T.abs())).abs() / scale).max()) <= 1e-13
+    if n_ext < B:
+        U, T = cf_cuda.cf_parts(w[~ext], a[~ext], A[~ext], -2, 2,
+                                n_inv[~ext], N)
+        torch.cuda.synchronize()
+        assert float(((f[~ext] - (U - T)).abs() / scale[~ext]).max()) \
+            <= 1e-13
+        assert float(((scale[~ext] - (U.abs() + T.abs())).abs()
+                      / scale[~ext]).max()) <= 1e-13
+    if n_ext:
+        g, g_scale = cf_cuda.cf_dd(w[ext], a[ext], A[ext], -2, 2, n_inv[ext],
+                                   N)
+        assert float(((f[ext] - g).abs() / g_scale).max()) <= 1e-17
 
 
 def test_cf_kernel_every_team_agrees(cuda):
@@ -528,6 +542,71 @@ def test_cf_kernel_every_team_agrees(cuda):
     assert float(((f0 - (U - T)).abs() / scale).max()) <= 1e-12
     for team, (f, _) in out.items():
         assert float(((f - f0).abs() / scale).max()) <= 1e-13, team
+
+
+@pytest.mark.parametrize("B,N", [(1, 8192), (2, 16384), (24, 32768),
+                                 (256, 8192), (2, 98304), (2, 884736)])
+def test_cf_dd_kernel_matches_plain(cuda, B, N):
+    """The double-double variant at spins beyond CHI_EXTENDED, the solver's
+    near-extremal tiers and retries, against its plain version: both carry
+    ~106 bits and round once (chip_smoke's CF_DD_TOL)."""
+    from qnmfits_tpu_torch.ops import cf_cuda
+    w, a, A, n_inv = (torch.as_tensor(x, device=cuda) for x in _cf_inputs(
+        B, seed=B + N, n_inv_max=20, chi=(0.985, 0.9995)))
+    before = cf_cuda.launches, cf_cuda.dd_launches
+    f, scale = cf_cuda.leaver_cf(w, a, A, -2, 2, n_inv, N, with_scale=True)
+    assert (cf_cuda.launches, cf_cuda.dd_launches) == (before[0],
+                                                       before[1] + 1)
+    g, g_scale = cf_cuda.cf_dd(w, a, A, -2, 2, n_inv, N)
+    torch.cuda.synchronize()
+    assert float(((f - g).abs() / g_scale).max()) <= 1e-17
+    assert float(((scale - g_scale).abs() / g_scale).max()) <= 1e-17
+
+
+def test_cf_dd_kernel_every_team_agrees(cuda):
+    from qnmfits_tpu_torch.ops import cf_cuda
+    w, a, A, n_inv = (torch.as_tensor(x, device=cuda) for x in _cf_inputs(
+        24, seed=257, n_inv_max=20, chi=(0.985, 0.9995)))
+    g, g_scale = cf_cuda.cf_dd(w, a, A, -2, 2, n_inv, 3001)
+    for team in cf_cuda.TEAMS:
+        f, _ = cf_cuda._launch(w, a, A, -2, 2, n_inv, 3001, team,
+                               extended=True)
+        assert cf_cuda.last_plan == (team, -(-3001 // team))
+        assert float(((f - g).abs() / g_scale).max()) <= 1e-17, team
+
+
+def test_cf_mixed_batch_keeps_fp64_bit_for_bit(cuda):
+    """A batch straddling CHI_EXTENDED: one launch of each variant, each
+    element bit for bit a call of its own arithmetic alone."""
+    from qnmfits_tpu_torch.ops import cf_cuda
+    w, _, A, n_inv = (torch.as_tensor(x, device=cuda)
+                      for x in _cf_inputs(64, seed=64))
+    a = torch.as_tensor(0.5 * np.linspace(0.97, 0.999, 64), device=cuda)
+    ext = 2.0 * a > cf_cuda.CHI_EXTENDED
+    before = cf_cuda.launches, cf_cuda.dd_launches
+    f = cf_cuda.leaver_cf(w, a, A, -2, 2, n_inv, 8192)
+    assert (cf_cuda.launches - before[0], cf_cuda.dd_launches - before[1]) \
+        == (1, 1)
+    for sel in (~ext, ext):
+        g = cf_cuda.leaver_cf(w[sel], a[sel], A[sel], -2, 2, n_inv[sel], 8192)
+        assert torch.equal(f[sel], g)
+
+
+def test_gram_cholesky_jitter_launches_the_kernel(cuda):
+    """``jitter_scale`` goes through the team and wide kernels, within
+    1e-12 of the plain route on the CPU."""
+    from qnmfits_tpu_torch.ops import solve
+    for n in (6, 20):
+        G, b = random_hermitian_systems(64, n, seed=n, n_pad=1)
+        before = chol_cuda.launches, chol_cuda.wide_launches
+        x = solve.gram_cholesky(torch.as_tensor(G, device=cuda),
+                                torch.as_tensor(b, device=cuda),
+                                jitter_scale=1e-6)
+        assert chol_cuda.launches == before[0] + 1
+        assert chol_cuda.wide_launches == before[1] + (n > 16)
+        ref = solve.gram_cholesky(torch.as_tensor(G), torch.as_tensor(b),
+                                  jitter_scale=1e-6)
+        assert _rel(x.cpu(), ref) <= 1e-12
 
 
 def test_cf_kernel_does_not_spill(cuda):

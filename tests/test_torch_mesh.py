@@ -61,7 +61,8 @@ def _two_d_times(times):
 @pytest.fixture(scope="module")
 def inputs():
     from qnmfits_tpu.engine import SpectrumEvaluator
-    from qnmfits_tpu.testing import synthetic_multimode, synthetic_single
+    from qnmfits_tpu.testing import synthetic_multimode
+    from qnmfits_tpu_torch.testing import synthetic_single
     import chip_smoke
 
     syn = synthetic_multimode(seed=41)

@@ -16,6 +16,8 @@ mirror tests/test_spatial.py and tests/test_harmonics.py; the J = 11 and
 J = 18 systems are chip_smoke.py's phase-10 models at K = 1300.
 """
 
+import re
+
 import numpy as np
 import pytest
 
@@ -31,6 +33,7 @@ from qnmfits_tpu_torch import spatial as ts
 from qnmfits_tpu_torch import spatial_engine as tse
 from qnmfits_tpu_torch.qnm_api import get_qnm, qnm as tqnm
 from qnmfits_tpu_torch.ref_impl import ringdown
+from qnmfits_tpu_torch.spectrum import solver as tsolver
 from qnmfits_tpu_torch.spectrum import tables as ttab
 
 H_TOL = 1e-14
@@ -164,10 +167,41 @@ def test_qnm_class_matches_jax_at_each_spin_weight(s):
         np.testing.assert_array_equal(a, b)
 
 
+# The modes test_tables_raise_and_write_nothing asks the port for, as
+# (s, l, m, n): the names its track cache would give their tracks.
+_ASKED = [(0, 2, 2, 0), (-2, 2, 2, 0), (0, 2, 3, 0)]
+
+
+def _data_dir_entries(data_dir):
+    """The entries of the JAX package's data directory, where the port
+    reads its tables, with ``track_cache/`` set aside: the JAX package's
+    own on-demand solves create and fill it, in other xdist workers too."""
+    return sorted(p.name for p in data_dir.iterdir()
+                  if p.name != "track_cache")
+
+
+def _port_named_tracks(data_dir, asked):
+    """Files in the data directory's ``track_cache/`` named as the port's
+    track cache names the tracks of ``asked`` (spectrum/tables.py,
+    ``_solve_missing``: s{s}_l{l}_m{m}_n{n}_P{spins}.npz)."""
+    cache = data_dir / "track_cache"
+    if not cache.is_dir():
+        return []
+    pattern = re.compile("|".join(rf"s{s}_l{l}_m{m}_n{n}_P\d+\.npz"
+                                  for s, l, m, n in asked))
+    return sorted(p.name for p in cache.iterdir() if pattern.fullmatch(p.name))
+
+
+def _assert_wrote_nothing(data_dir, before, asked):
+    assert _data_dir_entries(data_dir) == before
+    assert _port_named_tracks(data_dir, asked) == []
+
+
 def test_tables_raise_and_write_nothing(tmp_path, monkeypatch):
     """A spin weight without a table names its path; spins off the grid
-    raise on both factor tables; loading never writes a sidecar."""
-    before = sorted(ttab.DATA_DIR.iterdir())
+    raise on both factor tables; loading never writes a sidecar, nor
+    anything else into the JAX package's data directory."""
+    before = _data_dir_entries(ttab.DATA_DIR)
     q = tqnm()
     with pytest.raises(FileNotFoundError, match="qnm_tables_s-3.npz"):
         q._t(-3)
@@ -181,7 +215,35 @@ def test_tables_raise_and_write_nothing(tmp_path, monkeypatch):
     # |m| > l: the JAX package rejects it before any solve.
     with pytest.raises(KeyError, match="invalid mode"):
         q.omega_list([(2, 3, 0, 1)], 0.5, s=0)
-    assert sorted(ttab.DATA_DIR.iterdir()) == before
+    _assert_wrote_nothing(ttab.DATA_DIR, before, _ASKED)
+
+
+def test_write_into_the_data_dir_is_caught(tmp_path, monkeypatch):
+    """The check above fails when the port writes into the data directory:
+    a data directory of its own (the tables linked in), a file written
+    beside the tables, and the port's track cache pointed into its
+    ``track_cache/`` by a monkeypatched ``track_cache_dir``."""
+    data = tmp_path / "data"
+    data.mkdir()
+    for table in ttab.DATA_DIR.glob("qnm_tables_s*[0-9].npz"):
+        (data / table.name).symlink_to(table)
+    before = _data_dir_entries(data)
+    _assert_wrote_nothing(data, before, _ASKED)
+    np.save(data / "written_by_the_port.npy", np.zeros(1))
+    with pytest.raises(AssertionError):
+        _assert_wrote_nothing(data, before, _ASKED)
+    (data / "written_by_the_port.npy").unlink()
+    # A track the port solves on demand, cached into track_cache/.
+    monkeypatch.setattr(ttab, "track_cache_dir",
+                        lambda: data / "track_cache")
+    t = ttab.SpectrumTables.from_arrays(
+        tsolver.default_chi_grid(9, 0.5), [(2, 2, 0)], [[0.5 - 0.1j] * 9],
+        [[[1.0] * 12] * 9], -2, 12)
+    with ttab.solve_on("cpu"):
+        t.compile_modes([(3, 1, 0, 1)])
+    assert _data_dir_entries(data) == before
+    with pytest.raises(AssertionError):
+        _assert_wrote_nothing(data, before, _ASKED + [(-2, 3, 1, 0)])
 
 
 @pytest.mark.parametrize("s,l,m,gamma", [
