@@ -7,9 +7,10 @@ Needs one CUDA device and nvcc; exits non-zero without them.  Phases, one
 flushed line each with elapsed seconds:
 
 1. the card's name and power limit (nvidia-smi);
-2. the build of the solve kernels (csrc/chol_solve.cu, sm_90a) and the
-   Leaver CF kernel (csrc/leaver_cf.cu, FP64 and double-double), one nvcc
-   each, started together, from this checkout into
+2. the build of the solve kernels (csrc/chol_solve.cu, sm_90a), the
+   Leaver CF kernel (csrc/leaver_cf.cu, FP64 and double-double) and the
+   factored sweep's systems and epilogue kernels (csrc/factored_sweep.cu),
+   one nvcc each, started together, from this checkout into
    build/qnmfits_tpu_torch/, and ptxas's registers and spills for each
    instantiation (no spill allowed);
 3. the kernels against their plain PyTorch version on the card, on
@@ -27,12 +28,19 @@ flushed line each with elapsed seconds:
    spherical modes (2,2) and (3,2), the 16 mode sets padded to J=8,
    8192 start times on [-5, 46.2], T=100, seed 11) through the public
    ``mismatch_t0_mode_sets``, with and without window dedup: exactly one
-   kernel launch per sweep, finite values of the right shape, the kernel
-   path against the plain-solve path, and a stratified check against the
-   NumPy oracle (ref_impl);
-5. the kernel on the very systems each sweep gave it (8208 with dedup,
-   131072 without): its backward error, and its device time beside its
-   bound, its plain version's and torch.linalg's; and the sweep's fits/s;
+   launch each of the factored systems kernel, the solve and the epilogue
+   kernel per sweep, finite values of the right shape, the factored
+   kernels against their plain versions on the sweep's own inputs (each
+   system's G, G2, rhs, rt, dnorm and C within SYSTEMS_RTOL of its
+   largest entry, mm within EPILOGUE_TOL for t0 >= 0), the kernel path
+   against the plain-solve path and the all-plain path (``all_plain``),
+   and a stratified check against the NumPy oracle (ref_impl);
+5. the solve kernel on the very systems each sweep gave it (8208 with
+   dedup, 131072 without): its backward error, and its device time beside
+   its bound, its plain version's and torch.linalg's; the sweep's fits/s;
+   the factored kernels on the sweep's own inputs by CUDA events beside
+   their bounds and their plain versions, and the sweep's profile (warm
+   wall, device busy, idle share, kernels a sweep);
 6. the rest of the static-spectrum surface at the same width, each path
    through its public entry point with the kernels' launch counts set to
    0 just before it and read just after: the mode-set sweep with 'closest'
@@ -44,7 +52,9 @@ flushed line each with elapsed seconds:
    sweeps of one-mode, 17-mode, 40-mode and 96-mode sets (the team
    kernel's n = 1, the wide kernel's 17, 40 and 96).  Each is held against
    the same call through the plain solve and against the NumPy oracle, and
-   reports its launches and its wall time; then the wide kernel on the
+   reports its launches and its wall time; the 17-, 40- and 96-mode
+   sweeps also against the all-plain route and their factored kernels
+   against the plain versions on their own inputs; then the wide kernel on the
    17-, 40- and 96-mode paths' own systems beside its bound, its plain
    version and torch.linalg;
 7. the dynamic-spectrum sweeps and the catalog event batch at the same
@@ -194,6 +204,7 @@ flushed line each with elapsed seconds:
 Any failure raises and exits non-zero before the last line.
 """
 
+import contextlib
 import json
 import os
 import subprocess
@@ -239,6 +250,12 @@ MAIN_TOL = 1e-11      # kernel path vs plain-solve path, |mismatch| abs
 PRE_TOL = 1e-8
 ORACLE_TOL = 1e-10    # vs the NumPy oracle for t0 >= 0, |mismatch| abs
 KERNEL_RTOL = 1e-12   # kernel vs plain solve, per-system relative
+# The factored sweep's kernels vs their plain versions on the same inputs:
+# each system's G, G2, rhs, rt, dnorm and C relative to its largest entry
+# (sums taken in another order), and the mismatch for t0 >= 0, absolute;
+# before the ringdown, and everywhere, mm within ``epilogue_bound``.
+SYSTEMS_RTOL = 1e-12
+EPILOGUE_TOL = 1e-12
 # Normwise backward error of the kernel's solutions on the main path's
 # own systems.  A stable solve reads ~n eps; a kernel that drops the
 # 500 J eps floor reads ~floor / ||A|| ~ 9e-13, so this bound sees it.
@@ -388,31 +405,194 @@ class PlainSolve:
         return engine_real._regularised_solve_plain(G, b)
 
 
+@contextlib.contextmanager
+def all_plain():
+    """The all-plain route: inside it the factored sweep's systems and
+    epilogue run their plain PyTorch versions on the card (with a
+    PlainSolve, every stage of the sweep is plain).  The port's wrappers
+    never do that themselves; this script swaps the module's functions
+    for the comparison and puts them back."""
+    from qnmfits_tpu_torch.ops import sweep_cuda
+    saved = sweep_cuda.factored_systems, sweep_cuda.mismatch_rephase
+    sweep_cuda.factored_systems = sweep_cuda.factored_systems_plain
+    sweep_cuda.mismatch_rephase = sweep_cuda.mismatch_rephase_plain
+    try:
+        yield
+    finally:
+        sweep_cuda.factored_systems, sweep_cuda.mismatch_rephase = saved
+
+
+@contextlib.contextmanager
+def recording_sweeps():
+    """Keeps the arguments and results of every call of the factored
+    sweep's two wrappers made inside it: {"systems": [(args, out)],
+    "epilogue": [(args, out)]}; the calls themselves are unchanged."""
+    from qnmfits_tpu_torch.ops import sweep_cuda
+    calls = {"systems": [], "epilogue": []}
+    saved = sweep_cuda.factored_systems, sweep_cuda.mismatch_rephase
+
+    def keep(key, fn):
+        def call(*args):
+            out = fn(*args)
+            calls[key].append((args, out))
+            return out
+        return call
+
+    sweep_cuda.factored_systems = keep("systems", saved[0])
+    sweep_cuda.mismatch_rephase = keep("epilogue", saved[1])
+    try:
+        yield calls
+    finally:
+        sweep_cuda.factored_systems, sweep_cuda.mismatch_rephase = saved
+
+
+def epilogue_bound(C0, G2, rt, mm):
+    """How far two orders of summation may move each mm = 1 - num /
+    sqrt(model dnorm) of the epilogue: (1 - mm) times num's and half
+    model's relative rounding, each 4 n eps times its sum of magnitudes
+    over its value (n = J and J^2 terms).  Ill-conditioned fits (windows
+    before the ringdown, random systems) are where these sums cancel."""
+    J = C0.shape[-1]
+    eps = float(np.finfo(float).eps)
+    num = (C0.conj() * rt).real.sum(-1)
+    model = (C0.conj() * (G2 @ C0[..., None])[..., 0]).real.sum(-1)
+    num_abs = (C0.abs() * rt.abs()).sum(-1)
+    model_abs = (C0.abs()[..., :, None] * G2.abs()
+                 * C0.abs()[..., None, :]).sum((-2, -1))
+    return 4 * (1 + (1 - mm).abs()) * (J * eps * num_abs / num.abs()
+                                       + J * J * eps * model_abs
+                                       / model.abs())
+
+
+def first_order_gaps(calls_a, calls_b, solves=2):
+    """Two runs of one factored sweep (``recording_sweeps`` of each, the
+    same join groups): per window, the gap between their mismatches and
+    how far rounding can move it, to first order, from route a's systems.
+
+    The solve works on the equilibrated, floored system A z = b' (A = Di G
+    Di + floor, b' = Di b, C = Di z).  With N = Re C^H rt, Q = Re C^H G2 C
+    and n = dnorm, mm = 1 - N / sqrt(Q n) has the gradient in C
+        g = -rt / sqrt(Q n) + N G2 C / (sqrt(n) Q^(3/2)),
+    so a change (dA, db') of the solve's input moves mm by at most
+    |A^-1 Di g| (|dA| |z| + |db'|) (2-norms), and changes of rt, G2 and n
+    at the same C move it by |dN| / sqrt(Q n) + N |dQ| / (2 sqrt(n)
+    Q^(3/2)) + |N dn| / (2 sqrt(Q) n^(3/2)).  The changes counted are
+    ``solves`` backward-stable solves, each J eps (|A| |z| + |b'|), the
+    measured difference of the two runs' systems (dA = Di dG Di, db' = Di
+    db, dN, dQ, dn), and each run's epilogue sums (``epilogue_bound``).
+    A is ill-conditioned where the design is (ROADMAP C.3): |A^-1 Di g|
+    carries the window's measured conditioning, where ``gram_bound``
+    takes the worst direction of kappa(A)^2.  Returns one dict a group:
+    gap, bound (S, B), live (S,) columns a set and t0s (B,)."""
+    import torch
+    from qnmfits_tpu_torch import engine_real
+    eps = float(np.finfo(float).eps)
+    out = []
+    for (sa, ea), (sb, eb) in zip(zip(calls_a["systems"],
+                                      calls_a["epilogue"]),
+                                  zip(calls_b["systems"],
+                                      calls_b["epilogue"])):
+        G, G2, rhs, rt, dn = sa[1]
+        dG, dG2, drhs, drt, ddn = (y - x for x, y in zip(sa[1], sb[1]))
+        C0, mm = ea[0][0], ea[1][1]
+        mm_b = eb[1][1]
+        J = G.shape[-1]
+        A, bs, Di = engine_real._equilibrated(G, rhs)
+        z = C0 / Di
+        G2C = (G2 @ C0[..., None])[..., 0]
+        N = (C0.conj() * rt).real.sum(-1)
+        Q = (C0.conj() * G2C).real.sum(-1)
+        n = dn[None, :]
+        g = (-rt / torch.sqrt(Q * n)[..., None]
+             + (N / (torch.sqrt(n) * Q ** 1.5))[..., None] * G2C)
+        y = torch.linalg.solve(A, (Di * g)[..., None])[..., 0]
+        vn = torch.linalg.vector_norm
+        z_n = vn(z, dim=-1)
+        dA = dG * Di[..., :, None] * Di[..., None, :]
+        solve_in = (solves * J * eps
+                    * (torch.linalg.matrix_norm(A, ord=2) * z_n
+                       + vn(bs, dim=-1))
+                    + torch.linalg.matrix_norm(dA, ord=2) * z_n
+                    + vn(Di * drhs, dim=-1))
+        dN = (C0.conj() * drt).real.sum(-1)
+        dQ = (C0.conj() * (dG2 @ C0[..., None])[..., 0]).real.sum(-1)
+        bound = (vn(y, dim=-1) * solve_in
+                 + dN.abs() / torch.sqrt(Q * n)
+                 + N.abs() * dQ.abs() / (2 * torch.sqrt(n) * Q ** 1.5)
+                 + (N * ddn[None, :]).abs() / (2 * torch.sqrt(Q) * n ** 1.5)
+                 + 2 * epilogue_bound(C0, G2, rt, mm))
+        out.append(dict(gap=(mm - mm_b).abs(), bound=bound,
+                        live=sa[0][6].sum(-1), t0s=sa[0][4]))
+    return out
+
+
+def bounded_gap(groups, sets, side):
+    """Over the windows of ``first_order_gaps``'s groups on one side of
+    the ringdown (side "in": t0 >= 0, "pre": t0 < 0) of the sets with a
+    True in ``sets`` (a function of each set's live columns): the largest
+    gap, the largest bound, and the largest gap over max(tol, bound) with
+    tol = MAIN_TOL or PRE_TOL (the check holds where it is <= 1).  NaN
+    mismatches (empty windows, both runs alike) count as no gap."""
+    import torch
+    tol = MAIN_TOL if side == "in" else PRE_TOL
+    gap = bound = ratio = 0.0
+    for grp in groups:
+        on_side = (grp["t0s"] >= 0) == (side == "in")
+        sel = sets(grp["live"])[:, None] & on_side[None, :]
+        g = torch.nan_to_num(grp["gap"], nan=0.0)[sel]
+        b = torch.nan_to_num(grp["bound"], nan=0.0)[sel]
+        if g.numel():
+            gap, bound = max(gap, float(g.max())), max(bound, float(b.max()))
+            ratio = max(ratio, float((g / b.clamp_min(tol)).max()))
+    return gap, bound, ratio
+
+
+def per_system_rel(x, ref, lead):
+    """Largest |x - ref| of a system over its largest |ref|, over the
+    systems: the first ``lead`` axes index them."""
+    d = (x - ref).abs().reshape(*ref.shape[:lead], -1).amax(-1)
+    r = ref.abs().reshape(*ref.shape[:lead], -1).amax(-1)
+    return float((d / r.clamp_min(1e-300)).max())
+
+
 def run_main_path(problem, device):
     """Phase 4: drive the public sweep with and without dedup, count the
-    kernel's launches in each, and check the results against the plain
-    solve and the NumPy oracle.  Returns a dict of what it found; raises
-    on any failure."""
-    from qnmfits_tpu_torch.ops import chol_cuda
+    launches of the solve kernel and of the factored sweep's two kernels
+    in each, hold the factored kernels to their plain versions on the
+    sweep's own inputs, and check the results against the plain-solve
+    route, the all-plain route and the NumPy oracle.  Returns a dict of
+    what it found; raises on any failure."""
+    from qnmfits_tpu_torch.ops import chol_cuda, sweep_cuda
 
     S, B = len(problem["mode_sets"]), len(problem["t0s"])
     out = {}
     for dedup in (True, False):
         chol_cuda.launches = chol_cuda.wide_launches = 0
-        mm = sweep(problem, device, dedup)
+        sweep_cuda.systems_launches = sweep_cuda.epilogue_launches = 0
+        with recording_sweeps() as calls:
+            mm = sweep(problem, device, dedup)
         n_launch = chol_cuda.launches
+        n_fac = (sweep_cuda.systems_launches, sweep_cuda.epilogue_launches)
         if chol_cuda.wide_launches:
             raise RuntimeError("the main path launched the wide kernel")
         if mm.shape != (S, B) or not np.all(np.isfinite(mm)):
             raise RuntimeError(f"main path (dedup={dedup}) gave shape "
                                f"{mm.shape} or non-finite mismatches")
-        if device != "cpu" and n_launch != 1:
+        if device != "cpu" and (n_launch, *n_fac) != (1, 1, 1):
             raise RuntimeError(f"main path (dedup={dedup}) launched the CUDA "
-                               f"solve kernel {n_launch} times, not once")
-        out[dedup] = dict(mm=mm, launches=n_launch)
-    log(f"main path: mm {out[True]['mm'].shape}, kernel launches "
-        f"{out[True]['launches']} with dedup, {out[False]['launches']} "
-        f"without")
+                               f"solve kernel {n_launch} times and the "
+                               f"factored sweep's kernels {n_fac}, not once "
+                               "each")
+        if (len(calls["systems"]), len(calls["epilogue"])) != (1, 1):
+            raise RuntimeError(f"main path (dedup={dedup}) made "
+                               f"{len(calls['systems'])} systems and "
+                               f"{len(calls['epilogue'])} epilogue calls")
+        out[dedup] = dict(mm=mm, launches=n_launch, factored=n_fac,
+                          calls=calls)
+    log(f"main path: mm {out[True]['mm'].shape}, launches of the solve, "
+        f"systems and epilogue kernels {out[True]['launches']}, "
+        f"{out[True]['factored']} with dedup, {out[False]['launches']}, "
+        f"{out[False]['factored']} without")
 
     pre = problem["t0s"] < 0
 
@@ -434,6 +614,10 @@ def run_main_path(problem, device):
             raise RuntimeError(f"the sweep (dedup={dedup}) called its solve "
                                f"{len(plain.systems)} times, not once")
         systems[dedup] = plain.systems[0]
+        with all_plain():
+            mm_all = sweep(problem, device, dedup, solve=PlainSolve())
+        checks[f"kernels vs the all-plain route (dedup={dedup})"] = diff(
+            out[dedup]["mm"], mm_all)
     checks["dedup vs per-t0"] = diff(out[True]["mm"], out[False]["mm"])
     for name, (d_in, d_pre) in checks.items():
         log(f"{name}: max |d mm| t0 >= 0: {d_in:.3e} (bound "
@@ -441,6 +625,18 @@ def run_main_path(problem, device):
         if not (d_in <= MAIN_TOL and d_pre <= PRE_TOL):
             raise RuntimeError(f"{name} disagree beyond {MAIN_TOL:.0e} "
                                f"(t0 >= 0) or {PRE_TOL:.0e} (t0 < 0)")
+
+    factored = {}
+    for dedup in (True, False):
+        f = factored[dedup] = factored_vs_plain(out[dedup]["calls"])
+        log(f"factored kernels vs plain on the main path's inputs "
+            f"(dedup={dedup}, B={f['windows']} windows x S={S}): systems "
+            + ", ".join(f"{k} {v:.3e}" for k, v in f["systems_rel"].items())
+            + f" (relative to each system's largest entry, bound "
+            f"{SYSTEMS_RTOL:.0e}); epilogue C {f['C_rel']:.3e} (relative, "
+            f"bound {SYSTEMS_RTOL:.0e}), mm {f['mm_abs']:.3e} for t0 >= 0 "
+            f"(bound {EPILOGUE_TOL:.0e}), {f['mm_abs_pre']:.3e} for t0 < 0 "
+            "(each within its summation's rounding, epilogue_bound)")
 
     dev_in, dev_pre = oracle_diff(problem, out[True]["mm"],
                                   problem["mode_sets"])
@@ -451,8 +647,79 @@ def run_main_path(problem, device):
         raise RuntimeError("main path disagrees with the NumPy oracle")
     return dict(launches=out[True]["launches"],
                 launches_nodedup=out[False]["launches"],
+                factored_launches=out[True]["factored"],
+                factored_launches_nodedup=out[False]["factored"],
                 mm=out[True]["mm"], systems=systems,
+                sweep_calls={d: out[d]["calls"] for d in (True, False)},
+                factored=factored, checks=checks,
                 oracle_in=dev_in, oracle_pre=dev_pre)
+
+
+def factored_vs_plain(calls):
+    """The factored sweep's two kernels against their plain versions on
+    the inputs one sweep gave them (``recording_sweeps``): G, G2, rhs, rt
+    and dnorm relative to each system's largest entry (SYSTEMS_RTOL), C
+    relative per system and mm absolute (EPILOGUE_TOL) on the same C0.
+    Raises beyond the bounds."""
+    import torch
+    from qnmfits_tpu_torch.ops import sweep_cuda
+    (args, got), = calls["systems"]
+    ref = sweep_cuda.factored_systems_plain(*args)
+    rel = {name: per_system_rel(x, r, 2 if r.dim() > 1 else 1)
+           for name, x, r in zip(("G", "G2", "rhs", "rt", "dnorm"), got,
+                                 ref)}
+    max_abs = max(float((x - r).abs().max()) for x, r in zip(got, ref))
+    (eargs, (C, mm)), = calls["epilogue"]
+    C_ref, mm_ref = sweep_cuda.mismatch_rephase_plain(*eargs)
+    C_rel = per_system_rel(C, C_ref, 2)
+    nan = torch.isnan(mm_ref)
+    gap = torch.where(nan, 0.0, (mm - mm_ref).abs())
+    bound = epilogue_bound(eargs[0], eargs[1], eargs[2], mm_ref)
+    pre = eargs[5] < 0
+    mm_in = float(torch.where(pre, 0.0, gap).max())
+    mm_pre = float(torch.where(pre, gap, 0.0).max())
+    if not (max(rel.values()) <= SYSTEMS_RTOL and C_rel <= SYSTEMS_RTOL
+            and torch.equal(nan, torch.isnan(mm)) and mm_in <= EPILOGUE_TOL
+            and bool((gap <= torch.where(nan, 0.0, bound)).all())):
+        raise RuntimeError(f"factored kernels vs plain: systems {rel}, C "
+                           f"{C_rel:.3e}, mm {mm_in:.3e} (t0 >= 0), "
+                           f"{mm_pre:.3e} (t0 < 0)")
+    return dict(windows=args[4].shape[0], systems_rel=rel, C_rel=C_rel,
+                mm_abs=mm_in, mm_abs_pre=mm_pre, max_abs_err=max_abs,
+                epilogue_max_abs_err=max(float((C - C_ref).abs().max()),
+                                         float(gap.max())))
+
+
+# Data rows beyond a pass of the systems kernel's 16 columns: a mode's
+# rows then take several passes, its mixing added up over them.
+WIDE_ROWS = (17, 40)
+
+
+def check_factored_rows(device, K=2001, S=2, J=8, B=64, chunk=16):
+    """The systems kernel against its plain version on random inputs
+    (``testing.random_factored_sweep``) with WIDE_ROWS data rows, each
+    system relative to its largest entry (SYSTEMS_RTOL).  Returns
+    {rows: largest relative gap}; raises beyond the bound."""
+    import torch
+    from qnmfits_tpu_torch.ops import sweep_cuda
+    from qnmfits_tpu_torch.testing import random_factored_sweep
+    found = {}
+    for I in WIDE_ROWS:
+        r = random_factored_sweep(K, I, S, J, B, seed=I, n_pad=1)
+        args = [torch.as_tensor(r[k], device=device) for k in
+                ("times", "data", "omegas", "mus", "t0s", "Ts", "col_masks")]
+        got = sweep_cuda.factored_systems(*args, chunk)
+        ref = sweep_cuda.factored_systems_plain(*args, chunk)
+        found[I] = max(per_system_rel(x, y, 2 if y.dim() > 1 else 1)
+                       for x, y in zip(got, ref))
+        if not found[I] <= SYSTEMS_RTOL:
+            raise RuntimeError(f"factored systems kernel with {I} data rows "
+                               f"vs plain: {found[I]:.3e} > "
+                               f"{SYSTEMS_RTOL:.0e}")
+    log("factored systems kernel vs plain with "
+        + ", ".join(f"{I} data rows {v:.3e}" for I, v in found.items())
+        + f" (relative per system, bound {SYSTEMS_RTOL:.0e})")
+    return found
 
 
 def solve_flops(n):
@@ -603,6 +870,12 @@ def check_build():
             r["spill_stores"] or r["spill_loads"] for r in cf.values()):
         raise RuntimeError(f"ptxas reports CF kernels {sorted(cf)} "
                            f"(expected {cf_cuda.KERNELS}) or spills: {cf}")
+    from qnmfits_tpu_torch.ops import sweep_cuda
+    sw = sweep_cuda.ptxas_report()
+    log(f"ptxas, the factored sweep's kernels: {sw}")
+    if any(r["spill_stores"] or r["spill_loads"] for r in sw.values()):
+        raise RuntimeError(f"ptxas reports spills in the factored sweep's "
+                           f"kernels: {sw}")
     return regs, spill
 
 
@@ -784,6 +1057,160 @@ def measure(problem, main, max_abs, build, device, gpu):
                 fits_per_s_nodedup=rates[False])
 
 
+def event_ms(fn, reps=20):
+    """Device time of one fn() call by CUDA events around reps calls after
+    two warm ones (the gaps between a call's kernels included)."""
+    import torch
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+# Operations the least time of the factored systems counts: the product
+# conj(phi0_j(t_k)) d_i(t_k), a complex multiply (6 FP64 operations), once
+# a (set, chunk, sample of the chunk's windows, row, mode), since each
+# chunk has its own anchor; its window sums, a complex add (2) a (set,
+# window, sample, row, mode); and a Gram entry's ladder, ~14 a level, with
+# ~60 for its closing products and divisions (transcendentals not
+# counted).  Prefix sums over the samples would make a window's sums two
+# operations, but their differences of large partial sums lose the
+# relative accuracy the systems are held to.
+PRODUCT_OPS, WINDOW_SUM_OPS = 6, 2
+GRAM_OPS_LEVEL, GRAM_OPS_ONCE = 14, 60
+
+
+def factored_bounds(args):
+    """Least times (ms) of the two kernels on one group's inputs ``args``
+    (``factored_systems``'s arguments): each the larger of its bytes (each
+    input read once, each output written once) over HBM bandwidth and its
+    FP64 operations over the FP64 peak.  Returns {"systems": (ms, by),
+    "epilogue": (ms, by)}."""
+    from qnmfits_tpu_torch.ops import sweep_cuda
+    times, data, omegas, mus, t0s, Ts = (np.asarray(a.cpu())
+                                         for a in args[:6])
+    chunk = args[7]
+    K, (I, _), (S, J), B = len(times), data.shape, omegas.shape, len(t0s)
+    a = np.searchsorted(times, t0s, side="left")
+    m = np.maximum(np.searchsorted(times, t0s + Ts, side="left") - a, 0)
+    # The samples each chunk's windows cover, which its products need.
+    spans = 0
+    for lo in range(0, B, chunk):
+        live = m[lo:lo + chunk] > 0
+        if live.any():
+            seg = slice(lo, lo + chunk)
+            spans += int(np.max((a + m)[seg][live]) - np.min(a[seg][live]))
+    nbits = sweep_cuda._nbits(K)
+    sys_bytes = (K * 8 + I * K * 16 + S * J * 16 + S * I * J * 16 + S * J
+                 + 16 * B + S * B * (2 * J * J + 2 * J) * 16 + 8 * B)
+    sys_ops = (S * I * J * (PRODUCT_OPS * spans
+                            + WINDOW_SUM_OPS * float(m.sum()))
+               + S * B * J * J * (GRAM_OPS_LEVEL * nbits + GRAM_OPS_ONCE))
+    epi_bytes = S * B * (J * J * 16 + 3 * J * 16 + 8) + 16 * B + S * J * 16
+    epi_ops = S * B * (8 * J * J + 4 * J + 12 * J)
+
+    def bound(nbytes, ops):
+        t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / FP64_FLOP_PER_S
+        return 1e3 * max(t_b, t_o), "bytes" if t_b >= t_o else "operations"
+
+    return dict(systems=bound(sys_bytes, sys_ops),
+                epilogue=bound(epi_bytes, epi_ops))
+
+
+# How the factored kernels' records are timed, by field.
+FACTORED_TIMED_BY = dict(
+    ms="torch.profiler: the kernel's device time, mean over its launches",
+    call_ms="CUDA events around back-to-back wrapper calls (the host's "
+            "launch gaps included)",
+    plain_ms="CUDA events around back-to-back plain-version calls")
+
+
+def measure_factored(problem, main, device, gpu):
+    """Phase 5, the factored sweep's kernels: each on the inputs each
+    main-path sweep gave it (dedup on and off), its device time from
+    torch.profiler and its call's by CUDA events, beside its bound and its
+    plain version's time (no single PyTorch call computes
+    either function: library_ms is null); then the sweep's profile, wall,
+    device busy, idle share and kernels a sweep.  Returns the two
+    kernels' JSON records."""
+    from qnmfits_tpu_torch.ops import sweep_cuda
+    timed = {}
+    for dedup in (True, False):
+        calls = main["sweep_calls"][dedup]
+        args = calls["systems"][0][0]
+        eargs = calls["epilogue"][0][0]
+        bounds = factored_bounds(args)
+        t = timed[dedup] = {}
+        for key, kernel, fn, plain, a in (
+                ("systems", "factored_systems_kernel",
+                 sweep_cuda.factored_systems,
+                 sweep_cuda.factored_systems_plain, args),
+                ("epilogue", "mismatch_rephase_kernel",
+                 sweep_cuda.mismatch_rephase,
+                 sweep_cuda.mismatch_rephase_plain, eargs)):
+            ms = kernel_ms(lambda: fn(*a), kernel=kernel)
+            call_ms = event_ms(lambda: fn(*a))
+            plain_ms = event_ms(lambda: plain(*a), reps=3)
+            b_ms, by = bounds[key]
+            t[key] = dict(ms=ms, call_ms=call_ms, plain_ms=plain_ms,
+                          bound_ms=b_ms, bound_by=by, bound_share=b_ms / ms)
+            log(f"{key} kernel on {gpu}, dedup={dedup} (B={len(a[5])} "
+                f"windows): {ms:.4f} ms (torch.profiler; the call "
+                f"{call_ms:.4f} ms by CUDA events), bound {b_ms:.3e} ms "
+                f"({by}), share {b_ms / ms:.3f}; plain {plain_ms:.4f} ms")
+        split = device_split(lambda: sweep(problem, device, dedup))
+        t["profile"] = split
+        if split is None:
+            log(f"main-path sweep (dedup={dedup}): torch.profiler recorded "
+                "no device time (not measured)")
+        else:
+            log(f"main-path sweep profile (dedup={dedup}) on {gpu}: warm "
+                f"wall {split['wall_ms']:.2f} ms, busy {split['busy_ms']:.3f} "
+                f"ms, idle share {split['idle_share']:.3f}, "
+                f"{split['kernels']} kernels and {split['copies']} copies a "
+                f"sweep; factored kernels {split['sweep_ms']:.3f} ms, solve "
+                f"{split['solve_ms']:.4f} ms, elementwise "
+                f"{split['elementwise_ms']:.3f}, products "
+                f"{split['products_ms']:.3f}, rest {split['rest_ms']:.3f}, "
+                f"copies {split['copies_ms']:.3f} ms")
+    records = []
+    report = sweep_cuda.ptxas_report()
+    for i, (key, name, kernel, line, err) in enumerate((
+            ("systems", "factored_systems", "factored_systems_kernel",
+             "qnmfits_tpu/engine_real.py:717", "max_abs_err"),
+            ("epilogue", "mismatch_rephase", "mismatch_rephase_kernel",
+             "qnmfits_tpu/engine_real.py:826", "epilogue_max_abs_err"))):
+        on, off = timed[True][key], timed[False][key]
+        f_on, f_off = main["factored"][True], main["factored"][False]
+        records.append(dict(
+            name=name, route="cuda",
+            source="qnmfits_tpu_torch/csrc/factored_sweep.cu",
+            replaces=line, launches=main["factored_launches"][i],
+            max_abs_err=max(f_on[err], f_off[err]), ms=on["ms"],
+            plain_ms=on["plain_ms"], bound_ms=on["bound_ms"],
+            bound_by=on["bound_by"], library_ms=None,
+            bound_share=on["bound_share"], call_ms=on["call_ms"],
+            timed_by=FACTORED_TIMED_BY,
+            launches_nodedup=main["factored_launches_nodedup"][i],
+            ms_nodedup=off["ms"], call_ms_nodedup=off["call_ms"],
+            plain_ms_nodedup=off["plain_ms"],
+            bound_ms_nodedup=off["bound_ms"],
+            bound_share_nodedup=off["bound_share"],
+            registers=report[kernel]["registers"]))
+    records[0]["systems_rel"] = max(max(f["systems_rel"].values())
+                                    for f in main["factored"].values())
+    records[1]["C_rel"] = max(f["C_rel"] for f in main["factored"].values())
+    records[0]["profile"] = {str(d): timed[d]["profile"]
+                             for d in (True, False)}
+    return records
+
+
 # ---------------------------------------------------------------------------
 # Phase 6: the rest of the static-spectrum surface
 # ---------------------------------------------------------------------------
@@ -820,15 +1247,18 @@ SET_96 = [m for l in range(2, 8) for m in _m2(l, 8) + _m2(l, 8, -1)]
 
 def drive(fn):
     """fn() with the kernels' launch counts set to 0 just before it and
-    read just after.  Returns (result, launches of both kernels, launches
-    of the wide kernel, wall seconds); results are NumPy arrays, so the
-    device has finished."""
-    from qnmfits_tpu_torch.ops import chol_cuda
+    read just after.  Returns (result, launches of both solve kernels,
+    launches of the wide solve kernel, wall seconds, (launches of the
+    factored sweep's systems kernel, of its epilogue kernel)); results
+    are NumPy arrays, so the device has finished."""
+    from qnmfits_tpu_torch.ops import chol_cuda, sweep_cuda
     chol_cuda.launches = chol_cuda.wide_launches = 0
+    sweep_cuda.systems_launches = sweep_cuda.epilogue_launches = 0
     t = time.perf_counter()
     out = fn()
     wall = time.perf_counter() - t
-    return out, chol_cuda.launches, chol_cuda.wide_launches, wall
+    return (out, chol_cuda.launches, chol_cuda.wide_launches, wall,
+            (sweep_cuda.systems_launches, sweep_cuda.epilogue_launches))
 
 
 def _diff(a, b, pre):
@@ -896,7 +1326,7 @@ def path_specs(problem, device):
     specs = []
 
     def modesets(key, name, mode_sets, expect, chif=CHIF, pre_tol=PRE_TOL,
-                 **extra):
+                 all_plain=False, route=None, **extra):
         def kernel():
             return fitting.mismatch_t0_mode_sets(
                 times, data, mode_sets, MF, chif, t0s, **kw, **extra)
@@ -931,15 +1361,25 @@ def path_specs(problem, device):
 
         specs.append(dict(key=key, name=name, kernel=kernel, plain=plain,
                           pre=pre, pre_tol=pre_tol, oracle=check,
-                          expect=expect))
+                          expect=expect, all_plain=all_plain,
+                          **(route or {})))
 
     modesets("closest", "mode sets, t0_method='closest' (dedup)", sets,
              (1, 0), t0_method="closest")
+    # Off the remnant's spin the 8-mode ladder's Grams pass kappa ~ 1e8
+    # (ROADMAP C.3): two backward-stable solves of its systems part by
+    # ~1e-11, on the kernel's systems as on the plain version's, so that
+    # set is held to each window's first-order rounding bound, with the
+    # kernel's backward error gated; the other sets to MAIN_TOL.
+    off_remnant = dict(route_tol=np.array(
+        [MAIN_TOL if len(ms) < 8 else np.inf for ms in sets]),
+        bounded=(lambda live: live >= 8, "in"), plain_systems_gap=True,
+        backward=True)
     modesets("remnant", f"remnant axis R={len(spins)} (dedup)", sets,
-             (1, 0), chif=spins)
+             (1, 0), chif=spins, route=off_remnant)
     modesets("remnant_nodedup", f"remnant axis R={len(spins)} (no dedup)",
              sets, (len(remnant_groups(problem)), 0), chif=spins,
-             dedup=False)
+             dedup=False, route=off_remnant)
     J = max(len(ms) for ms in sets)
     widths = {batched._bucket_width(len(ms), J) for ms in sets}
     modesets("bucket", "mode sets, bucket=True", sets, (len(widths), 0),
@@ -1021,9 +1461,16 @@ def path_specs(problem, device):
         expect=(1, 0)))
 
     modesets("n1", "one-mode sets (n = 1)", ONE_MODE_SETS, (1, 0))
-    modesets("n17", "17-mode set (n = 17)", [SET_17] + sets[:2], (1, 1))
-    modesets("n40", "40-mode set (n = 40)", [SET_40], (1, 1), pre_tol=None)
-    modesets("n96", "96-mode set (n = 96)", [SET_96], (1, 1), pre_tol=None)
+    modesets("n17", "17-mode set (n = 17)", [SET_17] + sets[:2], (1, 1),
+             all_plain=True)
+    # Before the ringdown two backward-stable solves of the 40- and 96-mode
+    # systems part by ~1e-7 (ROADMAP C.2): there each window is held to
+    # its first-order rounding bound, with the kernel's backward error.
+    before = dict(bounded=(lambda live: live > 0, "pre"))
+    modesets("n40", "40-mode set (n = 40)", [SET_40], (1, 1), pre_tol=None,
+             all_plain=True, route=before)
+    modesets("n96", "96-mode set (n = 96)", [SET_96], (1, 1), pre_tol=None,
+             all_plain=True, route=before)
     return specs
 
 
@@ -1044,7 +1491,37 @@ def run_specs(specs, device):
     gate."""
     records = []
     for spec in specs:
-        mm, n, n_wide, wall = drive(spec["kernel"])
+        # The factored sweep's inputs and outputs are kept on the paths
+        # that are one such sweep, for its kernels against their plain
+        # versions on them and the all-plain route (on the CPU the
+        # kernel route is the plain route: nothing to compare).
+        all_plain_check = spec.get("all_plain") and device != "cpu"
+        # A spec's ``bounded`` = (sets, side): on that side of the ringdown
+        # those sets (a function of each set's live columns) are held to
+        # each window's first-order rounding bound (``first_order_gaps``)
+        # against both routes, where a bar for every window would be
+        # either loose or broken by their measured conditioning.
+        bounded = spec.get("bounded")
+
+        def recorded(on=bounded is not None):
+            return recording_sweeps() if on else contextlib.nullcontext()
+
+        def bounded_check(route, groups):
+            gap, bnd, ratio = bounded_gap(groups, *bounded)
+            side = "t0 >= 0" if bounded[1] == "in" else "t0 < 0"
+            rec[f"bounded_{route}"] = dict(gap=gap, bound=bnd, ratio=ratio,
+                                           side=side)
+            if not ratio <= 1.0:
+                raise RuntimeError(f"{name}: kernel route and {route} route "
+                                   f"part beyond their first-order bound "
+                                   f"({side}): gap {gap:.3e}, "
+                                   f"{ratio:.2e} of the bound")
+            return (f"; vs {route} route on the bounded sets ({side}) "
+                    f"{gap:.3e}, {ratio:.2e} of the first-order bound "
+                    f"(largest {bnd:.3e})")
+
+        with recorded(all_plain_check or bounded is not None) as calls:
+            mm, n, n_wide, wall, (n_sys, n_epi) = drive(spec["kernel"])
         mm = np.asarray(mm)
         name = spec["name"]
         if not np.all(np.isfinite(mm)):
@@ -1056,11 +1533,21 @@ def run_specs(specs, device):
                                f"the wide kernel), expected {expect}")
         rec = dict(key=spec["key"], name=name, launches=n,
                    wide_launches=n_wide, expected_launches=expect[0],
+                   systems_launches=n_sys, epilogue_launches=n_epi,
                    wall_s=wall)
         msg = f"{name}: mm {mm.shape}, launches {n} (wide {n_wide})"
+        # Each join group of a factored sweep launches both of its kernels
+        # once; a path that is one factored sweep launches them as often
+        # as the solve.
+        if n_sys != n_epi or (all_plain_check and n_sys != n):
+            raise RuntimeError(f"{name}: the factored sweep's kernels "
+                               f"launched {n_sys} and {n_epi} times beside "
+                               f"{n} solves")
+        msg += f", factored kernels {n_sys} + {n_epi}"
         if spec["plain"] is not None:
             plain = PlainSolve()
-            mm_p = np.asarray(spec["plain"](plain))
+            with recorded() as calls_p:
+                mm_p = np.asarray(spec["plain"](plain))
             d_in, d_pre = _diff(mm, mm_p, spec["pre"])
             rec.update(plain_in=d_in, plain_pre=d_pre, systems=plain.systems)
             msg += (f"; vs plain solve {d_in:.3e} (t0 >= 0), {d_pre:.3e} "
@@ -1074,8 +1561,9 @@ def run_specs(specs, device):
             if np.ndim(route_tol):
                 d = np.abs(mm - mm_p)
                 rec.update(
-                    plain_in_by_set=np.max(d[:, ~spec["pre"]], axis=1,
-                                           initial=0.0).tolist(),
+                    plain_in_by_set=np.max(
+                        d[..., ~spec["pre"]].reshape(d.shape[0], -1),
+                        axis=1, initial=0.0).tolist(),
                     route_tol_by_set=np.asarray(route_tol).tolist())
             if not _held(mm, mm_p, spec["pre"], route_tol, pre_tol):
                 bound_pre = (None if pre_tol is None
@@ -1084,6 +1572,50 @@ def run_specs(specs, device):
                                    f"disagree: {d_in:.3e} (t0 >= 0, bound "
                                    f"{np.max(route_tol):.1e}), {d_pre:.3e} "
                                    f"(t0 < 0, bound {bound_pre})")
+            if bounded is not None:
+                msg += bounded_check("plain-solve",
+                                     first_order_gaps(calls, calls_p))
+            if bounded is not None and spec.get("plain_systems_gap"):
+                # The same two solves on the plain version's systems: how
+                # far they part there, beside the kernel's systems.
+                with all_plain():
+                    with recording_sweeps() as ck:
+                        spec["kernel"]()
+                    with recording_sweeps() as cp:
+                        spec["plain"](PlainSolve())
+                gap, bnd, ratio = bounded_gap(first_order_gaps(ck, cp),
+                                              *bounded)
+                rec["plain_systems_route"] = dict(gap=gap, bound=bnd,
+                                                  ratio=ratio)
+                msg += (f"; the two solves on the plain systems {gap:.3e}, "
+                        f"{ratio:.2e} of their bound")
+            if all_plain_check:
+                # Before the ringdown the bound is the spec's own: where
+                # two solvers of the same systems part by more than
+                # PRE_TOL (the 40- and 96-mode sets, ROADMAP C.2), the
+                # systems and the backward error are gated instead.
+                with all_plain(), recorded() as calls_a:
+                    mm_a = np.asarray(spec["plain"](PlainSolve()))
+                a_in, a_pre = _diff(mm, mm_a, spec["pre"])
+                rec.update(all_plain_in=a_in, all_plain_pre=a_pre)
+                msg += (f"; vs the all-plain route {a_in:.3e} (t0 >= 0), "
+                        f"{a_pre:.3e} (t0 < 0)")
+                if not _held(mm, mm_a, spec["pre"], MAIN_TOL, pre_tol):
+                    raise RuntimeError(
+                        f"{name}: kernel route and all-plain route "
+                        f"disagree: {a_in:.3e} (t0 >= 0, bound "
+                        f"{MAIN_TOL:.0e}), {a_pre:.3e} (t0 < 0, bound "
+                        f"{pre_tol})")
+                if bounded is not None:
+                    msg += bounded_check("all-plain", first_order_gaps(
+                        calls, calls_a, solves=2))
+                f = factored_vs_plain(calls)
+                rec.update(systems_rel=max(f["systems_rel"].values()),
+                           epilogue_C_rel=f["C_rel"],
+                           epilogue_mm=f["mm_abs"])
+                msg += (f"; factored kernels vs plain on its inputs: "
+                        f"systems {rec['systems_rel']:.3e}, C "
+                        f"{f['C_rel']:.3e}, mm {f['mm_abs']:.3e}")
             if (pre_tol is None or spec.get("backward")) and device != "cpu":
                 from qnmfits_tpu_torch.ops import chol_cuda
                 bwd = max(backward_err(G, b, chol_cuda.regularised_solve(G, b))
@@ -1299,6 +1831,8 @@ def _kernel_kind(name):
     low = name.lower()
     if "regularised_solve" in name:
         return "solve"
+    if "factored_systems" in name or "mismatch_rephase" in name:
+        return "sweep"
     if "memcpy" in low or "memset" in low:
         return "copies"
     if any(k in low for k in ("gemm", "gemv", "cutlass", "dot_kernel",
@@ -1310,7 +1844,8 @@ def _kernel_kind(name):
 def device_split(fn, reps=2, host_ops=True):
     """Device time of one fn() call split by kind of record: the Gram and
     projection products (GEMM kernels), elementwise kernels (the basis
-    build among them), the solve kernels, the host-device copies and
+    build among them), the solve kernels, the factored sweep's kernels
+    (sweep), the host-device copies and
     memsets (CUPTI's Memcpy/Memset records) and the rest (reductions,
     concatenations), from torch.profiler over reps calls, each record
     counted as in ``device_ms``.  wall_ms is a warm call's wall time
@@ -1341,8 +1876,8 @@ def device_split(fn, reps=2, host_ops=True):
             fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t) / reps * 1e3
-    split = dict(products=0.0, elementwise=0.0, solve=0.0, copies=0.0,
-                 rest=0.0)
+    split = dict(products=0.0, elementwise=0.0, solve=0.0, sweep=0.0,
+                 copies=0.0, rest=0.0)
     kernels = copies = 0
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA or e.count == 0:
@@ -1430,7 +1965,8 @@ def run_dynamic(problem, device, gpu=None, main_systems=None):
                 f"kernels and {split['copies']} copies: products "
                 f"{split['products_ms']:.2f}, elementwise "
                 f"{split['elementwise_ms']:.2f}, solve "
-                f"{split['solve_ms']:.4f}, copies {split['copies_ms']:.2f}, "
+                f"{split['solve_ms']:.4f}, factored kernels "
+                f"{split['sweep_ms']:.3f}, copies {split['copies_ms']:.2f}, "
                 f"rest {split['rest_ms']:.2f} ms")
         if not r["backward_err"] <= KERNEL_BWD_TOL:
             raise RuntimeError(f"{rec['name']}: kernel backward error "
@@ -1704,7 +2240,7 @@ def run_optimisers(problem, device, gpu=None):
     records, solves = [], {}
     for spec in optimiser_specs(problem, device):
         optimize.evaluations = 0
-        out, n, n_wide, wall = drive(spec["kernel"])
+        out, n, n_wide, wall, _ = drive(spec["kernel"])
         expect = (2 * optimize.evaluations if spec["expect"] is None
                   else spec["expect"])
         rec = dict(key=spec["key"], name=spec["name"], launches=n,
@@ -1782,7 +2318,8 @@ def run_optimisers(problem, device, gpu=None):
                 f"{split['peak_gib']:.2f} GiB; {split['kernels']} kernels: "
                 f"products {split['products_ms']:.2f}, elementwise "
                 f"{split['elementwise_ms']:.2f}, solve "
-                f"{split['solve_ms']:.3f}, copies {split['copies_ms']:.2f}, "
+                f"{split['solve_ms']:.3f}, factored kernels "
+                f"{split['sweep_ms']:.3f}, copies {split['copies_ms']:.2f}, "
                 f"rest {split['rest_ms']:.2f} ms")
         records.append(rec)
     wall = time.perf_counter() - t
@@ -2189,7 +2726,8 @@ def run_diagnostics(problem, device, gpu=None):
             f"and {split['copies']} copies: products "
             f"{split['products_ms']:.2f}, elementwise "
             f"{split['elementwise_ms']:.2f}, solve {split['solve_ms']:.4f}, "
-            f"copies {split['copies_ms']:.2f}, rest {split['rest_ms']:.2f} ms")
+            f"factored kernels {split['sweep_ms']:.3f}, copies "
+            f"{split['copies_ms']:.2f}, rest {split['rest_ms']:.2f} ms")
     wall = time.perf_counter() - t
     log(f"phase 9: {len(records)} paths in {wall:.1f} s")
     return records, solves, wall
@@ -2320,7 +2858,7 @@ def mapping_specs(problem, device):
             name=f"{key.upper()} mapping_mismatch_t0_array '{engine}' "
             f"(J={J}, {'dedup' if dedup else 'no dedup'}), {name}",
             kernel=run, plain=run, pre=t0s < 0, backward=True,
-            expect=(n, wide),
+            expect=(n, wide), all_plain=engine == "fast",
             oracle=lambda mm: _diff(mm[loop_idx], loop_oracle(key), None)))
 
     sweep("m1", "fast", True, "team kernel")
@@ -2529,7 +3067,8 @@ def run_mapping(problem, device, gpu=None):
             f"and {split['copies']} copies: products "
             f"{split['products_ms']:.2f}, elementwise "
             f"{split['elementwise_ms']:.2f}, solve {split['solve_ms']:.4f}, "
-            f"copies {split['copies_ms']:.2f}, rest {split['rest_ms']:.2f} ms")
+            f"factored kernels {split['sweep_ms']:.3f}, copies "
+            f"{split['copies_ms']:.2f}, rest {split['rest_ms']:.2f} ms")
     wall = time.perf_counter() - t
     log(f"phase 10: {len(records)} paths in {wall:.1f} s")
     return records, solves, wall
@@ -3045,7 +3584,8 @@ def run_waveforms(problem, device, gpu=None):
             f"and {split['copies']} copies: products "
             f"{split['products_ms']:.2f}, elementwise "
             f"{split['elementwise_ms']:.2f}, solve {split['solve_ms']:.4f}, "
-            f"copies {split['copies_ms']:.2f}, rest {split['rest_ms']:.2f} ms")
+            f"factored kernels {split['sweep_ms']:.3f}, copies "
+            f"{split['copies_ms']:.2f}, rest {split['rest_ms']:.2f} ms")
     info = dict(
         w1=dict(branch=branch, K=len(w1.times), ell_max=w1.ellMax,
                 stages=w1.stage_seconds,
@@ -3410,12 +3950,13 @@ def _timed_ms(fn, device, reps):
     return start.elapsed_time(end) / reps
 
 
-def cf_kernel_ms(fn, reps=20, kernel="leaver_cf_kernel"):
-    """Mean device time of the CF kernel's launches in fn() (one a call),
-    from torch.profiler's records of ``kernel`` (``leaver_cf_kernel``, or
-    ``leaver_cf_dd_kernel`` for the double-double one) over reps calls:
-    the wrapper's own copies and the host's launch cost are left out (at
-    the solver's small batches they take longer than the kernel).  A
+def kernel_ms(fn, reps=20, kernel="leaver_cf_kernel"):
+    """Mean device time of a hand-written kernel's launches in fn() (one
+    a call), from torch.profiler's records of ``kernel``
+    (``leaver_cf_kernel``, ``leaver_cf_dd_kernel`` for the CF's
+    double-double variant, or one of ``sweep_cuda.KERNELS``) over reps
+    calls: the wrapper's own copies and the host's launch cost are left
+    out (at small batches they take longer than the kernel).  A
     profile without the kernel's records is taken again, up to three
     times; then it raises: CUDA events would time the wrapper, not the
     kernel."""
@@ -3512,7 +4053,7 @@ def check_cf(inputs, device, reps=10, extended=False):
     bound, by = cf_bound_ms(B, N, extended)
     call_ms = _timed_ms(call, device, reps)
     ms = (call_ms if device == "cpu"
-          else cf_kernel_ms(call, kernel=_kernel_name(extended)))
+          else kernel_ms(call, kernel=_kernel_name(extended)))
     if not (err <= tol and err_scale <= tol):
         raise RuntimeError(f"{_kernel_name(extended)} vs plain at B={B}, "
                            f"N={N}: {err:.3e} of |U| + |T| (scale "
@@ -3533,7 +4074,7 @@ def cf_replay_s(shapes, device, extended=False):
     launch by shape.  The CUDA events of SolverClock bracket each wrapper
     call and so also count the host's work in it, which at these shapes
     outlasts the kernel.  (Profiles of 5 calls recorded no CF kernel after
-    phases 1-11; those of cf_kernel_ms's 20 do.)"""
+    phases 1-11; those of kernel_ms's 20 do.)"""
     import torch
     from qnmfits_tpu_torch.ops import cf_cuda
     rng = np.random.default_rng(CF_SEED)
@@ -3543,7 +4084,7 @@ def cf_replay_s(shapes, device, extended=False):
         w, a, A, s, m, n_inv, _ = cf_inputs(
             rng, B, N, device, CF_DD_CHI if extended else None)
         team = cf_cuda.plan(B, N, sms)[0]
-        ms = cf_kernel_ms(lambda: cf_cuda._launch(
+        ms = kernel_ms(lambda: cf_cuda._launch(
             w, a, A, s, m, n_inv, N, team, extended=extended),
             kernel=_kernel_name(extended))
         by_shape[f"{B}x{N}"] = ms
@@ -4316,7 +4857,7 @@ def mesh_rank(layout, device, build_kw):
     out = {}
     for s in specs:
         mesh = meshes[(1, 1) if layout == "N1" else s["n4"]]
-        res, n, _, wall = drive(lambda: s["call"](mesh))
+        res, n, _, wall, _ = drive(lambda: s["call"](mesh))
         out[s["key"]] = dict(res=res, launches=n, wall=wall)
     jax = sorted(m for m in sys.modules
                  if m.split(".")[0] in ("jax", "jaxlib", "qnmfits_tpu"))
@@ -4358,7 +4899,7 @@ def run_mesh(problem, device, gpu=None):
                 continue
             n_sweep = 1 if layout == "N1" else s["n4"][0]
             expect = s["expect"](n_sweep) if device != "cpu" else 0
-            ref, _, _, ref_wall = refs[s["key"]]
+            ref, _, _, ref_wall, _ = refs[s["key"]]
             got = [rk["out"][s["key"]] for rk in ranks]
             gaps = {}
             for field, tol_in, tol_pre, mask in s["gates"]:
@@ -4406,7 +4947,7 @@ def main():
         return 2
     sys.path.insert(0, ROOT)
     from concurrent.futures import ThreadPoolExecutor
-    from qnmfits_tpu_torch.ops import cf_cuda, chol_cuda
+    from qnmfits_tpu_torch.ops import cf_cuda, chol_cuda, sweep_cuda
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -4420,8 +4961,9 @@ def main():
 
     # One nvcc for each source, started together.
     t = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
-        libs = list(pool.map(lambda mod: mod.build(), (chol_cuda, cf_cuda)))
+    with ThreadPoolExecutor(3) as pool:
+        libs = list(pool.map(lambda mod: mod.build(),
+                             (chol_cuda, cf_cuda, sweep_cuda)))
     log(f"built {', '.join(os.path.relpath(lib, ROOT) for lib in libs)} in "
         f"{time.perf_counter() - t:.2f} s (sm_90a, in parallel)")
     build = check_build()
@@ -4437,6 +4979,9 @@ def main():
         f"B={len(problem['t0s'])}")
     main_path = run_main_path(problem, device)
     record = measure(problem, main_path, max_abs, build, device, gpu)
+    factored = measure_factored(problem, main_path, device, gpu)
+    factored[0]["wide_rows_rel"] = check_factored_rows(device)
+    main_path.pop("sweep_calls")
     paths = run_paths(problem, device)
     by_key = {p["key"]: p for p in paths}
     if by_key["remnant_nodedup"]["launches"] < 2:
@@ -4496,7 +5041,8 @@ def main():
                       "phase11_wall_s": phase11_wall,
                       "phase12_wall_s": phase12_wall}), flush=True)
     print(json.dumps({"mesh": mesh}), flush=True)
-    print(json.dumps({"kernels": [record, wide, *cf_records]}), flush=True)
+    print(json.dumps({"kernels": [record, wide, *factored, *cf_records]}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -16,7 +16,7 @@ import math
 
 import torch
 
-from .ops import chol_cuda
+from .ops import chol_cuda, sweep_cuda
 from .ops.chol import (complex_cholesky_factor,
                        complex_cholesky_solve_unrolled, complex_lower_inverse)
 from .ops.cmath import damped_phase
@@ -340,6 +340,26 @@ def _mismatch_rephase(C0, G2, rt, dnorm, omegas, t0s, trefs):
     return C0 * rot, mm
 
 
+def _group_systems(times, data, omegas, mus, t0s, Ts, col_masks, chunk,
+                   analytic):
+    """``_chunk_systems`` on each chunk of ``chunk`` windows of a join
+    group (chunks start at 0), each in its own basis, concatenated along
+    the window axis: G, G2 (S, B, J, J), rhs, rt (S, B, J), dnorm (B,)."""
+    parts = [_chunk_systems(times, data, omegas, mus, t0s[lo:lo + chunk],
+                            Ts[lo:lo + chunk], col_masks, analytic)
+             for lo in range(0, t0s.shape[0], chunk)]
+    return tuple(torch.cat([p[i] for p in parts], dim=1 if i < 4 else 0)
+                 for i in range(5))
+
+
+def _group_mismatch_rephase(C0, G2, rt, dnorm, omegas, t0s, chunk):
+    """``_mismatch_rephase`` over a join group, each window's amplitudes
+    in the basis of its chunk of ``chunk`` windows (chunks start at 0)."""
+    trefs = t0s[torch.arange(t0s.shape[0], device=t0s.device)
+                // chunk * chunk]
+    return _mismatch_rephase(C0, G2, rt, dnorm, omegas, t0s, trefs)
+
+
 def sweep_t0_modesets_factored_real(times, data, omegas, mus, t0s, Ts,
                                     col_masks, chunk: int = 64,
                                     analytic: bool = False, solve=None):
@@ -350,12 +370,17 @@ def sweep_t0_modesets_factored_real(times, data, omegas, mus, t0s, Ts,
     is a leading batch dimension (the JAX vmap).  Each chunk of start
     times builds its systems in its own basis (the JAX lax.map; the
     chunks bound the basis anchor's span, see ``batched._safe_chunk``).
-    Consecutive chunks are then joined while their G and G2 stay within
+    Consecutive chunks are joined while their G and G2 stay within
     ``JOIN_BYTES`` (``join_groups``), and for each such group ``solve``,
     the batched Hermitian solve (by default ``_regularised_solve``), runs
     once on all its systems, and the mismatch and rephasing once; a
-    sweep under the budget makes one solve call.  Returns C (S, B, J)
-    complex and mm (S, B).
+    sweep under the budget makes one solve call.  With ``analytic`` (the
+    closed-form Grams: uniform ascending grids) a group's systems and its
+    epilogue are ``ops/sweep_cuda.factored_systems`` and
+    ``mismatch_rephase``: one launch of each hand-written kernel on CUDA
+    tensors, their plain versions on CPU ones.  The summation branch is
+    plain PyTorch on every device.  Returns C (S, B, J) complex and
+    mm (S, B).
     """
     solve = _regularised_solve if solve is None else solve
     S, J = omegas.shape
@@ -364,19 +389,18 @@ def sweep_t0_modesets_factored_real(times, data, omegas, mus, t0s, Ts,
     Cs, mms = [], []
     for g0, g1 in join_groups([hi - lo for lo, hi in bounds],
                               2 * S * J * J * 16):
-        parts, trefs = [], []
-        for lo, hi in bounds[g0:g1]:
-            parts.append(_chunk_systems(times, data, omegas, mus, t0s[lo:hi],
-                                        Ts[lo:hi], col_masks, analytic))
-            trefs.append(t0s[lo:lo + 1].expand(hi - lo))
-        G, G2, rhs, rt = (torch.cat([p[i] for p in parts], dim=1)
-                          for i in range(4))
-        dnorm = torch.cat([p[4] for p in parts])
+        lo, hi = bounds[g0][0], bounds[g1 - 1][1]
+        args = (times, data, omegas, mus, t0s[lo:hi], Ts[lo:hi], col_masks,
+                chunk)
+        G, G2, rhs, rt, dnorm = (sweep_cuda.factored_systems(*args)
+                                 if analytic else
+                                 _group_systems(*args, analytic=False))
         B = rhs.shape[1]
         C0 = solve(G.reshape(S * B, J, J), rhs.reshape(S * B, J))
-        lo, hi = bounds[g0][0], bounds[g1 - 1][1]
-        C, mm = _mismatch_rephase(C0.reshape(S, B, J), G2, rt, dnorm, omegas,
-                                  t0s[lo:hi], torch.cat(trefs))
+        epilogue = (sweep_cuda.mismatch_rephase if analytic
+                    else _group_mismatch_rephase)
+        C, mm = epilogue(C0.reshape(S, B, J), G2, rt, dnorm, omegas,
+                         t0s[lo:hi], chunk)
         Cs.append(C)
         mms.append(mm)
     return torch.cat(Cs, dim=1), torch.cat(mms, dim=1)

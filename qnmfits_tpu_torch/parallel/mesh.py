@@ -53,7 +53,7 @@ __all__ = ["sweep_mesh", "sharded_t0_sweep", "sharded_fit_core",
            "sharded_event_batch", "sharded_t0_sweep_factored_2d",
            "sharded_omega_grid_bordered",
            "sharded_t0_sweep_modesets_dynamic", "resolve_mesh",
-           "gather_sweep", "sum_time", "TIMEOUT"]
+           "release_meshes", "gather_sweep", "sum_time", "TIMEOUT"]
 
 # The timeout a caller gives init_process_group, so that a collective
 # whose peer died raises instead of waiting for ever.
@@ -114,6 +114,17 @@ def sweep_mesh(n_sweep: int | None = None, n_time: int = 1,
                           mesh_dim_names=("sweep", "time"))
         _MESHES[key] = (dist.group.WORLD, mesh)
     return mesh
+
+
+def release_meshes():
+    """Forget the meshes that ``sweep_mesh`` cached.  A DeviceMesh holds
+    its row and column process groups, so a cached mesh keeps them alive
+    after ``torch.distributed.destroy_process_group``, until the
+    interpreter's own teardown frees them; gloo's groups freed there can
+    abort the process ("terminate called without an active exception").
+    Call it before destroy_process_group, with no other reference to the
+    meshes left."""
+    _MESHES.clear()
 
 
 def resolve_mesh(mesh, device):

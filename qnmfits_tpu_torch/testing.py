@@ -10,8 +10,9 @@ import numpy as np
 
 from .engine import SpectrumEvaluator
 
-__all__ = ["bench_mode_sets", "random_hermitian_systems", "run_world",
-           "synthetic_multimode", "synthetic_single"]
+__all__ = ["bench_mode_sets", "random_factored_sweep",
+           "random_hermitian_systems", "run_world", "synthetic_multimode",
+           "synthetic_single"]
 
 
 def default_time_grid(t_min=-50.0, t_max=150.0, dt=0.1):
@@ -117,10 +118,44 @@ def random_hermitian_systems(B, n, seed=0, n_pad=0):
     return G, b
 
 
+def random_factored_sweep(K, I, S, J, B, seed=0, n_pad=0):
+    """Inputs of one join group of the factored sweep (numpy): times (K,)
+    a uniform grid of step 0.1 from -5, data (I, K), omegas (S, J) damped,
+    mus (S, I, J), col_masks (S, J) with the last n_pad columns padding
+    (zero frequency and mixing), and B sorted start times t0s with window
+    lengths Ts (B,) among which: a window too short to hold a sample, one
+    that starts past the grid (empty), and one that runs off the grid's
+    end."""
+    rng = np.random.default_rng(seed)
+    times = -5.0 + 0.1 * np.arange(K)
+    data = rng.standard_normal((I, K)) + 1j * rng.standard_normal((I, K))
+    omegas = (rng.uniform(0.2, 1.5, (S, J))
+              - 1j * rng.uniform(0.05, 0.6, (S, J)))
+    mus = rng.standard_normal((S, I, J)) + 1j * rng.standard_normal((S, I, J))
+    masks = np.ones((S, J), bool)
+    if n_pad:
+        masks[:, J - n_pad:] = False
+        omegas[:, J - n_pad:] = 0.0
+        mus[:, :, J - n_pad:] = 0.0
+    t0s = rng.uniform(times[0], times[-1], B)
+    Ts = rng.uniform(0.5, 0.05 * K, B)
+    t0s[0], Ts[0] = times[K // 3] + 0.01, 0.05
+    if B > 1:
+        t0s[1] = times[-1] + 1.0
+    if B > 2:
+        t0s[2], Ts[2] = times[-1] - 0.35, 50.0
+    order = np.argsort(t0s)
+    return dict(times=times, data=data, omegas=omegas, mus=mus,
+                col_masks=masks, t0s=t0s[order], Ts=Ts[order])
+
+
 def _rank_main(fn, rank, world, backend, tmp, args):
-    """One rank of ``run_world``: joins the group through a file store in
+    """One rank of ``run_world``: sends its standard error to
+    ``rank<r>.stderr`` in ``tmp``, joins the group through a file store in
     ``tmp`` (no network), runs fn(*args) and pickles its result, or its
-    traceback, into ``tmp``."""
+    traceback, into ``tmp``.  The cached meshes, and with them the last
+    references to the mesh's process groups, go before the group is
+    destroyed (``parallel.mesh.release_meshes``)."""
     import os
     import pickle
     import traceback
@@ -128,7 +163,11 @@ def _rank_main(fn, rank, world, backend, tmp, args):
     import torch
     import torch.distributed as dist
 
-    from .parallel.mesh import TIMEOUT
+    from .parallel.mesh import TIMEOUT, release_meshes
+    err_fd = os.open(os.path.join(tmp, f"rank{rank}.stderr"),
+                     os.O_WRONLY | os.O_CREAT | os.O_TRUNC)
+    os.dup2(err_fd, 2)
+    os.close(err_fd)
     torch.set_num_threads(1)
     try:
         dist.init_process_group(backend,
@@ -137,6 +176,7 @@ def _rank_main(fn, rank, world, backend, tmp, args):
         try:
             out = fn(*args)
         finally:
+            release_meshes()
             dist.destroy_process_group()
         with open(os.path.join(tmp, f"rank{rank}.pkl"), "wb") as f:
             pickle.dump(out, f)
@@ -153,7 +193,9 @@ def run_world(fn, world, args=(), backend="gloo", timeout=300.0):
     fn must be importable by name (a module-level function).  Waits at
     most ``timeout`` seconds in all, kills every rank still running when
     one fails or the time is up, and raises RuntimeError with the failed
-    ranks' tracebacks.  Returns the ranks' results, in rank order."""
+    ranks' tracebacks; for a rank that died without one, its exit code,
+    whether it had written its result, and the tail of its standard
+    error.  Returns the ranks' results, in rank order."""
     import os
     import pickle
     import shutil
@@ -188,7 +230,15 @@ def run_world(fn, world, args=(), backend="gloo", timeout=300.0):
                 with open(err) as f:
                     errors.append(f"rank {r}:\n{f.read()}")
             elif p.exitcode != 0:
-                errors.append(f"rank {r}: exit {p.exitcode}")
+                wrote = os.path.exists(os.path.join(tmp, f"rank{r}.pkl"))
+                tail = ""
+                log = os.path.join(tmp, f"rank{r}.stderr")
+                if os.path.exists(log):
+                    with open(log, errors="replace") as f:
+                        tail = f.read()[-2000:]
+                errors.append(f"rank {r}: exit {p.exitcode}, result "
+                              f"{'written' if wrote else 'not written'}; "
+                              f"stderr ends:\n{tail}")
         if errors:
             raise RuntimeError(f"{len(errors)} of {world} ranks failed "
                                f"(or were stopped after {timeout:.0f} s):\n"

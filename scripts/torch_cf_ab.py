@@ -10,7 +10,7 @@ Imports ``qnmfits_tpu_torch`` from DIR (another commit's tree, e.g.
 default) and drives it with this checkout's ``chip_smoke.py``:
 
 * the CF kernel's device time (torch.profiler's records of its launches,
-  ``chip_smoke.cf_kernel_ms``) through that version's ``leaver_cf`` at each
+  ``chip_smoke.kernel_ms``) through that version's ``leaver_cf`` at each
   (B, N) of phase 12's S1, on S1's random inputs in S1's order
   (``cf_inputs``, ``CF_SEED``), then on the inputs of F1's largest launch;
 * F1 (``chip_smoke.on_demand_fit``: the bench's (2,2,n<4) set with the
@@ -80,7 +80,7 @@ def main():
         w, a, A, s, m, n_inv, N = inputs
         call = lambda: cf_cuda.leaver_cf(w, a, A, s, m, n_inv, N)  # noqa
         return dict(batch=int(w.shape[0]), N=int(N),
-                    ms=chip_smoke.cf_kernel_ms(call),
+                    ms=chip_smoke.kernel_ms(call),
                     call_ms=chip_smoke._timed_ms(call, "cuda", 10),
                     plan=list(getattr(cf_cuda, "last_plan", None) or []))
 

@@ -11,7 +11,7 @@ of SHAPES, on random inputs of phase 12's S1 distribution
 kernel with every team of ``cf_cuda.TEAMS`` and prints, per team, the
 segment length (steps a thread), the largest error against the plain
 version on the same card relative to |U| + |T|, and the kernel's device
-time (torch.profiler, ``chip_smoke.cf_kernel_ms``), marking the team that
+time (torch.profiler, ``chip_smoke.kernel_ms``), marking the team that
 ``cf_cuda.plan`` picks.  With ``--extended`` the same for the double-double
 variant at SHAPES_DD, on S1-X's distribution (``chip_smoke.CF_DD_CHI``,
 spins beyond chi = 0.985), against its plain version ``cf_dd``.  The
@@ -305,7 +305,7 @@ def main():
             f, scale = cf_cuda._launch(*inputs, team, extended=ext)
             err = float(((f - ref).abs() / ref_scale).max())
             err_scale = float(((scale - ref_scale).abs() / ref_scale).max())
-            ms = chip_smoke.cf_kernel_ms(
+            ms = chip_smoke.kernel_ms(
                 lambda: cf_cuda._launch(*inputs, team, extended=ext),
                 reps=20 if -(-N // team) < 4096 else 3,
                 kernel=chip_smoke._kernel_name(ext))

@@ -713,3 +713,134 @@ def test_one_rank_nccl_mesh_matches_unsharded(cuda):
         assert launches == 1
         assert np.max(np.abs(mm - ref)[:, keep]) <= 1e-12
         assert np.max(np.abs(mm - ref)) <= 1e-8
+
+
+# ---------------------------------------------------------------------------
+# The factored sweep's kernels (csrc/factored_sweep.cu)
+# ---------------------------------------------------------------------------
+
+# (K, I, S, J, B, chunk, n_pad): several chunks each with its own anchor,
+# partial blocks and chunks, padded sets, one to five data rows and 16, 17
+# and 40 (past a pass's 16 columns a mode's rows take several passes), and
+# J = 1, 8, 17, 40 and 96 (the team and the wide solve's sizes).
+FACTORED_CASES = [(300, 2, 3, 8, 70, 16, 2), (300, 1, 2, 1, 33, 7, 0),
+                  (400, 5, 2, 17, 45, 20, 4), (250, 3, 1, 40, 19, 6, 8),
+                  (250, 2, 1, 96, 9, 4, 0), (2001, 2, 16, 8, 513, 128, 0),
+                  (300, 16, 2, 5, 40, 12, 1), (300, 17, 2, 8, 40, 12, 2),
+                  (250, 40, 2, 17, 25, 8, 3), (250, 40, 1, 96, 9, 4, 0)]
+
+
+def _factored_args(case, device, seed=0):
+    from qnmfits_tpu_torch.testing import random_factored_sweep
+    K, I, S, J, B, chunk, n_pad = case
+    r = random_factored_sweep(K, I, S, J, B, seed=seed, n_pad=n_pad)
+    return ([torch.as_tensor(r[k], device=device) for k in
+             ("times", "data", "omegas", "mus", "t0s", "Ts", "col_masks")],
+            chunk)
+
+
+@pytest.mark.parametrize("case", FACTORED_CASES)
+def test_factored_kernels_match_plain(cuda, case):
+    """Each kernel against its plain version on the same inputs: the
+    systems relative to each system's largest entry, the epilogue on the
+    plain solve's amplitudes of the plain systems."""
+    import chip_smoke
+    from qnmfits_tpu_torch.ops import sweep_cuda
+    (times, data, om, mus, t0s, Ts, masks), chunk = _factored_args(case,
+                                                                   cuda)
+    S, J, B = om.shape[0], om.shape[1], t0s.shape[0]
+    before = sweep_cuda.systems_launches, sweep_cuda.epilogue_launches
+    got = sweep_cuda.factored_systems(times, data, om, mus, t0s, Ts, masks,
+                                      chunk)
+    ref = sweep_cuda.factored_systems_plain(times, data, om, mus, t0s, Ts,
+                                            masks, chunk)
+    torch.cuda.synchronize()
+    for x, r in zip(got, ref):
+        assert chip_smoke.per_system_rel(x, r, 2 if r.dim() > 1 else 1) \
+            <= 1e-12
+    C0 = engine_real._regularised_solve_plain(
+        ref[0].reshape(S * B, J, J), ref[2].reshape(S * B, J)).reshape(S, B, J)
+    C, mm = sweep_cuda.mismatch_rephase(C0, ref[1], ref[3], ref[4], om, t0s,
+                                        chunk)
+    C_ref, mm_ref = sweep_cuda.mismatch_rephase_plain(
+        C0, ref[1], ref[3], ref[4], om, t0s, chunk)
+    torch.cuda.synchronize()
+    assert (sweep_cuda.systems_launches, sweep_cuda.epilogue_launches) == (
+        before[0] + 1, before[1] + 1)
+    assert chip_smoke.per_system_rel(C, C_ref, 2) <= 1e-12
+    # Random fits are ill-conditioned: mm's two orders of summation are
+    # held to the rounding of its sums.
+    nan = torch.isnan(mm_ref)
+    assert torch.equal(nan, torch.isnan(mm))
+    bound = chip_smoke.epilogue_bound(C0, ref[1], ref[3], mm_ref)
+    assert bool(((mm - mm_ref).abs() <= bound)[~nan].all())
+
+
+def test_factored_kernels_do_not_spill(cuda):
+    from qnmfits_tpu_torch.ops import sweep_cuda
+    report = sweep_cuda.ptxas_report()
+    assert set(report) == set(sweep_cuda.KERNELS)
+    for name, r in report.items():
+        assert r["spill_stores"] == 0 and r["spill_loads"] == 0, (name, r)
+
+
+def test_main_path_sweep_launches_each_kernel_once(cuda):
+    """One main-path sweep, with and without dedup: one launch of the
+    systems kernel, one of the solve and one of the epilogue, and the
+    result within 1e-11 of the all-plain route for t0 >= 0."""
+    import chip_smoke
+    from qnmfits_tpu_torch.ops import sweep_cuda
+    problem = chip_smoke.build_problem(**chip_smoke.SMALL)
+    keep = problem["t0s"] >= 0
+    for dedup in (True, False):
+        mm, n, _, _, fac = chip_smoke.drive(
+            lambda: chip_smoke.sweep(problem, "cuda", dedup=dedup))
+        assert (n, *fac) == (1, 1, 1)
+        before = sweep_cuda.systems_launches, sweep_cuda.epilogue_launches
+        with chip_smoke.all_plain():
+            mm_plain = chip_smoke.sweep(
+                problem, "cuda", dedup=dedup,
+                solve=engine_real._regularised_solve_plain)
+        assert (sweep_cuda.systems_launches,
+                sweep_cuda.epilogue_launches) == before
+        assert np.max(np.abs(mm - mm_plain)[:, keep]) <= 1e-11
+
+
+def test_factored_kernels_reject_bad_input(cuda):
+    """Wrong dtype, a tensor on another device and a misaligned complex128
+    view raise; nothing launches and nothing falls back."""
+    from qnmfits_tpu_torch.ops import sweep_cuda
+    (times, data, om, mus, t0s, Ts, masks), chunk = _factored_args(
+        FACTORED_CASES[0], cuda)
+    before = sweep_cuda.systems_launches
+    with pytest.raises(TypeError):
+        sweep_cuda.factored_systems(times.float(), data, om, mus, t0s, Ts,
+                                    masks, chunk)
+    with pytest.raises(ValueError):
+        sweep_cuda.factored_systems(times, data.cpu(), om, mus, t0s, Ts,
+                                    masks, chunk)
+    raw = torch.empty(data.numel() * 16 + 8, dtype=torch.uint8, device=cuda)
+    skew = torch.empty(0, dtype=torch.complex128, device=cuda).set_(
+        raw.untyped_storage()[8:], 0, data.shape, data.stride())
+    skew.copy_(data)
+    with pytest.raises(ValueError, match="aligned"):
+        sweep_cuda.factored_systems(times, skew, om, mus, t0s, Ts, masks,
+                                    chunk)
+    assert sweep_cuda.systems_launches == before
+
+
+def test_debug_nans_sees_the_factored_kernels_output(cuda, monkeypatch):
+    """With ``check_nans`` on (``utils.debug_nans``), a NaN in the data
+    raises in the systems kernel's wrapper; with it off, nothing is
+    checked."""
+    from qnmfits_tpu_torch.ops import sweep_cuda
+    (times, data, om, mus, t0s, Ts, masks), chunk = _factored_args(
+        FACTORED_CASES[0], cuda)
+    data[0, 40:60] = float("nan")
+    rhs = sweep_cuda.factored_systems(times, data, om, mus, t0s, Ts, masks,
+                                      chunk)[2]
+    assert bool(torch.isnan(rhs).any())
+    monkeypatch.setattr(chol_cuda, "check_nans", True)
+    with pytest.raises(FloatingPointError, match="factored_systems"):
+        sweep_cuda.factored_systems(times, data, om, mus, t0s, Ts, masks,
+                                    chunk)

@@ -32,7 +32,7 @@ from qnmfits_tpu_torch.parallel import mesh
 from qnmfits_tpu_torch.utils import checkpoint, diagnostics
 from qnmfits_tpu_torch.waveforms import base, custom, surrogate, sxs
 from qnmfits_tpu_torch.ops import (cf_cuda, chol, chol_cuda, cmath, solve,
-                                   windows)
+                                   sweep_cuda, windows)
 from qnmfits_tpu_torch.spectrum import (angular, build_tables, multiplets,
                                         radial, solver, tables)
 import chip_smoke
@@ -50,6 +50,7 @@ assert (tables.track_cache_dir() / "s-2_l3_m1_n0_P9.npz").exists()
 problem = chip_smoke.build_problem(**chip_smoke.SMALL)
 out = chip_smoke.run_main_path(problem, "cpu")
 assert out["mm"].shape == (4, 64) and out["launches"] == 0
+assert out["factored_launches"] == out["factored_launches_nodedup"] == (0, 0)
 paths = chip_smoke.run_paths(problem, "cpu")
 paths += chip_smoke.run_dynamic(problem, "cpu")[0]
 paths += chip_smoke.run_optimisers(problem, "cpu")[0]
@@ -92,7 +93,11 @@ def _track_cache():
 def test_port_and_smoke_run_without_jax(tmp_path):
     before = _listing()
     jax_cache = _track_cache()
-    env = dict(os.environ, XDG_CACHE_HOME=str(tmp_path / "xdg"))
+    # One intra-op thread: at these sizes the script runs as fast alone on
+    # one thread as on all, and it does not spin threads for cores that
+    # the test workers beside it hold.
+    env = dict(os.environ, XDG_CACHE_HOME=str(tmp_path / "xdg"),
+               OMP_NUM_THREADS="1")
     env.pop("PYTHONPATH", None)
     r = subprocess.run([sys.executable, "-c", _SCRIPT.format(repo=REPO)],
                        capture_output=True, text=True, timeout=300,
