@@ -38,9 +38,14 @@ flushed line each with elapsed seconds:
 5. the solve kernel on the very systems each sweep gave it (8208 with
    dedup, 131072 without): its backward error, and its device time beside
    its bound, its plain version's and torch.linalg's; the sweep's fits/s;
-   the factored kernels on the sweep's own inputs by CUDA events beside
-   their bounds and their plain versions, and the sweep's profile (warm
-   wall, device busy, idle share, kernels a sweep);
+   the factored kernels on the sweep's own inputs by torch.profiler (the
+   call by CUDA events) beside their bounds and their plain versions,
+   with the systems kernel's launch plan (``sweep_cuda.plan``: the shared
+   or global variant, clusters of 1-8 blocks, dynamic shared bytes a block)
+   and registers; the systems kernel with 17 and 40 data rows and on a
+   grid of WORKSPACE_K samples (the global workspace) against its plain
+   version; and the sweep's profile (warm wall, device busy, idle share,
+   kernels a sweep);
 6. the rest of the static-spectrum surface at the same width, each path
    through its public entry point with the kernels' launch counts set to
    0 just before it and read just after: the mode-set sweep with 'closest'
@@ -693,31 +698,40 @@ def factored_vs_plain(calls):
 # Data rows beyond a pass of the systems kernel's 16 columns: a mode's
 # rows then take several passes, its mixing added up over them.
 WIDE_ROWS = (17, 40)
+# A grid long enough that the systems kernel's tile sums leave shared
+# memory for its global workspace (``sweep_cuda.plan``), with 2 rows.
+WORKSPACE_K = 40001
 
 
 def check_factored_rows(device, K=2001, S=2, J=8, B=64, chunk=16):
     """The systems kernel against its plain version on random inputs
-    (``testing.random_factored_sweep``) with WIDE_ROWS data rows, each
-    system relative to its largest entry (SYSTEMS_RTOL).  Returns
-    {rows: largest relative gap}; raises beyond the bound."""
+    (``testing.random_factored_sweep``) with WIDE_ROWS data rows, and with
+    2 rows on a grid of WORKSPACE_K samples, which takes the global
+    workspace; each system relative to its largest entry (SYSTEMS_RTOL).
+    Returns {case: largest relative gap}; raises beyond the bound or when
+    the long grid's launch kept its tile sums in shared memory."""
     import torch
     from qnmfits_tpu_torch.ops import sweep_cuda
     from qnmfits_tpu_torch.testing import random_factored_sweep
     found = {}
-    for I in WIDE_ROWS:
-        r = random_factored_sweep(K, I, S, J, B, seed=I, n_pad=1)
+    for I, K_ in [(I, K) for I in WIDE_ROWS] + [(2, WORKSPACE_K)]:
+        r = random_factored_sweep(K_, I, S, J, B, seed=I, n_pad=1)
         args = [torch.as_tensor(r[k], device=device) for k in
                 ("times", "data", "omegas", "mus", "t0s", "Ts", "col_masks")]
         got = sweep_cuda.factored_systems(*args, chunk)
         ref = sweep_cuda.factored_systems_plain(*args, chunk)
-        found[I] = max(per_system_rel(x, y, 2 if y.dim() > 1 else 1)
-                       for x, y in zip(got, ref))
-        if not found[I] <= SYSTEMS_RTOL:
-            raise RuntimeError(f"factored systems kernel with {I} data rows "
-                               f"vs plain: {found[I]:.3e} > "
-                               f"{SYSTEMS_RTOL:.0e}")
-    log("factored systems kernel vs plain with "
-        + ", ".join(f"{I} data rows {v:.3e}" for I, v in found.items())
+        key = f"{I} rows" if K_ == K else f"K={K_} ({I} rows, workspace)"
+        found[key] = max(per_system_rel(x, y, 2 if y.dim() > 1 else 1)
+                         for x, y in zip(got, ref))
+        if not found[key] <= SYSTEMS_RTOL:
+            raise RuntimeError(f"factored systems kernel, {key}, vs plain: "
+                               f"{found[key]:.3e} > {SYSTEMS_RTOL:.0e}")
+        if device != "cpu" and (K_ == K) != (
+                sweep_cuda.last_plan["variant"] == "shared"):
+            raise RuntimeError(f"factored systems kernel, {key}: the "
+                               f"{sweep_cuda.last_plan['variant']} variant")
+    log("factored systems kernel vs plain: "
+        + ", ".join(f"{k} {v:.3e}" for k, v in found.items())
         + f" (relative per system, bound {SYSTEMS_RTOL:.0e})")
     return found
 
@@ -1160,8 +1174,14 @@ def measure_factored(problem, main, device, gpu):
             b_ms, by = bounds[key]
             t[key] = dict(ms=ms, call_ms=call_ms, plain_ms=plain_ms,
                           bound_ms=b_ms, bound_by=by, bound_share=b_ms / ms)
+            plan = ""
+            if key == "systems":
+                t[key]["plan"] = dict(sweep_cuda.last_plan)
+                plan = (" ({variant} variant, clusters of {cluster}, "
+                        "{smem_bytes} B of dynamic shared memory a block, "
+                        "{blocks} blocks)").format(**sweep_cuda.last_plan)
             log(f"{key} kernel on {gpu}, dedup={dedup} (B={len(a[5])} "
-                f"windows): {ms:.4f} ms (torch.profiler; the call "
+                f"windows){plan}: {ms:.4f} ms (torch.profiler; the call "
                 f"{call_ms:.4f} ms by CUDA events), bound {b_ms:.3e} ms "
                 f"({by}), share {b_ms / ms:.3f}; plain {plain_ms:.4f} ms")
         split = device_split(lambda: sweep(problem, device, dedup))
@@ -1205,6 +1225,10 @@ def measure_factored(problem, main, device, gpu):
             registers=report[kernel]["registers"]))
     records[0]["systems_rel"] = max(max(f["systems_rel"].values())
                                     for f in main["factored"].values())
+    # The systems kernel's launch: its variant, cluster size, dynamic
+    # shared bytes a block and blocks (registers above).
+    records[0]["plan"] = timed[True]["systems"]["plan"]
+    records[0]["plan_nodedup"] = timed[False]["systems"]["plan"]
     records[1]["C_rel"] = max(f["C_rel"] for f in main["factored"].values())
     records[0]["profile"] = {str(d): timed[d]["profile"]
                              for d in (True, False)}

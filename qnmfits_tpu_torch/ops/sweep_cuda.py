@@ -14,6 +14,12 @@ PyTorch versions are ``factored_systems_plain`` and
 tensors on the CPU, launches its kernel for CUDA tensors, and raises on
 anything else.  Nothing falls back.
 
+The systems kernel runs one thread-block cluster of 1 to ``CLUSTER_MAX``
+blocks a (mode set, chunk), which share the chunk's tile sums through
+distributed shared memory; where those would take more than
+``SMEM_BYTES_MAX`` of a block's shared memory (a long grid), they go to a
+global workspace the wrapper allocates (``plan``, ``last_plan``).
+
 The source is compiled at first use with ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface under ``build/qnmfits_tpu_torch/``
 (named by a hash of the source and flags), as ``ops/chol_cuda.py`` builds
@@ -36,7 +42,7 @@ import torch
 from . import chol_cuda
 from .chol_cuda import BUILD_DIR, NVCC_FLAGS, _nvcc
 
-__all__ = ["build", "ptxas_report", "factored_systems",
+__all__ = ["build", "ptxas_report", "plan", "factored_systems",
            "factored_systems_plain", "mismatch_rephase",
            "mismatch_rephase_plain",
            "systems_launches", "epilogue_launches", "KERNELS"]
@@ -48,11 +54,22 @@ SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "factored_sweep.cu"
 FLAGS = (*NVCC_FLAGS, "-fmad=false")
 BUILD_LOG = BUILD_DIR / "factored_sweep_build.log"
 KERNELS = ("factored_systems_kernel", "mismatch_rephase_kernel")
+CLUSTER_MAX = 8             # blocks a cluster (portable clusters)
+# A cluster's blocks take at least this many of its chunk's windows each.
+CLUSTER_WINDOWS = 8
+# The systems kernel's blocks an SM (256 threads of 64 registers).
+BLOCKS_PER_SM = 4
+# A block's dynamic shared memory at most with the tile sums in it; past
+# it they go to the global workspace.  The card's limit a block.
+SMEM_BYTES_MAX = 100 * 1024
+SMEM_BYTES_LIMIT = 232448
 
 # Kernel launches since the last reset (callers set them to 0 and read
 # them), one counter a kernel.
 systems_launches = 0
 epilogue_launches = 0
+# The systems kernel's last launch plan (``plan``).
+last_plan = None
 
 
 def build() -> Path:
@@ -107,16 +124,72 @@ def _lib():
     lib = ctypes.CDLL(str(build()))
     ptr, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     lib.qnm_factored_systems.argtypes = (
-        [ptr] * 12 + [i64] + [i32] * 6 + [ptr])
+        [ptr] * 13 + [i64] + [i32] * 7 + [ptr])
     lib.qnm_mismatch_rephase.argtypes = [ptr] * 8 + [i64, i32, i32, i32, ptr]
+    lib.qnm_factored_plan.argtypes = [i32] * 5 + [ptr]
     lib.qnm_factored_systems.restype = ctypes.c_int
+    lib.qnm_factored_plan.restype = ctypes.c_int
     lib.qnm_mismatch_rephase.restype = ctypes.c_int
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _nbits(K: int) -> int:
     """Levels of the expm1 ladder: the bits of a sample count up to K."""
     return max(1, int(math.ceil(math.log2(K + 1))))
+
+
+def cluster_size(S, nchunk, chunk, sms):
+    """Blocks a cluster for S sets of nchunk chunks of ``chunk`` windows on
+    a card of ``sms`` SMs: a power of two up to CLUSTER_MAX that leaves
+    each block CLUSTER_WINDOWS windows or more; within that, the largest
+    whose S * nchunk clusters fit on the card at once (BLOCKS_PER_SM), but
+    not under 4 (grids that take several waves; measured on the main
+    path's inputs by scripts/torch_factored_variants.py)."""
+    cap = 1
+    while cap < CLUSTER_MAX and chunk >= 2 * cap * CLUSTER_WINDOWS:
+        cap *= 2
+    fit = 1
+    while fit < CLUSTER_MAX and S * nchunk * 2 * fit <= sms * BLOCKS_PER_SM:
+        fit *= 2
+    return min(cap, max(fit, 4))
+
+
+def plan(K, J, B, S, chunk, sms, variant=None, cluster=None) -> dict:
+    """The systems kernel's launch on B windows of a K-sample grid, J
+    modes, S sets, chunks of ``chunk``, on a card of ``sms`` SMs:
+    ``variant`` "shared" (the tile sums in shared memory) or "global" (in
+    a workspace of ``workspace_bytes``), by default "shared" while its
+    ``smem_bytes`` a block stay within ``SMEM_BYTES_MAX``; ``cluster``
+    blocks a (set, chunk) (by default ``cluster_size``), ``blocks`` in
+    all, ``tiles_per_block`` tile sums a block holds at most.  Raises
+    ValueError where a block would need more shared memory than the
+    card has (J in the thousands)."""
+    nchunk = -(-B // chunk)
+    cluster = cluster or cluster_size(S, nchunk, chunk, sms)
+    out = (ctypes.c_longlong * 3)()
+
+    def layout(glob):
+        _lib().qnm_factored_plan(K, J, _nbits(K), cluster, int(glob), out)
+        return list(out)
+
+    shared = layout(False)
+    if variant is None:
+        variant = "shared" if shared[0] <= SMEM_BYTES_MAX else "global"
+    if variant not in ("shared", "global"):
+        raise ValueError(f"factored_systems: variant {variant!r}")
+    smem, ws, tiles = shared if variant == "shared" else layout(True)
+    if smem > SMEM_BYTES_LIMIT:
+        raise ValueError(f"factored_systems: J={J} needs {smem} bytes of "
+                         f"shared memory a block (at most "
+                         f"{SMEM_BYTES_LIMIT})")
+    return dict(variant=variant, cluster=cluster, smem_bytes=smem,
+                workspace_bytes=16 * ws * nchunk * S,
+                tiles_per_block=tiles, blocks=nchunk * cluster * S)
 
 
 def _check(name, tensors, device):
@@ -178,8 +251,16 @@ def factored_systems(times, data, omegas, mus, t0s, Ts, col_masks, chunk):
     (S, B, J, J), rhs, rt (S, B, J) and dnorm (B,), as
     ``engine_real._chunk_systems`` (G masked for the solve, G2, rt and
     dnorm for the mismatch).  CPU tensors: the plain version; CUDA
-    tensors: one launch of ``factored_systems_kernel``."""
-    global systems_launches
+    tensors: one launch of ``factored_systems_kernel`` (``plan``)."""
+    return _factored_systems(times, data, omegas, mus, t0s, Ts, col_masks,
+                             chunk)
+
+
+def _factored_systems(times, data, omegas, mus, t0s, Ts, col_masks, chunk,
+                      variant=None, cluster=None):
+    """``factored_systems``; checks and scripts may force the ``plan``'s
+    variant ("shared" or "global") and cluster size."""
+    global systems_launches, last_plan
     if times.device.type == "cpu":
         return factored_systems_plain(times, data, omegas, mus, t0s, Ts,
                                       col_masks, chunk)
@@ -213,15 +294,20 @@ def factored_systems(times, data, omegas, mus, t0s, Ts, col_masks, chunk):
     dnorm = torch.empty(B, dtype=torch.float64, device=dev)
     if B == 0 or J == 0:
         return G, G2, rhs, rt, dnorm
+    pl = plan(K, J, B, S, chunk, _sms(dev), variant, cluster)
+    ws = (torch.empty(pl["workspace_bytes"], dtype=torch.uint8, device=dev)
+          if pl["variant"] == "global" else None)
     err = _lib().qnm_factored_systems(
         times.data_ptr(), data.data_ptr(), omegas.data_ptr(), mus.data_ptr(),
         masks.data_ptr(), t0s.data_ptr(), Ts.data_ptr(), G.data_ptr(),
-        G2.data_ptr(), rhs.data_ptr(), rt.data_ptr(), dnorm.data_ptr(), B, K, I, J, S, chunk, _nbits(K),
-        torch.cuda.current_stream(dev).cuda_stream)
+        G2.data_ptr(), rhs.data_ptr(), rt.data_ptr(), dnorm.data_ptr(),
+        None if ws is None else ws.data_ptr(), B, K, I, J, S, chunk,
+        _nbits(K), pl["cluster"], torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"factored_systems kernel launch failed: CUDA "
                            f"error {err}")
     systems_launches += 1
+    last_plan = pl
     _check_nans("factored_systems", (G, G2, rhs, rt, dnorm))
     return G, G2, rhs, rt, dnorm
 

@@ -118,14 +118,25 @@ def random_hermitian_systems(B, n, seed=0, n_pad=0):
     return G, b
 
 
-def random_factored_sweep(K, I, S, J, B, seed=0, n_pad=0):
+def random_factored_sweep(K, I, S, J, B, seed=0, n_pad=0, layout="random"):
     """Inputs of one join group of the factored sweep (numpy): times (K,)
     a uniform grid of step 0.1 from -5, data (I, K), omegas (S, J) damped,
     mus (S, I, J), col_masks (S, J) with the last n_pad columns padding
     (zero frequency and mixing), and B sorted start times t0s with window
-    lengths Ts (B,) among which: a window too short to hold a sample, one
-    that starts past the grid (empty), and one that runs off the grid's
-    end."""
+    lengths Ts (B,).  ``layout`` places the windows:
+
+    * "random": start times anywhere on the grid, lengths up to 0.05 K,
+      among them a window too short to hold a sample, one that starts
+      past the grid (empty) and one that runs off the grid's end;
+    * "dedup": one sample apart from a tenth of the grid on, each
+      ~0.1 K samples long (the main path's layout with dedup);
+    * "per_sample": 16 windows a sample, ~0.1 K samples long (the main
+      path's layout without dedup);
+    * "short": start times anywhere, 0 to 25 samples long (windows with
+      no whole tile of the systems kernel inside);
+
+    in the last three, one window of one sample, the last two starting
+    past the grid and running off its end."""
     rng = np.random.default_rng(seed)
     times = -5.0 + 0.1 * np.arange(K)
     data = rng.standard_normal((I, K)) + 1j * rng.standard_normal((I, K))
@@ -137,14 +148,30 @@ def random_factored_sweep(K, I, S, J, B, seed=0, n_pad=0):
         masks[:, J - n_pad:] = False
         omegas[:, J - n_pad:] = 0.0
         mus[:, :, J - n_pad:] = 0.0
-    t0s = rng.uniform(times[0], times[-1], B)
-    Ts = rng.uniform(0.5, 0.05 * K, B)
-    t0s[0], Ts[0] = times[K // 3] + 0.01, 0.05
-    if B > 1:
-        t0s[1] = times[-1] + 1.0
-    if B > 2:
-        t0s[2], Ts[2] = times[-1] - 0.35, 50.0
-    order = np.argsort(t0s)
+    if layout == "random":
+        t0s = rng.uniform(times[0], times[-1], B)
+        Ts = rng.uniform(0.5, 0.05 * K, B)
+        t0s[0], Ts[0] = times[K // 3] + 0.01, 0.05
+        if B > 1:
+            t0s[1] = times[-1] + 1.0
+        if B > 2:
+            t0s[2], Ts[2] = times[-1] - 0.35, 50.0
+    else:
+        if layout == "dedup":
+            t0s = times[K // 10] + 0.003 + 0.1 * np.arange(B)
+        elif layout == "per_sample":
+            t0s = times[K // 10] + 0.003 + 0.1 / 16 * np.arange(B)
+        elif layout == "short":
+            t0s = np.sort(rng.uniform(times[0], times[-1], B))
+        else:
+            raise ValueError(f"unknown layout {layout!r}")
+        Ts = (rng.uniform(0.0, 2.5, B) if layout == "short"
+              else np.full(B, 0.01 * K))
+        Ts[B // 2] = 0.1                      # one sample
+        if B > 2:
+            t0s[-1] = times[-1] + 1.0         # past the grid: empty
+            t0s[-2], Ts[-2] = times[-1] - 0.35, 50.0
+    order = np.argsort(t0s, kind="stable")
     return dict(times=times, data=data, omegas=omegas, mus=mus,
                 col_masks=masks, t0s=t0s[order], Ts=Ts[order])
 

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the device time of the port's mode-set sweep goes, on one GPU.
 
-    python3 scripts/torch_profile_sweep.py [--out FILE]
+    python3 scripts/torch_profile_sweep.py [--out FILE] [--root DIR]
 
 Runs the bench problem (chip_smoke.FULL) through the public
 ``qnmfits_tpu_torch.mismatch_t0_mode_sets`` with and without window
@@ -9,7 +9,8 @@ dedup, once to warm up and once under ``torch.profiler``, and prints for
 each: the wall time of the profiled call, the summed device time of all
 kernels, the device's idle share over the call, and the device time by
 kernel (the 15 largest, and the port's solve kernel wherever it ranks).  The card's name and power limit head the output.
-Needs CUDA.
+``--root DIR`` imports ``qnmfits_tpu_torch`` from DIR (another commit's
+tree) instead of this checkout.  Needs CUDA.
 """
 
 import argparse
@@ -24,6 +25,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write the report to this file")
+    ap.add_argument("--root", help="the tree whose qnmfits_tpu_torch to "
+                                   "import (default: this checkout)")
     args = ap.parse_args()
 
     import torch
@@ -32,6 +35,8 @@ def main():
         return 2
     sys.path.insert(0, ROOT)
     import chip_smoke
+    if args.root:
+        sys.path.insert(0, os.path.abspath(args.root))
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 

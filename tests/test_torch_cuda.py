@@ -776,6 +776,77 @@ def test_factored_kernels_match_plain(cuda, case):
     assert bool(((mm - mm_ref).abs() <= bound)[~nan].all())
 
 
+# (K, I, S, J, B, chunk, n_pad, layout, variant): the host twin's layouts
+# (tests/test_torch_factored_kernel.py) at the card's sizes: the main
+# path's with dedup (513 windows one sample apart, a last chunk of one
+# window) and without (16 windows a sample), chunks of one window, a chunk
+# that fills three of the cluster's eight blocks, windows with no whole
+# tile inside, the global workspace forced and chosen (a long grid), and
+# J = 40 with 17 rows; variant None lets ``plan`` choose.
+FACTORED_LAYOUTS = [
+    (2001, 2, 16, 8, 513, 128, 0, "dedup", None),
+    (2001, 2, 16, 8, 8192, 256, 0, "per_sample", None),
+    (300, 2, 2, 8, 6, 1, 2, "dedup", None),
+    (300, 2, 1, 8, 37, 16, 0, "dedup", None),
+    (250, 3, 2, 5, 40, 16, 1, "short", None),
+    (2001, 2, 4, 8, 300, 64, 1, "dedup", "global"),
+    (40001, 2, 2, 8, 64, 16, 1, "random", None),
+    (400, 17, 2, 40, 40, 8, 3, "per_sample", None)]
+
+
+@pytest.mark.parametrize("case", FACTORED_LAYOUTS)
+def test_factored_layouts_match_plain(cuda, case):
+    """The systems kernel against its plain version on each layout, each
+    system relative to its largest entry; a one-sample window's G2, rt
+    and dnorm exactly 0; the long grid in the global workspace."""
+    import chip_smoke
+    from qnmfits_tpu_torch.ops import sweep_cuda
+    from qnmfits_tpu_torch.testing import random_factored_sweep
+    K, I, S, J, B, chunk, n_pad, layout, variant = case
+    r = random_factored_sweep(K, I, S, J, B, seed=sum(case[:7]),
+                              n_pad=n_pad, layout=layout)
+    args = [torch.as_tensor(r[k], device=cuda) for k in
+            ("times", "data", "omegas", "mus", "t0s", "Ts", "col_masks")]
+    got = sweep_cuda._factored_systems(*args, chunk, variant=variant)
+    ref = sweep_cuda.factored_systems_plain(*args, chunk)
+    torch.cuda.synchronize()
+    assert sweep_cuda.last_plan["variant"] == (
+        variant or ("global" if K >= 40001 else "shared"))
+    for x, y in zip(got, ref):
+        assert chip_smoke.per_system_rel(x, y, 2 if y.dim() > 1 else 1) \
+            <= 1e-12
+    a = np.searchsorted(r["times"], r["t0s"], side="left")
+    one = torch.as_tensor(np.searchsorted(r["times"], r["t0s"] + r["Ts"],
+                                          side="left") - a == 1, device=cuda)
+    assert bool(one.any()) == (layout != "random")
+    assert not got[1][:, one].any() and not got[3][:, one].any()
+    assert not got[4][one].any()
+
+
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8])
+@pytest.mark.parametrize("case", [(2001, 2, 4, 8, 300, 64, 1, "dedup"),
+                                  (600, 5, 2, 17, 90, 32, 2, "per_sample")])
+def test_factored_cluster_sizes_match_plain(cuda, case, cluster):
+    """Every cluster size the wrapper may choose, forced, against the plain
+    version: one pass (J = 8, I = 2) and several (J = 17, I = 5: three
+    passes, a whole cluster barrier between them)."""
+    import chip_smoke
+    from qnmfits_tpu_torch.ops import sweep_cuda
+    from qnmfits_tpu_torch.testing import random_factored_sweep
+    K, I, S, J, B, chunk, n_pad, layout = case
+    r = random_factored_sweep(K, I, S, J, B, seed=cluster, n_pad=n_pad,
+                              layout=layout)
+    args = [torch.as_tensor(r[k], device=cuda) for k in
+            ("times", "data", "omegas", "mus", "t0s", "Ts", "col_masks")]
+    got = sweep_cuda._factored_systems(*args, chunk, cluster=cluster)
+    ref = sweep_cuda.factored_systems_plain(*args, chunk)
+    torch.cuda.synchronize()
+    assert sweep_cuda.last_plan["cluster"] == cluster
+    for x, y in zip(got, ref):
+        assert chip_smoke.per_system_rel(x, y, 2 if y.dim() > 1 else 1) \
+            <= 1e-12
+
+
 def test_factored_kernels_do_not_spill(cuda):
     from qnmfits_tpu_torch.ops import sweep_cuda
     report = sweep_cuda.ptxas_report()

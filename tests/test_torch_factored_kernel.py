@@ -161,18 +161,60 @@ def test_sweep_matches_jax(problem, J):
 
 _SHIM = r"""
 #include <algorithm>
+#include <atomic>
 #include <barrier>
 #include <cmath>
-#include <thread>
+#include <functional>
+#include <memory>
+#include <optional>
+#include <pthread.h>
 #include <vector>
 using std::max;
 using std::min;
 struct double2 { double x, y; };
 static inline double2 make_double2(double x, double y) { return {x, y}; }
 struct dim3 { unsigned x = 1, y = 1, z = 1; };
-static thread_local dim3 blockIdx, threadIdx;
-static std::barrier<>* qnm_barrier = nullptr;
-static inline void __syncthreads() { qnm_barrier->arrive_and_wait(); }
+// Each host thread is one CUDA thread: its block and cluster, their
+// barriers, and the cluster's blocks' dynamic shared buffers.
+static thread_local dim3 blockIdx, threadIdx, gridDim;
+static thread_local std::barrier<>* qnm_block_barrier;
+static thread_local std::barrier<>* qnm_cluster_barrier;
+static thread_local unsigned char* const* qnm_buffers;
+static thread_local unsigned qnm_rank;
+static inline void __syncthreads() { qnm_block_barrier->arrive_and_wait(); }
+static inline unsigned char* shared_buffer() { return qnm_buffers[qnm_rank]; }
+// The cluster's barrier in two halves, as barrier.cluster.arrive / wait.
+static thread_local std::optional<std::barrier<>::arrival_token> qnm_token;
+static inline void cluster_arrive() {
+  qnm_token.emplace(qnm_cluster_barrier->arrive());
+}
+static inline void cluster_wait() {
+  qnm_cluster_barrier->wait(std::move(*qnm_token));
+  qnm_token.reset();
+}
+namespace cooperative_groups {
+struct cluster_group {
+  unsigned block_rank() const { return qnm_rank; }
+  // The same offset in another block's buffer.
+  template <class T> T* map_shared_rank(T* addr, unsigned rank) const {
+    const auto off = (const unsigned char*)addr - qnm_buffers[qnm_rank];
+    return (T*)(qnm_buffers[rank] + off);
+  }
+};
+static inline cluster_group this_cluster() { return {}; }
+}  // namespace cooperative_groups
+static inline int atomicMin(int* a, int v) {
+  std::atomic_ref<int> r(*a);
+  int old = r.load();
+  while (v < old && !r.compare_exchange_weak(old, v)) {}
+  return old;
+}
+static inline int atomicMax(int* a, int v) {
+  std::atomic_ref<int> r(*a);
+  int old = r.load();
+  while (v > old && !r.compare_exchange_weak(old, v)) {}
+  return old;
+}
 static double qnm_slots[1024];
 static inline double __shfl_down_sync(unsigned, double v, int off) {
   const int t = threadIdx.x, lane = t % 32;
@@ -184,43 +226,97 @@ static inline double __shfl_down_sync(unsigned, double v, int off) {
 }
 #define __global__
 #define __device__
-#define __shared__ static
-#define __launch_bounds__(n)
+#define __host__
+#define __launch_bounds__(...)
 #include "SOURCE"
 
-// Every block of the grid in turn, its threads as host threads.
-template <class F>
-static void run_grid(unsigned gx, unsigned gy, int threads, F kernel) {
+struct Thread {
+  std::function<void()> kernel;
+  dim3 block, thread, grid;
+  std::barrier<>* block_barrier;
+  std::barrier<>* cluster_barrier;
+  unsigned char* const* buffers;
+  unsigned rank;
+};
+
+static void* run_thread(void* arg) {
+  const Thread& t = *static_cast<Thread*>(arg);
+  blockIdx = t.block;
+  threadIdx = t.thread;
+  gridDim = t.grid;
+  qnm_block_barrier = t.block_barrier;
+  qnm_cluster_barrier = t.cluster_barrier;
+  qnm_buffers = t.buffers;
+  qnm_rank = t.rank;
+  t.kernel();
+  return nullptr;
+}
+
+// The grid cluster by cluster: a cluster's blocks at once, every thread a
+// host thread, each block with its own dynamic shared buffer.
+static void run_grid(unsigned gx, unsigned gy, unsigned cluster, int threads,
+                     size_t bytes, std::function<void()> kernel) {
+  pthread_attr_t attr;
+  pthread_attr_init(&attr);
+  pthread_attr_setstacksize(&attr, 1 << 19);
   for (unsigned y = 0; y < gy; ++y)
-    for (unsigned x = 0; x < gx; ++x) {
-      std::barrier<> bar(threads);
-      qnm_barrier = &bar;
-      std::vector<std::thread> pool;
-      for (int t = 0; t < threads; ++t)
-        pool.emplace_back([=] {
-          blockIdx.x = x;
-          blockIdx.y = y;
-          threadIdx.x = t;
-          kernel();
-        });
-      for (auto& th : pool) th.join();
+    for (unsigned x0 = 0; x0 < gx; x0 += cluster) {
+      std::vector<std::vector<double2>> store(cluster);
+      std::vector<unsigned char*> buffers(cluster);
+      for (unsigned r = 0; r < cluster; ++r) {
+        store[r].assign(bytes / 16 + 1, make_double2(NAN, NAN));
+        buffers[r] = reinterpret_cast<unsigned char*>(store[r].data());
+      }
+      std::barrier<> cluster_barrier(cluster * threads);
+      std::vector<std::unique_ptr<std::barrier<>>> block_barriers;
+      std::vector<Thread> jobs;
+      jobs.reserve(cluster * threads);
+      for (unsigned r = 0; r < cluster; ++r) {
+        block_barriers.emplace_back(new std::barrier<>(threads));
+        for (int t = 0; t < threads; ++t) {
+          Thread job;
+          job.kernel = kernel;
+          job.block.x = x0 + r;
+          job.block.y = y;
+          job.thread.x = t;
+          job.grid.x = gx;
+          job.grid.y = gy;
+          job.block_barrier = block_barriers.back().get();
+          job.cluster_barrier = &cluster_barrier;
+          job.buffers = buffers.data();
+          job.rank = r;
+          jobs.push_back(job);
+        }
+      }
+      std::vector<pthread_t> pool(jobs.size());
+      for (size_t i = 0; i < jobs.size(); ++i)
+        pthread_create(&pool[i], &attr, run_thread, &jobs[i]);
+      for (pthread_t th : pool) pthread_join(th, nullptr);
     }
+  pthread_attr_destroy(&attr);
 }
 
 extern "C" {
+void host_factored_plan(int K, int J, int nbits, int cluster, int global,
+                        long long* out) {
+  const Layout L = make_layout(K, J, nbits, cluster, global != 0);
+  out[0] = L.bytes;
+  out[1] = L.ws;
+  out[2] = L.tpb;
+}
 void host_factored_systems(const double* times, const double2* data,
                            const double2* omegas, const double2* mus,
                            const unsigned char* keep, const double* t0s,
                            const double* Ts, double2* G, double2* G2,
                            double2* rhs, double2* rt, double* dnorm,
-                           long long B, int K, int I, int J, int S,
-                           int chunk, int nbits) {
+                           double2* ws, long long B, int K, int I, int J,
+                           int S, int chunk, int nbits, int cluster) {
   Sweep p{times, data, omegas, mus, keep, t0s, Ts, G, G2, rhs, rt, dnorm,
-          B, K, I, J, chunk, nbits};
+          ws, B, K, I, J, chunk, make_layout(K, J, nbits, cluster,
+                                            ws != nullptr)};
   const long long nchunk = (B + chunk - 1) / chunk;
-  const long long per = (chunk + WPB - 1) / WPB;
-  run_grid((unsigned)(nchunk * per), (unsigned)S, THREADS,
-           [&] { factored_systems_kernel(p); });
+  run_grid((unsigned)(nchunk * cluster), (unsigned)S, cluster, THREADS,
+           p.L.bytes, [&] { factored_systems_kernel(p); });
 }
 void host_mismatch_rephase(const double2* C0, const double2* G2,
                            const double2* rt, const double* dnorm,
@@ -228,8 +324,8 @@ void host_mismatch_rephase(const double2* C0, const double2* G2,
                            double2* C, double* mm, long long B, int S, int J,
                            int chunk) {
   Epilogue p{C0, G2, rt, dnorm, omegas, t0s, C, mm, B, B * S, J, chunk};
-  run_grid((unsigned)((p.systems + EPI_WARPS - 1) / EPI_WARPS), 1,
-           32 * EPI_WARPS, [&] { mismatch_rephase_kernel(p); });
+  run_grid((unsigned)((p.systems + EPI_WARPS - 1) / EPI_WARPS), 1, 1,
+           32 * EPI_WARPS, 0, [&] { mismatch_rephase_kernel(p); });
 }
 }
 """
@@ -249,39 +345,91 @@ def host_kernels(tmp_path_factory):
                    check=True, capture_output=True, timeout=300)
     host = ctypes.CDLL(str(lib))
     P, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-    host.host_factored_systems.argtypes = [P] * 12 + [i64] + [i32] * 6
+    host.host_factored_plan.argtypes = [i32] * 5 + [P]
+    host.host_factored_systems.argtypes = [P] * 13 + [i64] + [i32] * 7
     host.host_mismatch_rephase.argtypes = [P] * 8 + [i64, i32, i32, i32]
     return host
 
 
-# (K, I, S, J, B, chunk, n_pad)
-HOST_CASES = [(200, 2, 2, 8, 37, 8, 3), (150, 1, 2, 1, 19, 5, 0),
-              (150, 5, 2, 17, 21, 7, 4), (120, 2, 1, 40, 9, 4, 0),
-              (120, 17, 2, 8, 11, 4, 2), (100, 40, 1, 5, 9, 4, 1)]
-
-
-@pytest.mark.parametrize("case", HOST_CASES)
-def test_kernel_source_on_host_matches_plain(host_kernels, case):
-    K, I, S, J, B, chunk, n_pad = case
-    r = random_factored_sweep(K, I, S, J, B, seed=sum(case), n_pad=n_pad)
-    t = {k: torch.as_tensor(v) for k, v in r.items()}
-    args = (t["times"], t["data"], t["omegas"], t["mus"], t["t0s"], t["Ts"],
-            t["col_masks"])
-    ref = sweep_cuda.factored_systems_plain(*args, chunk)
+def host_systems(host, t, chunk, cluster, variant):
+    """The systems kernel's host twin on one join group's tensors ``t``
+    (``random_factored_sweep``'s keys), the tile sums in shared memory or,
+    for variant "global", in a workspace allocated here as the wrapper
+    does.  Returns G, G2, rhs, rt, dnorm."""
+    (S, J), B, (I, K) = t["omegas"].shape, t["t0s"].shape[0], \
+        t["data"].shape
+    nbits = sweep_cuda._nbits(K)
     G, G2 = (torch.empty((S, B, J, J), dtype=torch.complex128)
              for _ in range(2))
     rhs, rt = (torch.empty((S, B, J), dtype=torch.complex128)
                for _ in range(2))
     dnorm = torch.empty(B, dtype=torch.float64)
+    plan = (ctypes.c_longlong * 3)()
+    host.host_factored_plan(K, J, nbits, cluster, int(variant == "global"),
+                            plan)
+    nchunk = -(-B // chunk)
+    ws = (torch.full((S * nchunk * plan[1],), complex("nan+nanj"),
+                     dtype=torch.complex128) if variant == "global" else None)
     keep = t["col_masks"].to(torch.uint8)
-    host_kernels.host_factored_systems(
-        *(x.data_ptr() for x in args[:4]), keep.data_ptr(),
-        *(x.data_ptr() for x in args[4:6]),
-        *(x.data_ptr() for x in (G, G2, rhs, rt, dnorm)), B, K, I, J, S,
-        chunk, sweep_cuda._nbits(K))
-    for x, r_ in zip((G, G2, rhs, rt, dnorm), ref):
+    host.host_factored_systems(
+        *(t[k].data_ptr() for k in ("times", "data", "omegas", "mus")),
+        keep.data_ptr(), t["t0s"].data_ptr(), t["Ts"].data_ptr(),
+        *(x.data_ptr() for x in (G, G2, rhs, rt, dnorm)),
+        None if ws is None else ws.data_ptr(), B, K, I, J, S, chunk, nbits,
+        cluster)
+    return G, G2, rhs, rt, dnorm
+
+
+# (K, I, S, J, B, chunk, n_pad, layout, cluster, variant): the window
+# layouts of ``random_factored_sweep``; clusters of 1 to 8 blocks; the tile
+# sums in shared memory or the global workspace.  The first six are random
+# layouts; then windows one sample apart (dedup's layout) in blocks of 16
+# windows, 16 windows a sample (no dedup's) in two rounds a block, chunks
+# of one window, a last chunk of one window and one that fills three of
+# eight blocks, windows with no whole tile inside, spans in the workspace,
+# J = 40 with I = 17, and blocks of more windows than a Gram round takes
+# (150 at J = 8; 30 at J = 40, several groups of (j, l) pairs a round).
+HOST_CASES = [(200, 2, 2, 8, 37, 8, 3, "random", 2, "shared"),
+              (150, 1, 2, 1, 19, 5, 0, "random", 1, "shared"),
+              (150, 5, 2, 17, 21, 7, 4, "random", 3, "shared"),
+              (120, 2, 1, 40, 9, 4, 0, "random", 4, "shared"),
+              (120, 17, 2, 8, 11, 4, 2, "random", 2, "shared"),
+              (100, 40, 1, 5, 9, 4, 1, "random", 8, "shared"),
+              (400, 2, 1, 8, 129, 64, 1, "dedup", 4, "shared"),
+              (300, 2, 2, 8, 130, 64, 0, "per_sample", 2, "shared"),
+              (200, 2, 1, 8, 6, 1, 2, "dedup", 8, "shared"),
+              (300, 2, 1, 8, 37, 16, 0, "dedup", 8, "shared"),
+              (250, 3, 2, 5, 40, 16, 1, "short", 4, "shared"),
+              (400, 2, 2, 8, 60, 32, 1, "dedup", 4, "global"),
+              (200, 5, 1, 17, 30, 8, 2, "random", 2, "global"),
+              (150, 17, 1, 40, 12, 6, 3, "per_sample", 2, "shared"),
+              (200, 2, 1, 8, 150, 150, 1, "per_sample", 1, "shared"),
+              (150, 2, 1, 40, 30, 30, 2, "dedup", 1, "shared")]
+
+
+@pytest.mark.parametrize("case", HOST_CASES)
+def test_kernel_source_on_host_matches_plain(host_kernels, case):
+    K, I, S, J, B, chunk, n_pad, layout, cluster, variant = case
+    r = random_factored_sweep(K, I, S, J, B, seed=sum(case[:7]),
+                              n_pad=n_pad, layout=layout)
+    t = {k: torch.as_tensor(v) for k, v in r.items()}
+    args = (t["times"], t["data"], t["omegas"], t["mus"], t["t0s"], t["Ts"],
+            t["col_masks"])
+    ref = sweep_cuda.factored_systems_plain(*args, chunk)
+    got = host_systems(host_kernels, t, chunk, cluster, variant)
+    for x, r_ in zip(got, ref):
         assert _system_rel(x.numpy(), r_.numpy(),
                            2 if r_.dim() > 1 else 1) <= SYSTEMS_RTOL
+    # A window of one sample has no trapezoid weight: G2, rt and dnorm are
+    # exactly 0, as in the plain version.
+    a = np.searchsorted(r["times"], r["t0s"], side="left")
+    m = np.searchsorted(r["times"], r["t0s"] + r["Ts"], side="left") - a
+    one = m == 1
+    if layout != "random":
+        assert one.any()
+    G, G2, rhs, rt, dnorm = got
+    assert not G2[:, one].any() and not rt[:, one].any()
+    assert not dnorm[one].any()
 
     C0 = ter._regularised_solve_plain(
         ref[0].reshape(S * B, J, J), ref[2].reshape(S * B, J)).reshape(S, B, J)
@@ -298,6 +446,20 @@ def test_kernel_source_on_host_matches_plain(host_kernels, case):
     gap = np.abs(mm.numpy() - mm_ref.numpy())[~nan]
     bound = chip_smoke.epilogue_bound(C0, ref[1], ref[3], mm_ref).numpy()
     assert np.all(gap <= bound[~nan])
+
+
+@pytest.mark.parametrize("S,nchunk,chunk,expect", [
+    (16, 5, 128, 4),        # the main path with dedup: 80 clusters
+    (16, 32, 256, 4),       # without: several waves at any size
+    (16, 7, 16, 2),         # chunks of 16: 8 windows a block
+    (1, 9, 64, 8),          # one wide set: 72 blocks
+    (128, 16, 256, 4),      # the remnant axis without dedup
+    (2, 6, 1, 1), (1, 3, 4, 1)])
+def test_cluster_size_fills_the_card(S, nchunk, chunk, expect):
+    """A cluster leaves each block 8 windows or more; within that it is
+    the largest that lets the grid's clusters fit on 132 SMs at once, but
+    not under 4."""
+    assert sweep_cuda.cluster_size(S, nchunk, chunk, 132) == expect
 
 
 # ---------------------------------------------------------------------------
