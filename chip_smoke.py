@@ -8,9 +8,9 @@ flushed line each with elapsed seconds:
 
 1. the card's name and power limit (nvidia-smi);
 2. the build of the solve kernels (csrc/chol_solve.cu, sm_90a), the
-   Leaver CF kernel (csrc/leaver_cf.cu, FP64 and double-double) and the
-   factored sweep's systems and epilogue kernels (csrc/factored_sweep.cu),
-   one nvcc each, started together, from this checkout into
+   Leaver CF kernel (csrc/leaver_cf.cu, FP64 and double-double), the
+   factored sweep's systems and epilogue kernels (csrc/factored_sweep.cu)
+   and the angular eig kernel (csrc/angular_eig.cu), one nvcc each, started together, from this checkout into
    build/qnmfits_tpu_torch/, and ptxas's registers and spills for each
    instantiation (no spill allowed);
 3. the kernels against their plain PyTorch version on the card, on
@@ -166,7 +166,7 @@ flushed line each with elapsed seconds:
    s = -2, (2,1,0) at s = -1, (0,0,2) at s = 0) re-solved over the
    table's 400 spins, bypassing the table, gated against the rows to chi
    = 0.985 and beyond, each solve's wall split into CF and eig time, and
-   where a batched eig of CUDA matrices spends its time; S3 a fresh
+   where torch.linalg.eigvals of CUDA matrices spends its time; S3 a fresh
    SpectrumTables solving (11,2,0) (the JAX package's pin, 1e-8) and
    (5,5,8) (its ordering checks) on demand; S4 ``multiplet_tracks(m=2)``
    on the table's spins to chi = 0.3 (a subgrid, for time) against its
@@ -182,7 +182,18 @@ flushed line each with elapsed seconds:
    variants timed on F1's largest launches.  F1 also holds its (5,2,8) to
    no point on the coarse track and, beyond chi = 0.985, to the JAX
    package's 80-bit pins (PIN_528), and counts each solve's double-double
-   launches and their seconds by CUDA events;
+   launches and their seconds by CUDA events.  Every angular eigenproblem
+   of these solves runs in the eig kernel (csrc/angular_eig.cu, built in
+   phase 2): each solve's eig launches are counted (one an eig call, none
+   may be missing), its largest eig call of each mode is held to the
+   plain version (eigenvalues as sets within 1e-12 max(1, ||M||_F), the
+   selected vector within 1e-10, its residual within 1e-13 ||M||_F), and
+   its wall is split into eig and CF (CUDA events around each wrapper
+   call) and the rest, the eig calls by stage (the coarse pass, each
+   lockstep depth, the rest); the kernel is timed on F1's largest call of
+   each mode and on S2's 800-matrix fine-pass step beside
+   torch.linalg.eigvals of the same matrices on the card and on a CPU
+   copy, and beside its bound;
 13. the mesh (``qnmfits_tpu_torch.parallel``): two layouts of ranks
    spawned after phase 2 built the kernels (``testing.run_world``; each
    layout's ranks bounded by MESH_TIMEOUT in all and every collective by
@@ -890,6 +901,11 @@ def check_build():
     if any(r["spill_stores"] or r["spill_loads"] for r in sw.values()):
         raise RuntimeError(f"ptxas reports spills in the factored sweep's "
                            f"kernels: {sw}")
+    from qnmfits_tpu_torch.ops import eig_cuda
+    eig = eig_cuda.ptxas_report()
+    log(f"ptxas, the angular eig kernel: {eig}")
+    if any(r["spill_stores"] or r["spill_loads"] for r in eig.values()):
+        raise RuntimeError(f"ptxas reports spills in the eig kernel: {eig}")
     return regs, spill
 
 
@@ -3665,7 +3681,15 @@ CF_DD_TOL = 1e-17
 CF_DD_OPS_PER_STEP = 874
 CF_DD_OPS_ONCE = 6000
 CF_DD_CHI = (0.985, 0.9995)
-PROFILED_EIGS = 8
+# The angular eigen-kernel (csrc/angular_eig.cu) against its plain version
+# (torch.linalg.eig of the CPU copy): eigenvalues as sets within EIG_TOL
+# max(1, ||M||_F); the selected vector within EIG_VEC_TOL, its residual
+# ||M v - A v|| within EIG_RES_TOL ||M||_F (tests/test_torch_angular_eig.py's
+# bars).  Its bound counts the FP64 operations the kernel reports for each
+# matrix (``eig_cuda.last_info``: its loops' work, set-up steps left out).
+EIG_TOL = 1e-12
+EIG_VEC_TOL = 1e-10
+EIG_RES_TOL = 1e-13
 # S2: baked rows (s, l, m, n) re-solved over the table's spins, bypassing
 # the table, each held to its row for chi <= RESOLVE_SPLIT and beyond:
 # omega absolute, A relative to the row's largest |A|, mu absolute.  The
@@ -3730,24 +3754,34 @@ class SolverClock:
     """While active, times the solver's CF calls (CUDA events around each
     call of the wrapper on the card, and around each launch of the
     double-double kernel; the host clock for the plain version) and its
-    eigendecompositions (the host clock, the device synchronised on each
-    side: torch.linalg.eig of a CUDA tensor synchronises with the host
-    anyway), and keeps the (B, N) of every CF call and of every launch of
-    each variant, and a copy of the inputs of the largest call and of the
-    largest double-double launch."""
+    angular eigenproblems (CUDA events around each call of
+    ``ops/eig_cuda``'s wrappers on the card: the eig kernel's launch and
+    the wrapper's host work with its one synchronisation; the host clock
+    for the plain version), the eig calls by stage of the solve (with a
+    ``NewtonWatch``, its ``stage``: the coarse pass's Newton, each depth
+    of the fine pass's lockstep Newton, the rest; without one, all
+    "other"), and keeps the (B, N) of every CF call and of every launch
+    of each variant, a copy of the inputs of the largest CF call and of
+    the largest double-double launch, and of the largest eig call of each
+    mode."""
+
+    def __init__(self, watch=None):
+        self.watch = watch
 
     def __enter__(self):
         import torch
         from qnmfits_tpu_torch.ops import cf_cuda
         from qnmfits_tpu_torch.spectrum import solver
-        self.events, self.dd_events = [], []
-        self.cf_host_s, self.eig_s = 0.0, 0.0
+        self.events, self.dd_events, self.eig_events = [], [], []
+        self.cf_host_s, self.eig_host_s = 0.0, 0.0
         self.eig_calls = self.eig_matrices = self.largest_work = 0
         self.shapes, self.largest = {}, None
         self.launch_shapes = {False: {}, True: {}}
         self.largest_dd, self._largest_dd_work = None, 0
-        self._orig = orig_cf, orig_eig = (solver.leaver_cf,
-                                          solver._batched_angular_eig)
+        self.eig_stages, self.eig_samples = {}, {}
+        self._orig = (solver.leaver_cf, solver.angular_eigvals,
+                      solver.angular_eigpair)
+        orig_cf, orig_vals, orig_pair = self._orig
         self._orig_launch = orig_launch = cf_cuda._launch
 
         def cf(omega, aL, A, s, m, n_inv, N):
@@ -3788,26 +3822,49 @@ class SolverClock:
             self.dd_events.append(ev)
             return out
 
-        def eig(s, m, c, nl, vectors=True):
-            if c.is_cuda:
-                torch.cuda.synchronize()
-            t = time.perf_counter()
-            out = orig_eig(s, m, c, nl, vectors)
-            if c.is_cuda:
-                torch.cuda.synchronize()
-            self.eig_s += time.perf_counter() - t
-            self.eig_calls += 1
-            self.eig_matrices += c.shape[0]
-            return out
+        def eig(mode, orig):
+            def run(*args):
+                c = args[2] if mode == "values" else args[3]
+                book = self.eig_stages.setdefault(
+                    self.watch.stage if self.watch else "other",
+                    dict(calls=0, matrices=0, events=[], host_s=0.0))
+                book["calls"] += 1
+                book["matrices"] += c.shape[0]
+                self.eig_calls += 1
+                self.eig_matrices += c.shape[0]
+                best = self.eig_samples.get(mode)
+                if best is None or c.shape[0] > best["batch"]:
+                    self.eig_samples[mode] = dict(
+                        mode=mode, batch=c.shape[0],
+                        args=tuple(x.clone() if torch.is_tensor(x) else x
+                                   for x in args))
+                if not c.is_cuda:
+                    t = time.perf_counter()
+                    out = orig(*args)
+                    dt = time.perf_counter() - t
+                    self.eig_host_s += dt
+                    book["host_s"] += dt
+                    return out
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                ev[0].record()
+                out = orig(*args)
+                ev[1].record()
+                self.eig_events.append(ev)
+                book["events"].append(ev)
+                return out
+            return run
 
-        solver.leaver_cf, solver._batched_angular_eig = cf, eig
+        solver.leaver_cf = cf
+        solver.angular_eigvals = eig("values", orig_vals)
+        solver.angular_eigpair = eig("vectors", orig_pair)
         cf_cuda._launch = launch
         return self
 
     def __exit__(self, *exc):
         from qnmfits_tpu_torch.ops import cf_cuda
         from qnmfits_tpu_torch.spectrum import solver
-        solver.leaver_cf, solver._batched_angular_eig = self._orig
+        (solver.leaver_cf, solver.angular_eigvals,
+         solver.angular_eigpair) = self._orig
         cf_cuda._launch = self._orig_launch
 
     @staticmethod
@@ -3820,16 +3877,25 @@ class SolverClock:
         """Seconds in the CF: device time of the launches on the card."""
         return self._events_s(self.events) if self.events else self.cf_host_s
 
+    def eig_s(self):
+        """Seconds in the eig wrappers: CUDA events on the card."""
+        return (self._events_s(self.eig_events) if self.eig_events
+                else self.eig_host_s)
+
     def summary(self, wall):
-        cf, eig = self.cf_s(), self.eig_s
+        cf, eig = self.cf_s(), self.eig_s()
 
         def shapes(book):
             return {f"{b}x{n}": c for (b, n), c in sorted(book.items())}
 
+        stages = {k: dict(calls=v["calls"], matrices=v["matrices"],
+                          s=(self._events_s(v["events"]) if v["events"]
+                             else v["host_s"]))
+                  for k, v in self.eig_stages.items()}
         return dict(wall_s=wall, cf_s=cf, eig_s=eig, rest_s=wall - cf - eig,
                     cf_calls=sum(self.shapes.values()),
                     eig_calls=self.eig_calls,
-                    eig_matrices=self.eig_matrices,
+                    eig_matrices=self.eig_matrices, eig_by_stage=stages,
                     cf_shapes=shapes(self.shapes),
                     cf_dd_s=(self._events_s(self.dd_events)
                              if self.dd_events else None),
@@ -3845,13 +3911,16 @@ class NewtonWatch:
     1e-9 |omega|) or unconverged, with the spins of the last; and the
     coarse pass's failed points (``_newton_coupled``), which it substeps,
     by spin.  A point still unconverged after its tier's last retry keeps
-    the interpolated coarse track (``solver.track_mode``).  The CF wrapper,
-    which SolverClock brackets with CUDA events, is left alone."""
+    the interpolated coarse track (``solver.track_mode``).  ``stage`` names
+    the Newton running ("coarse", "N=<depth>", else "other"), for
+    SolverClock's eig calls by stage.  The CF wrapper, which SolverClock
+    brackets with CUDA events, is left alone."""
 
     def __init__(self, solver):
         self.solver = solver
         self.lockstep, self.coarse_failed_chi = [], []
         self.coarse_calls = 0
+        self.stage = "other"
 
     def __enter__(self):
         import torch
@@ -3872,12 +3941,14 @@ class NewtonWatch:
         def watched_vec(omega_L, aL_vec, A_guess, s, l, m, n_inv, nl, N, tol,
                         maxiter=60):
             state.update(iterations=0, done=[], tol=tol)
+            self.stage = f"N={N}"
             try:
                 out = vec(omega_L, aL_vec, A_guess, s, l, m, n_inv, nl, N,
                           tol, maxiter)
             finally:
                 iterations, done = state["iterations"], state["done"]
                 state.clear()
+                self.stage = "other"
             ok = out[3]
             hard = int(sum(int(d) for d in done))
             self.lockstep.append(dict(
@@ -3889,8 +3960,12 @@ class NewtonWatch:
 
         def watched_coupled(omega_L, aL, A_guess, s, l, m, n_inv, nl, N, tol,
                             maxiter=60):
-            out = coupled(omega_L, aL, A_guess, s, l, m, n_inv, nl, N, tol,
-                          maxiter)
+            self.stage = "coarse"
+            try:
+                out = coupled(omega_L, aL, A_guess, s, l, m, n_inv, nl, N,
+                              tol, maxiter)
+            finally:
+                self.stage = "other"
             self.coarse_calls += 1
             if not bool(out[2][0]):
                 self.coarse_failed_chi.append(2.0 * float(aL))
@@ -3927,18 +4002,20 @@ class NewtonWatch:
         return sum(t["fell_back"] for t in tiers) + points - solved
 
 
-def _clocked(fn):
-    """(fn(), SolverClock summary, the clock), the CF kernels' launch
-    counts set to 0 just before and read just after."""
-    from qnmfits_tpu_torch.ops import cf_cuda
-    cf_cuda.launches = cf_cuda.dd_launches = 0
-    with SolverClock() as clk:
+def _clocked(fn, watch=None):
+    """(fn(), SolverClock summary, the clock), the CF and eig kernels'
+    launch counts set to 0 just before and read just after; ``watch`` a
+    NewtonWatch that names the stages of the eig calls."""
+    from qnmfits_tpu_torch.ops import cf_cuda, eig_cuda
+    cf_cuda.launches = cf_cuda.dd_launches = eig_cuda.launches = 0
+    with SolverClock(watch) as clk:
         t = time.perf_counter()
         out = fn()
         wall = time.perf_counter() - t
     rec = clk.summary(wall)
     rec["cf_launches"] = cf_cuda.launches
     rec["cf_dd_launches"] = cf_cuda.dd_launches
+    rec["eig_launches"] = eig_cuda.launches
     rec["timed_by"] = SOLVE_TIMED_BY
     return out, rec, clk
 
@@ -4015,6 +4092,14 @@ CF_TIMED_BY = dict(
 CF_TIMED_BY_CPU = dict(ms="host clock: the plain version",
                        call_ms="host clock: the plain version",
                        plain_ms="host clock: the plain version")
+EIG_TIMED_BY = dict(
+    ms="torch.profiler: the kernel's device time, mean over its launches",
+    call_ms="CUDA events around 10 wrapper calls (each with its "
+            "synchronisation)",
+    plain_ms="host clock: the plain version on the CPU copy",
+    library_ms="CUDA events around one call: torch.linalg on the CUDA "
+               "matrices",
+    library_cpu_ms="host clock: torch.linalg on a CPU copy")
 SOLVE_TIMED_BY = dict(
     wall_s="host clock",
     cf_s="CUDA events around each wrapper call (host work included); the "
@@ -4022,7 +4107,9 @@ SOLVE_TIMED_BY = dict(
     cf_kernel_s="replayed: the kernel's device time (torch.profiler) at "
                 "each launch shape of the solve on S1's random inputs, "
                 "times that shape's launches",
-    eig_s="host clock, the device synchronised on each side")
+    eig_s="CUDA events around each call of the eig wrappers (the kernel's "
+          "launch and the wrapper's host work, one synchronisation "
+          "included); the host clock on the CPU")
 
 
 def _kernel_name(extended):
@@ -4237,40 +4324,141 @@ def _row_gaps(w, A, C, z, row, sel, chi):
                 float(np.max(v[~lo], initial=0.0))) for k, v in gaps.items()}
 
 
-def eig_where(M):
-    """Where torch.linalg.eigvals of a batch of CUDA matrices spends its
-    time: its wall on the card and on a CPU copy (host clock, synchronised),
-    and the device time of its kernels and copies (torch.profiler on
-    PROFILED_EIGS of them, scaled to the batch)."""
+def eig_bound_ms(B, n, ops, vectors):
+    """Least time of one eig launch of B matrices of order n whose loops
+    did ``ops`` FP64 operations in all (the kernel's count, its info's
+    second column: each reduction step's reflector over the column's
+    nonzero rows, each rotation's updated pairs over the active block,
+    and in vectors mode the band LU and its solves): the larger of the
+    bytes (c, and in vectors mode the guess, in; the n eigenvalues, and
+    in vectors mode A and the vector, out; 16 a complex) over HBM
+    bandwidth and the operations over the card's FP64 peak,
+    FP64_FLOP_PER_S (the tensor cores' 67 TFLOP/s, the least time; the
+    kernel's scalar FP64 can reach 34, against which its share is twice
+    this one)."""
+    t_bytes = B * 16 * (1 + n + (2 + n if vectors else 0)) / HBM_BYTES_PER_S
+    t_ops = ops / FP64_FLOP_PER_S
+    return (1e3 * max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def check_eig(sample, device, timed=False):
+    """One eig call of a solve (``SolverClock.eig_samples``: values mode
+    (s, m, c, nl) or vectors mode (s, l, m, c, nl, guess)) launched again
+    on the kernel and held to its plain version on the CPU copy:
+    eigenvalues as sets within EIG_TOL max(1, ||M||_F); in vectors mode A
+    within the same, the vector within EIG_VEC_TOL and its residual within
+    EIG_RES_TOL ||M||_F.  With ``timed`` also the kernel's device time
+    (torch.profiler), the call's (CUDA events, its synchronisation
+    included), the plain version's (host clock), torch.linalg's on the
+    CUDA matrices (CUDA events) and on a CPU copy (host clock), and the
+    bound.  Returns its record; raises beyond a bar.  On the CPU (no
+    kernel) returns None."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    torch.linalg.eigvals(M)
+    from qnmfits_tpu_torch.ops import eig_cuda
+    from qnmfits_tpu_torch.testing import eig_matching
+    if device == "cpu":
+        return None
+    vectors = sample["mode"] == "vectors"
+    if vectors:
+        s, l, m, c, nl, guess = sample["args"]
+        sel = l - max(abs(s), abs(m))
+    else:
+        (s, m, c, nl), guess, sel = sample["args"], None, 0
+    B = c.shape[0]
+    cc = c.cpu()
+
+    def kernel():
+        return eig_cuda._launch(s, m, c, nl, guess, sel)
+
+    ev, A, C = kernel()
     torch.cuda.synchronize()
-    t = time.perf_counter()
-    torch.linalg.eigvals(M)
-    torch.cuda.synchronize()
-    cuda_ms = 1e3 * (time.perf_counter() - t)
-    Mc = M.cpu()
-    t = time.perf_counter()
-    torch.linalg.eigvals(Mc)
-    cpu_ms = 1e3 * (time.perf_counter() - t)
-    # torch.profiler takes minutes over the eig's many small kernels: its
-    # device time is read on a few matrices and scaled.
-    few = M[:PROFILED_EIGS]
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        torch.linalg.eigvals(few)
-        torch.cuda.synchronize()
-    dev = sorted(((e.self_device_time_total, e.key) for e in
-                  prof.key_averages() if e.device_type == DeviceType.CUDA
-                  and e.count), reverse=True)
-    scale = M.shape[0] / few.shape[0]
-    return dict(matrices=M.shape[0], n=M.shape[-1], cuda_wall_ms=cuda_ms,
-                cpu_wall_ms=cpu_ms, profiled=few.shape[0],
-                device_ms=scale * sum(us for us, _ in dev) / 1e3,
-                device_top=[(k[:48], scale * us / 1e3)
-                            for us, k in dev[:4]])
+    info = eig_cuda.last_info.cpu()
+    ops = int(info[:, 1].sum())
+    M = eig_cuda.angular_matrices(s, m, cc, nl)
+    fro = np.maximum(1.0, torch.linalg.matrix_norm(M).numpy())
+    plain = {}
+
+    def run_plain():
+        plain["ev"] = eig_cuda.eigvals_plain(s, m, cc, nl)
+        if vectors:
+            plain["A"], plain["C"] = eig_cuda.eigpair_plain(
+                s, l, m, cc, nl, guess.cpu())
+
+    plain_ms = _timed_ms(run_plain, "cpu", 1)
+    _, gap = eig_matching(ev.cpu().numpy(), plain["ev"].numpy())
+    rec = dict(mode=sample["mode"], batch=B, n=nl, s=s, m=m,
+               max_abs_err=float(gap.max()), rel_err=float((gap / fro).max()),
+               sweeps_mean=float(info[:, 0].double().mean()), ops=ops)
+    ok = rec["rel_err"] <= EIG_TOL
+    if vectors:
+        A, C = A.cpu(), C.cpu()
+        res = torch.linalg.vector_norm(
+            torch.einsum("bij,bj->bi", M, C) - A[:, None] * C, dim=1).numpy()
+        rec.update(A_rel_err=float(((A - plain["A"]).abs().numpy()
+                                    / fro).max()),
+                   C_err=float((C - plain["C"]).abs().max()),
+                   residual=float((res / fro).max()))
+        ok = ok and (rec["A_rel_err"] <= EIG_TOL
+                     and rec["C_err"] <= EIG_VEC_TOL
+                     and rec["residual"] <= EIG_RES_TOL)
+    if not ok:
+        raise RuntimeError(f"angular_eig kernel vs plain ({sample['mode']}, "
+                           f"B={B}, n={nl}): {rec}")
+    if timed:
+        bound, by = eig_bound_ms(B, nl, ops, vectors)
+        Mg = M.to(c.device)
+        lib = (torch.linalg.eig if vectors else torch.linalg.eigvals)
+        lib(Mg[:1])
+        rec.update(ms=kernel_ms(kernel, kernel="angular_eig_kernel"),
+                   call_ms=_timed_ms(kernel, device, 10), plain_ms=plain_ms,
+                   library_ms=_timed_ms(lambda: lib(Mg), device, 1),
+                   library_cpu_ms=_timed_ms(lambda: lib(M), "cpu", 1),
+                   bound_ms=bound, bound_by=by, timed_by=EIG_TIMED_BY)
+        rec["bound_share"] = bound / rec["ms"]
+    return rec
+
+
+def eig_sample_checks(clk, device, label):
+    """A solve's largest eig call of each mode held to the plain version
+    (``check_eig``); logged, and returned as records."""
+    out = []
+    for mode in ("values", "vectors"):
+        sample = clk.eig_samples.get(mode)
+        rec = None if sample is None else check_eig(sample, device)
+        if rec is None:
+            continue
+        out.append(rec)
+        extra = (f", A {rec['A_rel_err']:.1e}, vector {rec['C_err']:.1e} "
+                 f"(bound {EIG_VEC_TOL:.0e}), residual {rec['residual']:.1e}"
+                 f" (bound {EIG_RES_TOL:.0e})" if mode == "vectors" else "")
+        log(f"{label} eig kernel vs plain on its largest {mode} call (B="
+            f"{rec['batch']}, n={rec['n']}, {rec['sweeps_mean']:.1f} sweeps "
+            f"a matrix): eigenvalues {rec['rel_err']:.1e} of max(1, "
+            f"||M||_F) (bound {EIG_TOL:.0e}){extra}")
+    return out
+
+
+def eig_where(s, m, c, nl):
+    """The eig of a fine pass's Newton step (values mode, every c of a
+    (B,) CUDA tensor) through the kernel beside torch.linalg.eigvals of the
+    same matrices on the card and on a CPU copy, and its bound
+    (``check_eig``, timed)."""
+    rec = check_eig(dict(mode="values", batch=c.shape[0],
+                         args=(s, m, c, nl)), "cuda", timed=True)
+    rec["matrices"] = c.shape[0]
+    return rec
+
+
+def _eig_line(rec):
+    return (f"kernel {rec['ms']:.4f} ms (call {rec['call_ms']:.4f} ms, "
+            f"{rec['sweeps_mean']:.1f} sweeps a matrix), plain "
+            f"{rec['plain_ms']:.1f} ms, torch.linalg "
+            f"{rec['library_ms']:.1f} ms on the card / "
+            f"{rec['library_cpu_ms']:.1f} ms on a CPU copy, bound "
+            f"{rec['bound_ms']:.3e} ms ({rec['bound_by']}), share "
+            f"{rec['bound_share']:.2e}; {rec['rel_err']:.1e} of max(1, "
+            f"||M||_F) from the plain version")
 
 
 def resolve_rows(problem, device, gpu):
@@ -4291,7 +4479,7 @@ def resolve_rows(problem, device, gpu):
             return solver.track_mode(l, m, n, seeds[(l, n)], chi, s=s,
                                      device=device)
 
-        (w, A, C), rec, _ = _clocked(solve)
+        (w, A, C), rec, clk = _clocked(solve)
         rec.update(key=f"s{s}_{l}{m:+d}{n}", points=len(chi),
                    gaps=_row_gaps(w, A, C, z, z["keys"].index((l, m, n)),
                                   sel, chi))
@@ -4303,34 +4491,43 @@ def resolve_rows(problem, device, gpu):
             f"{g['mu'][1]:.2e} from the table (chi <= {RESOLVE_SPLIT} / "
             f"beyond; bounds {RESOLVE_TOL}); {rec['wall_s']:.2f} s: CF "
             f"{rec['cf_s']:.2f} s by events in {rec['cf_launches']} "
-            f"launches, eig "
-            f"{rec['eig_s']:.2f} s in {rec['eig_calls']} calls "
-            f"({rec['eig_matrices']} matrices), rest {rec['rest_s']:.2f} s; "
-            f"double-double CF {rec['cf_dd_launches']} launches, "
-            f"{_opt_s(rec['cf_dd_s'])} by events")
+            f"launches, eig {rec['eig_s']:.3f} s by events in "
+            f"{rec['eig_calls']} calls ({rec['eig_matrices']} matrices, "
+            f"{rec['eig_launches']} kernel launches), rest "
+            f"{rec['rest_s']:.2f} s; double-double CF "
+            f"{rec['cf_dd_launches']} launches, {_opt_s(rec['cf_dd_s'])} by "
+            f"events")
         for k, (tol_lo, tol_hi) in RESOLVE_TOL.items():
             if (s, l, m, n) == (-2, 3, -3, 5) and k == "omega":
                 tol_hi = RESOLVE_335_TOL
             if not (g[k][0] <= tol_lo and g[k][1] <= tol_hi):
                 raise RuntimeError(f"S2 ({l},{m},{n}) s={s}: {k} gap {g[k]} "
                                    f"beyond {(tol_lo, tol_hi)}")
-        if device != "cpu" and rec["cf_launches"] == 0:
-            raise RuntimeError("S2 solved without the CF kernel")
+        _solver_launches(rec, device, f"S2 ({l},{m},{n}) s={s}")
+        rec["eig_checks"] = eig_sample_checks(clk, device,
+                                              f"S2 ({l},{m},{n}) s={s}")
     if device != "cpu":
+        import torch
         z = tables[-2]
         c = (z["chi"] / 2.0) * (2.0 * z["omega"][z["keys"].index((2, 2, 0))])
-        import torch
-        M = solver._angular_matrices(
-            -2, 2, torch.as_tensor(np.concatenate([c, c + 1e-8]),
-                                   device=device), 25)
-        where = eig_where(M)
+        where = eig_where(-2, 2, torch.as_tensor(
+            np.concatenate([c, c + 1e-8]), device=device), 25)
         log(f"S2 eig of the (2,2,0) fine pass's {where['matrices']} "
-            f"matrices (n={where['n']}) on {gpu}: {where['cuda_wall_ms']:.1f}"
-            f" ms from CUDA tensors, {where['cpu_wall_ms']:.1f} ms from a "
-            f"CPU copy; device time {where['device_ms']:.1f} ms (profiled on "
-            f"{where['profiled']}, scaled), top {where['device_top']}")
+            f"matrices (n={where['n']}) on {gpu}: {_eig_line(where)}")
         out.append(dict(key="eig_where", **where))
     return out
+
+
+def _solver_launches(rec, device, label):
+    """On the card a solve launches the CF kernel, and the eig kernel once
+    for each of its eig calls."""
+    if device == "cpu":
+        return
+    if not rec["cf_launches"] or rec["eig_launches"] != rec["eig_calls"] \
+            or not rec["eig_launches"]:
+        raise RuntimeError(f"{label}: {rec['cf_launches']} CF launches, "
+                           f"{rec['eig_launches']} eig launches for "
+                           f"{rec['eig_calls']} eig calls")
 
 
 def spectrum_tables(problem):
@@ -4360,7 +4557,7 @@ def on_demand_modes(problem, device):
     from qnmfits_tpu_torch.spectrum.tables import solve_on
     t = spectrum_tables(problem)
     with solve_on(device):
-        ms, rec, _ = _clocked(lambda: t.compile_modes([PIN_MODE + (1,)]))
+        ms, rec, clk = _clocked(lambda: t.compile_modes([PIN_MODE + (1,)]))
     w11 = complex(t.omega_np(ms, PIN_CHI)[0])
     w10, w9 = (complex(t.omega_np(t.compile_modes([(l, 2, 0, 1)]),
                                   PIN_CHI)[0]) for l in (10, 9))
@@ -4370,12 +4567,15 @@ def on_demand_modes(problem, device):
         f"{pin_gap:.2e} from the JAX package's pin (bound {PIN_TOL:.0e}); "
         f"{rec['wall_s']:.2f} s, {rec['cf_launches']} CF launches (and "
         f"{rec['cf_dd_launches']} double-double), CF {rec['cf_s']:.2f} s by "
-        f"events, eig {rec['eig_s']:.2f} s")
+        f"events, eig {rec['eig_s']:.3f} s by events in {rec['eig_calls']} "
+        f"calls ({rec['eig_launches']} kernel launches), rest "
+        f"{rec['rest_s']:.2f} s")
     if not (pin_gap <= PIN_TOL and abs(step2 - step1) < 0.05 * step1
             and abs(w11.imag - w10.imag) < 0.01):
         raise RuntimeError("S3: (11,2,0) misses the pin or the eikonal trend")
+    rec["eig_checks"] = eig_sample_checks(clk, device, "S3 (11,2,0)")
     with solve_on(device):
-        ms8, rec8, _ = _clocked(lambda: t.compile_modes([(5, 5, 8, 1)]))
+        ms8, rec8, clk8 = _clocked(lambda: t.compile_modes([(5, 5, 8, 1)]))
     w8 = complex(t.omega_np(ms8, 0.7)[0])
     w7, w6 = (complex(t.omega_np(t.compile_modes([(5, 5, n, 1)]), 0.7)[0])
               for n in (7, 6))
@@ -4386,12 +4586,15 @@ def on_demand_modes(problem, device):
     log(f"S3 (5,5,8) on demand ({device}): omega(0.7) = {w8:.10f} below "
         f"(5,5,7) {w7:.10f}, a step {ratio:.3f} x the (5,5,6) -> (5,5,7) "
         f"one (bound 0.5-2); {rec8['wall_s']:.2f} s, {rec8['cf_launches']} "
-        f"CF launches (and {rec8['cf_dd_launches']} double-double)")
+        f"CF launches (and {rec8['cf_dd_launches']} double-double), eig "
+        f"{rec8['eig_s']:.3f} s by events in {rec8['eig_launches']} kernel "
+        f"launches")
     if not (w8.imag < w7.imag < 0 and w8.real > 0 and nz[0]
             and 0.5 < ratio < 2.0):
         raise RuntimeError("S3: (5,5,8) fails the ordering checks")
-    if device != "cpu" and not (rec["cf_launches"] and rec8["cf_launches"]):
-        raise RuntimeError("S3 solved without the CF kernel")
+    _solver_launches(rec, device, "S3 (11,2,0)")
+    _solver_launches(rec8, device, "S3 (5,5,8)")
+    rec8["eig_checks"] = eig_sample_checks(clk8, device, "S3 (5,5,8)")
     return [dict(rec, key="s3_11_2_0", omega=[w11.real, w11.imag],
                  pin_gap=pin_gap),
             dict(rec8, key="s3_5_5_8", omega=[w8.real, w8.imag])]
@@ -4428,9 +4631,13 @@ def multiplet_check(problem, device):
         f">= {MULTIPLET_CHI_MIN} by n {shown} (bound "
         f"{MULTIPLET_TOL:.0e}); {rec['wall_s']:.1f} s, {rec['cf_launches']} "
         f"CF launches, CF {rec['cf_s']:.2f} s by events (kernel "
-        f"{_opt_s(rec['cf_kernel_s'])} replayed), eig {rec['eig_s']:.1f} s")
+        f"{_opt_s(rec['cf_kernel_s'])} replayed), eig {rec['eig_s']:.3f} s "
+        f"by events in {rec['eig_launches']} kernel launches, rest "
+        f"{rec['rest_s']:.1f} s")
     if sorted(tracks) != baked or not worst <= MULTIPLET_TOL:
         raise RuntimeError("S4: the multiplet tracks miss the table's rows")
+    _solver_launches(rec, device, "S4")
+    rec["eig_checks"] = eig_sample_checks(clk, device, "S4")
     return dict(rec, key="s4_multiplets", points=len(chi),
                 chi_max=float(chi[-1]), gaps=gaps)
 
@@ -4462,7 +4669,8 @@ def on_demand_fit(problem, device):
               device=device)
     chol_cuda.launches = chol_cuda.wide_launches = 0
     with NewtonWatch(solver) as watch:
-        mm, rec, clk = _clocked(lambda: mismatch_t0_mode_sets(*args, **kw))
+        mm, rec, clk = _clocked(lambda: mismatch_t0_mode_sets(*args, **kw),
+                                watch)
     launches, wide = chol_cuda.launches, chol_cuda.wide_launches
     rec["cf_kernel_s"] = rec["cf_dd_kernel_s"] = None
     if device != "cpu":
@@ -4495,8 +4703,13 @@ def on_demand_fit(problem, device):
         f"oracle t0 >= 0: {oracle[0]:.3e} (bound {ORACLE_TOL:.0e}), t0 < 0: "
         f"{oracle[1]:.3e} (reported); wall {rec['wall_s']:.2f} s with the "
         f"solve (CF {rec['cf_s']:.2f} s by events, kernel "
-        f"{_opt_s(rec['cf_kernel_s'])} replayed, eig {rec['eig_s']:.2f} s), "
-        f"{warm:.3f} s warm")
+        f"{_opt_s(rec['cf_kernel_s'])} replayed; eig {rec['eig_s']:.3f} s "
+        f"by events in {rec['eig_launches']} kernel launches; rest "
+        f"{rec['rest_s']:.2f} s), {warm:.3f} s warm")
+    stages = {k: (v["calls"], v["matrices"], round(v["s"], 4))
+              for k, v in rec["eig_by_stage"].items()}
+    log(f"F1's eig calls by stage of the solve (calls, matrices, s by "
+        f"events): {stages}")
     tiers = [(t["tier"], [c["N"] for c in t["calls"]]) for t in watch.tiers()]
     log(f"F1 (5,2,8): {coarse} of {len(chi)} points on the coarse track "
         f"(bound 0); tiers and their calls' depths {tiers}; omega beyond "
@@ -4513,6 +4726,7 @@ def on_demand_fit(problem, device):
     if device != "cpu" and (launches != 1 or wide or not rec["cf_launches"]):
         raise RuntimeError(f"F1 launched the solve {launches} times (wide "
                            f"{wide}) and the CF {rec['cf_launches']} times")
+    _solver_launches(rec, device, "F1")
     if not (route[0] <= MAIN_TOL and route[1] <= PRE_TOL
             and oracle[0] <= ORACLE_TOL):
         raise RuntimeError("F1 disagrees with its plain route or the oracle")
@@ -4526,12 +4740,14 @@ def on_demand_fit(problem, device):
                 launches=launches, wide_launches=wide,
                 expected_launches=1, cf_launches=rec["cf_launches"],
                 cf_dd_launches=rec["cf_dd_launches"],
+                eig_launches=rec["eig_launches"],
                 wall_s=rec["wall_s"], warm_wall_s=warm, route_in=route[0],
                 route_pre=route[1], oracle_in=oracle[0],
                 oracle_pre=oracle[1], coarse_track_points=coarse,
                 pin_gap=pin_gap, tiers=watch.tiers(),
                 coarse_calls=watch.coarse_calls,
                 coarse_failed_chi=watch.coarse_failed_chi, solve=rec)
+    rec["eig_checks"] = eig_sample_checks(clk, device, "F1")
     return path, clk
 
 
@@ -4620,11 +4836,46 @@ def run_spectrum(problem, device, gpu=None):
         from_f1=dd_main is not None,
         rel_err_max=max(r["rel_err"] for r in s1x + [dd_ref]),
         checks=s1x, **s1x_more)
+    eig_record = eig_kernel_record(f1, f1_clock, s2, s3, s4, device, gpu)
     wall = time.perf_counter() - t
     rows = sum(r["key"] != "eig_where" for r in s2)
     log(f"phase 12: S1 {len(s1)} batches, S1-X {len(s1x)}, S2 {rows} rows, "
         f"S3, S4 {'run' if s4 else 'not run'}, F1 in {wall:.1f} s")
-    return [f1], [record, dd_record], wall
+    return [f1], [record, dd_record] + ([eig_record] if eig_record
+                                        else []), wall
+
+
+def eig_kernel_record(f1, f1_clock, s2, s3, s4, device, gpu):
+    """The eig kernel's JSON record: timed on F1's largest call of each
+    mode (``check_eig``), with S2's fine-pass batch (``eig_where``) and
+    every solve's sample checks; None on the CPU."""
+    if device == "cpu":
+        return None
+    main = {mode: check_eig(f1_clock.eig_samples[mode], device, timed=True)
+            for mode in ("values", "vectors")}
+    for mode, r in main.items():
+        log(f"eig kernel on F1's largest {mode} call (B={r['batch']}, "
+            f"n={r['n']}) on {gpu or device}: {_eig_line(r)}")
+    where = next(r for r in s2 if r["key"] == "eig_where")
+    checks = [c for r in [f1["solve"], *s2, *s3, s4] if r
+              for c in r.get("eig_checks", [])]
+    v = main["values"]
+    return dict(
+        name="angular_eig", route="cuda",
+        source="qnmfits_tpu_torch/csrc/angular_eig.cu",
+        replaces="qnmfits_tpu/spectrum/solver.py:60",
+        launches=f1["eig_launches"],
+        max_abs_err=max(r["max_abs_err"] for r in
+                        [*main.values(), where, *checks]),
+        ms=v["ms"], plain_ms=v["plain_ms"], bound_ms=v["bound_ms"],
+        bound_by=v["bound_by"], library_ms=v["library_ms"],
+        library="torch.linalg.eigvals of the CUDA matrices (cusolver's "
+                "geev); library_cpu_ms: of a CPU copy",
+        library_cpu_ms=v["library_cpu_ms"], bound_share=v["bound_share"],
+        batch=v["batch"], n=v["n"], call_ms=v["call_ms"],
+        sweeps_mean=v["sweeps_mean"], ops=v["ops"],
+        rel_err=v["rel_err"], timed_by=v["timed_by"],
+        vectors=main["vectors"], fine_pass_800=where, checks=checks)
 
 
 # ---------------------------------------------------------------------------
@@ -4971,7 +5222,7 @@ def main():
         return 2
     sys.path.insert(0, ROOT)
     from concurrent.futures import ThreadPoolExecutor
-    from qnmfits_tpu_torch.ops import cf_cuda, chol_cuda, sweep_cuda
+    from qnmfits_tpu_torch.ops import cf_cuda, chol_cuda, eig_cuda, sweep_cuda
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -4985,9 +5236,9 @@ def main():
 
     # One nvcc for each source, started together.
     t = time.perf_counter()
-    with ThreadPoolExecutor(3) as pool:
+    with ThreadPoolExecutor(4) as pool:
         libs = list(pool.map(lambda mod: mod.build(),
-                             (chol_cuda, cf_cuda, sweep_cuda)))
+                             (chol_cuda, cf_cuda, sweep_cuda, eig_cuda)))
     log(f"built {', '.join(os.path.relpath(lib, ROOT) for lib in libs)} in "
         f"{time.perf_counter() - t:.2f} s (sm_90a, in parallel)")
     build = check_build()

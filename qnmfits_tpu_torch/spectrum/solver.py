@@ -13,6 +13,11 @@ Per track, in two passes:
      in lockstep over every grid point at once, in tiers of CF depth that
      grow toward extremal spin; the angular problem is one batched eig.
 
+The angular eigenproblems go through ``ops/eig_cuda``: the CUDA kernel
+``csrc/angular_eig.cu`` for tensors on the card (one launch for a Newton
+step's 2B matrices, one for each vectors-mode call), torch.linalg.eig for
+tensors on the CPU.
+
 Each Newton iteration evaluates the CF at omega and omega + h in one call
 of ``ops/cf_cuda.leaver_cf``: the CUDA kernel ``csrc/leaver_cf.cu`` for
 tensors on the card, its plain versions for tensors on the CPU.  The CF is
@@ -30,13 +35,12 @@ Schwarzschild seed.
 
 from __future__ import annotations
 
-from functools import lru_cache
-
 import numpy as np
 import torch
 
 from ..ops.cf_cuda import leaver_cf
-from .angular import lmin, spectral_parts
+from ..ops.eig_cuda import angular_eigpair, angular_eigvals, select_nearest
+from .angular import lmin
 
 __all__ = ["SolveError", "default_chi_grid", "schwarzschild_seeds",
            "track_mode"]
@@ -63,63 +67,22 @@ def _c(x, device):
                            device=device)
 
 
-@lru_cache(maxsize=64)
-def _spectral_t(s: int, m: int, nl: int, device: torch.device):
-    lam0, X = spectral_parts(s, m, nl)
-    return (torch.as_tensor(np.diag(lam0).astype(complex), device=device),
-            torch.as_tensor(X, device=device),
-            torch.as_tensor(X @ X, device=device))
-
-
-def _angular_matrices(s: int, m: int, c, nl: int):
-    """angular.angular_matrix at every c of a (B,) complex tensor:
-    diag(lam0) + 2 c s X - c^2 X^2, (B, nl, nl)."""
-    D, X, X2 = _spectral_t(s, m, nl, c.device)
-    c = c[:, None, None]
-    return (D + 2.0 * c * s * X) - (c * c) * X2
-
-
-def _batched_angular_eig(s: int, m: int, c, nl: int, vectors: bool = True):
-    """Eigenvalues (B, nl) and, with ``vectors``, right eigenvectors
-    (B, nl, nl) of the angular matrix at every c, unsorted."""
-    M = _angular_matrices(s, m, c, nl)
-    if vectors:
-        return torch.linalg.eig(M)
-    return torch.linalg.eigvals(M), None
-
-
-def _select_eig(A_all, C_all, A_guess, l, m, s):
-    """Per batch element, the eigenpair closest to A_guess, with the
-    diagonal-real-positive phase and unit norm (C None: eigenvalues
-    only)."""
-    k = torch.argmin((A_all - A_guess[:, None]).abs(), dim=1)
-    rows = torch.arange(A_all.shape[0], device=A_all.device)
-    A = A_all[rows, k]
-    if C_all is None:
-        return A, None
-    C = C_all[rows, :, k]
-    diag = C[:, l - lmin(s, m)]
-    one = torch.ones((), dtype=diag.dtype, device=diag.device)
-    phase = torch.where(diag != 0,
-                        diag.abs() / torch.where(diag == 0, one, diag), one)
-    C = C * phase[:, None]
-    C = C / torch.sqrt(torch.sum(C.abs() ** 2, dim=1))[:, None]
-    return A, C
-
-
 def _angular_A_C(s, l, m, c, nl, A_guess, vectors=True):
-    A_all, C_all = _batched_angular_eig(s, m, c, nl, vectors)
-    return _select_eig(A_all, C_all, A_guess, l, m, s)
+    """Per element, the eigenvalue of the angular matrix at c nearest
+    A_guess and (``vectors``) its mixing vector, entry l - lmin real and
+    positive, unit norm; C is None without ``vectors``."""
+    if vectors:
+        return angular_eigpair(s, l, m, c, nl, A_guess)
+    return select_nearest(angular_eigvals(s, m, c, nl), A_guess), None
 
 
 def _angular_pair(s, l, m, c0, c1, nl, A_guess):
     """Newton's two angular solves in one batched eig: A0 nearest A_guess
     at c0, then A1 nearest A0 at c1."""
     B = c0.shape[0]
-    A_all, _ = _batched_angular_eig(s, m, torch.cat([c0, c1]), nl, False)
-    A0, _ = _select_eig(A_all[:B], None, A_guess, l, m, s)
-    A1, _ = _select_eig(A_all[B:], None, A0, l, m, s)
-    return A0, A1
+    A_all = angular_eigvals(s, m, torch.cat([c0, c1]), nl)
+    A0 = select_nearest(A_all[:B], A_guess)
+    return A0, select_nearest(A_all[B:], A0)
 
 
 def _newton_step(omega, f, h, active=None):

@@ -10,7 +10,7 @@ import numpy as np
 
 from .engine import SpectrumEvaluator
 
-__all__ = ["bench_mode_sets", "random_factored_sweep",
+__all__ = ["bench_mode_sets", "eig_matching", "random_factored_sweep",
            "random_hermitian_systems", "run_world", "synthetic_multimode",
            "synthetic_single"]
 
@@ -116,6 +116,23 @@ def random_hermitian_systems(B, n, seed=0, n_pad=0):
     G[:, range(live, n), range(live, n)] = 1.0
     b[:, live:] = 0.0
     return G, b
+
+
+def eig_matching(ev, ref):
+    """Each row of eigenvalues ev (B, n) matched one to one with the same
+    row of ref, minimising the sum of the |differences| (scipy's
+    linear_sum_assignment).  Returns perm (B, n), ev[b, i] matched with
+    ref[b, perm[b, i]], and the largest |difference| of each row (B,)."""
+    from scipy.optimize import linear_sum_assignment
+    ev, ref = np.atleast_2d(ev), np.atleast_2d(ref)
+    perm = np.empty(ev.shape, dtype=np.int64)
+    gap = np.empty(ev.shape[0])
+    for b in range(ev.shape[0]):
+        d = np.abs(ev[b][:, None] - ref[b][None, :])
+        rows, cols = linear_sum_assignment(d)
+        perm[b, rows] = cols
+        gap[b] = d[rows, cols].max()
+    return perm, gap
 
 
 def random_factored_sweep(K, I, S, J, B, seed=0, n_pad=0, layout="random"):

@@ -915,3 +915,151 @@ def test_debug_nans_sees_the_factored_kernels_output(cuda, monkeypatch):
     with pytest.raises(FloatingPointError, match="factored_systems"):
         sweep_cuda.factored_systems(times, data, om, mus, t0s, Ts, masks,
                                     chunk)
+
+
+# The angular eigen-kernel (csrc/angular_eig.cu) against its plain version
+# (torch.linalg.eig of the CPU copy): s, m, nl and |c| as the CPU tests of
+# its host build (tests/test_torch_angular_eig.py) take them, B = 1 and 33
+# (a partial block), and at the solver's orders with s = -2, m = 2 also
+# 800 (a fine pass's Newton step of 400 spins).
+EIG_NLS = (1, 2, 5, 25, 28, 34, 64)
+
+
+def _eig_held(s, l, m, c, nl, variant=None):
+    """Both modes of the kernel on the CUDA c against the plain version of
+    its CPU copy: eigenvalues as a set within 1e-12 max(1, ||M||_F); the
+    selected eigenvalue and vector (the guess near the eigenvalue whose
+    vector has the largest entry l - lmin) within 1e-12 and 1e-10; the
+    residual within 1e-13 ||M||_F."""
+    from qnmfits_tpu_torch.ops import eig_cuda
+    from qnmfits_tpu_torch.testing import eig_matching
+    sel = l - max(abs(s), abs(m))
+    cc = c.cpu()
+    M = eig_cuda.angular_matrices(s, m, cc, nl)
+    fro = torch.linalg.matrix_norm(M).numpy()
+    A_all, C_all = torch.linalg.eig(M)
+    k = torch.argmax(C_all[:, sel, :].abs(), dim=1)
+    guess = A_all[torch.arange(len(cc)), k] + 1e-4
+    before = eig_cuda.launches
+    ev, _, _ = eig_cuda._launch(s, m, c, nl, variant=variant)
+    _, A, C = eig_cuda._launch(s, m, c, nl, guess.to(c.device), sel,
+                               variant=variant)
+    torch.cuda.synchronize()
+    assert eig_cuda.launches == before + 2
+    _, gap = eig_matching(ev.cpu().numpy(), eig_cuda.eigvals_plain(
+        s, m, cc, nl).numpy())
+    assert np.all(gap <= 1e-12 * np.maximum(1.0, fro))
+    Ap, Cp = eig_cuda.eigpair_plain(s, l, m, cc, nl, guess)
+    A, C = A.cpu(), C.cpu()
+    assert np.all((A - Ap).abs().numpy() <= 1e-12 * np.maximum(1.0, fro))
+    assert float((C - Cp).abs().max()) <= 1e-10
+    res = torch.linalg.vector_norm(
+        torch.einsum("bij,bj->bi", M, C) - A[:, None] * C, dim=1).numpy()
+    assert np.all(res <= 1e-13 * fro)
+
+
+@pytest.mark.parametrize("m", range(-3, 4))
+@pytest.mark.parametrize("s", [-2, -1, 0])
+def test_angular_eig_kernel_matches_plain(cuda, s, m):
+    rng = np.random.default_rng(100 * (s + 2) + m + 7)
+    for nl in EIG_NLS:
+        big = (s, m) == (-2, 2) and nl in (25, 28, 34)
+        for B in (1, 33, 800) if big else (1, 33):
+            c = 5.0 * rng.random(B) * np.exp(2j * np.pi * rng.random(B))
+            _eig_held(s, max(abs(s), abs(m)) + min(2, nl - 1), m,
+                      torch.as_tensor(c, device=cuda), nl)
+
+
+@pytest.mark.parametrize("nl,variant", [(28, "global"), (130, None)])
+def test_angular_eig_kernel_workspace_matches_plain(cuda, nl, variant):
+    """The global workspace, forced at nl = 28 and past the shared memory
+    at nl = 130."""
+    from qnmfits_tpu_torch.ops import eig_cuda
+    rng = np.random.default_rng(nl)
+    c = 3.0 * rng.random(40) * np.exp(2j * np.pi * rng.random(40))
+    _eig_held(-2, 5, 2, torch.as_tensor(c, device=cuda), nl, variant)
+    assert eig_cuda.last_plan["variant"] == "global"
+
+
+def test_angular_eig_kernel_on_tracked_rows(cuda):
+    """c along the baked (2,2,0) and (2,2,7) tracks to chi = 0.9995."""
+    from qnmfits_tpu_torch.spectrum.tables import table_path
+    with np.load(table_path(-2)) as z:
+        keys = [tuple(k) for k in z["keys"]]
+        for n in (0, 7):
+            c = z["chi"] * z["omega"][keys.index((2, 2, n))]
+            _eig_held(-2, 2, 2, torch.as_tensor(c, device=cuda), 25)
+
+
+def test_angular_eig_never_reaches_torch_linalg(cuda, tmp_path, monkeypatch):
+    """With torch.linalg.eig and eigvals made to raise, the wrappers and a
+    short on-demand track on the card run through the kernel alone."""
+    from qnmfits_tpu_torch.ops import eig_cuda
+    from qnmfits_tpu_torch.spectrum import solver
+
+    def refuse(*a, **k):
+        raise AssertionError("a CUDA c reached torch.linalg")
+
+    monkeypatch.setattr(torch.linalg, "eig", refuse)
+    monkeypatch.setattr(torch.linalg, "eigvals", refuse)
+    c = torch.full((3,), 0.3 - 0.1j, dtype=torch.complex128, device=cuda)
+    before = eig_cuda.launches
+    eig_cuda.angular_eigvals(-2, 2, c, 25)
+    eig_cuda.angular_eigpair(-2, 2, 2, c, 25, torch.full_like(c, 4.0))
+    seeds = solver.schwarzschild_seeds(l_max=2, n_max=0, s=-2,
+                                       device="cuda")
+    w, A, C = solver.track_mode(2, 2, 0, seeds[(2, 0)],
+                                solver.default_chi_grid(17, 0.6),
+                                device="cuda")
+    assert eig_cuda.launches > before + 2
+    assert np.all(np.isfinite(w)) and np.all(np.isfinite(C))
+
+
+def test_angular_eig_kernel_cap_and_bad_input_raise(cuda):
+    from qnmfits_tpu_torch.ops import eig_cuda
+    c = torch.tensor([0.0, 2.0 - 1.0j], dtype=torch.complex128, device=cuda)
+    with pytest.raises(RuntimeError, match="did not converge within 0"):
+        eig_cuda._launch(-2, 2, c, 25, max_its=0)
+    with pytest.raises(RuntimeError, match="not finite"):
+        eig_cuda.angular_eigvals(-2, 2, torch.full_like(c, complex("nan")),
+                                 25)
+    with pytest.raises(TypeError, match="complex128"):
+        eig_cuda.angular_eigvals(-2, 2, c.to(torch.complex64), 25)
+    with pytest.raises(ValueError, match="shared memory"):
+        eig_cuda._launch(-2, 2, c, 130, variant="shared")
+    raw = torch.empty(3 * 16 + 8, dtype=torch.uint8, device=cuda)
+    odd = torch.empty(0, dtype=torch.complex128, device=cuda).set_(
+        raw.untyped_storage()[8:], 0, (3,), (1,))
+    before = eig_cuda.launches
+    with pytest.raises(ValueError, match="aligned"):
+        eig_cuda.angular_eigvals(-2, 2, odd, 25)
+    assert eig_cuda.launches == before
+
+
+def test_angular_eig_kernel_does_not_spill(cuda):
+    from qnmfits_tpu_torch.ops import eig_cuda
+    for name, r in eig_cuda.ptxas_report().items():
+        assert r["spill_stores"] == 0 and r["spill_loads"] == 0, (name, r)
+
+
+def test_angular_eig_kernel_counts_operations(cuda):
+    """The launch's info reports the FP64 operations of the kernel's loops
+    (the bound's count), as the host build does: a 2 x 2's sweep is one
+    rotation of 4 pairs (20 operations each); an order-28 matrix adds to
+    its sweeps the reduction's (2n - k - 1)(16 len_k + 6) a step, len_k =
+    min(k + 2, n - k - 1)."""
+    from qnmfits_tpu_torch.ops import eig_cuda
+    rng = np.random.default_rng(3)
+    c = torch.as_tensor(3.0 * rng.random(6)
+                        * np.exp(2j * np.pi * rng.random(6)), device=cuda)
+    eig_cuda._launch(-2, 2, c, 2)
+    info = eig_cuda.last_info.cpu().numpy()
+    assert np.all(info[:, 0] > 0)
+    assert np.array_equal(info[:, 1], 80 * info[:, 0])
+    n = 28
+    eig_cuda._launch(-2, 2, c, n)
+    info = eig_cuda.last_info.cpu().numpy()
+    hess = sum((2 * n - k - 1) * (16 * min(k + 2, n - k - 1) + 6)
+               for k in range(n - 2))
+    sweeps = info[:, 1] - hess
+    assert np.all(sweeps % 20 == 0) and np.all(sweeps >= 80 * info[:, 0])
