@@ -4055,32 +4055,38 @@ def kernel_ms(fn, reps=20, kernel="leaver_cf_kernel"):
     """Mean device time of a hand-written kernel's launches in fn() (one
     a call), from torch.profiler's records of ``kernel``
     (``leaver_cf_kernel``, ``leaver_cf_dd_kernel`` for the CF's
-    double-double variant, or one of ``sweep_cuda.KERNELS``) over reps
-    calls: the wrapper's own copies and the host's launch cost are left
-    out (at small batches they take longer than the kernel).  A
-    profile without the kernel's records is taken again, up to three
-    times; then it raises: CUDA events would time the wrapper, not the
-    kernel."""
+    double-double variant, one of ``sweep_cuda.KERNELS``, or a tuple of
+    names, any of which counts: ``eig_cuda.KERNELS``) over reps calls:
+    the wrapper's own copies and the host's launch cost are left out (at
+    small batches they take longer than the kernel).  A profile without
+    the kernel's records is taken again, up to three times; then it
+    raises: CUDA events would time the wrapper, not the kernel."""
+    import inspect
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    names = (kernel,) if isinstance(kernel, str) else tuple(kernel)
+    # Each profile keeps its own events (where this torch has the
+    # setting), not only those of a profiler cycle.
+    keep = ({"acc_events": True} if "acc_events" in
+            inspect.signature(profile.__init__).parameters else {})
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
     for _ in range(3):
         with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+                                 ProfilerActivity.CUDA], **keep) as prof:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
         recs = [e for e in prof.key_averages()
                 if e.device_type == DeviceType.CUDA and e.count
-                and kernel in e.key]
+                and any(name in e.key for name in names)]
         count = sum(e.count for e in recs)
         if count:
             return sum(e.self_device_time_total for e in recs) / count / 1e3
-    raise RuntimeError(f"torch.profiler recorded no {kernel} in three "
-                       "profiles")
+    raise RuntimeError(f"torch.profiler recorded no {' or '.join(names)} "
+                       "in three profiles")
 
 
 # How the CF records' times are taken, by field, on the card and (the plain
@@ -4093,7 +4099,9 @@ CF_TIMED_BY_CPU = dict(ms="host clock: the plain version",
                        call_ms="host clock: the plain version",
                        plain_ms="host clock: the plain version")
 EIG_TIMED_BY = dict(
-    ms="torch.profiler: the kernel's device time, mean over its launches",
+    ms="CUDA events around 20 back-to-back launches of the kernel's C "
+       "entry (eig_cuda.launch_ms; torch.profiler late in this script "
+       "has recorded none of this kernel's launches)",
     call_ms="CUDA events around 10 wrapper calls (each with its "
             "synchronisation)",
     plain_ms="host clock: the plain version on the CPU copy",
@@ -4349,7 +4357,7 @@ def check_eig(sample, device, timed=False):
     eigenvalues as sets within EIG_TOL max(1, ||M||_F); in vectors mode A
     within the same, the vector within EIG_VEC_TOL and its residual within
     EIG_RES_TOL ||M||_F.  With ``timed`` also the kernel's device time
-    (torch.profiler), the call's (CUDA events, its synchronisation
+    (``eig_cuda.launch_ms``), the call's (CUDA events, its synchronisation
     included), the plain version's (host clock), torch.linalg's on the
     CUDA matrices (CUDA events) and on a CPU copy (host clock), and the
     bound.  Returns its record; raises beyond a bar.  On the CPU (no
@@ -4410,13 +4418,52 @@ def check_eig(sample, device, timed=False):
         Mg = M.to(c.device)
         lib = (torch.linalg.eig if vectors else torch.linalg.eigvals)
         lib(Mg[:1])
-        rec.update(ms=kernel_ms(kernel, kernel="angular_eig_kernel"),
+        rec.update(ms=eig_cuda.launch_ms(s, m, c, nl, guess, sel),
+                   plan=dict(eig_cuda.last_plan),
                    call_ms=_timed_ms(kernel, device, 10), plain_ms=plain_ms,
                    library_ms=_timed_ms(lambda: lib(Mg), device, 1),
                    library_cpu_ms=_timed_ms(lambda: lib(M), "cpu", 1),
                    bound_ms=bound, bound_by=by, timed_by=EIG_TIMED_BY)
         rec["bound_share"] = bound / rec["ms"]
     return rec
+
+
+def eig_launch_shapes():
+    """(label, s, m, c, nl) of the eig launches most of a solve's eig time
+    goes to, in values mode: the coarse pass's one matrix of n = 25 (c on
+    the (2,2,0) row) and two of n = 28 (c of the coarse pass's kind, |c| ~
+    1, Im c < 0), one of n = 28 and two of n = 25.
+    ``scripts/torch_eig_ab.py`` times the same launches."""
+    z = _table_rows(-2)
+    c220 = z["chi"] * z["omega"][z["keys"].index((2, 2, 0))]
+    pair = np.array([0.5 - 0.8j, 0.5 - 0.8j + 1e-6])
+    return [("1 x 25", -2, 2, c220[200:201], 25),
+            ("2 x 28", -2, 2, pair, 28),
+            ("1 x 28", -2, 2, pair[:1], 28),
+            ("2 x 25", -2, 2, c220[200:202], 25)]
+
+
+def eig_small_launches(device, gpu):
+    """The one- and two-matrix launches (``eig_launch_shapes``), each held
+    to the plain version and timed as ``check_eig`` times a solve's
+    largest calls, with its plan and a matrix's cycles by phase."""
+    import torch
+    from qnmfits_tpu_torch.ops import eig_cuda
+    out = []
+    for label, s, m, c, nl in eig_launch_shapes():
+        ct = torch.as_tensor(c, device=device)
+        rec = check_eig(dict(mode="values", batch=len(c),
+                             args=(s, m, ct, nl)), device, timed=True)
+        rec.update(label=label)
+        rec["cycles"] = eig_cuda.phase_cycles(s, m, ct, nl)
+        cyc = rec["cycles"]
+        log(f"eig launch {label} on {gpu or device}: {_eig_line(rec)}; "
+            f"plan {rec['plan']}; cycles a matrix: "
+            + ", ".join(f"{k} {cyc[k]:.0f}" for k in
+                        ("hessenberg", "qr sweeps", "split tests", "shifts",
+                         "solve", "rotations", "per_rotation")))
+        out.append(rec)
+    return out
 
 
 def eig_sample_checks(clk, device, label):
@@ -4859,6 +4906,7 @@ def eig_kernel_record(f1, f1_clock, s2, s3, s4, device, gpu):
     where = next(r for r in s2 if r["key"] == "eig_where")
     checks = [c for r in [f1["solve"], *s2, *s3, s4] if r
               for c in r.get("eig_checks", [])]
+    small = eig_small_launches(device, gpu)
     v = main["values"]
     return dict(
         name="angular_eig", route="cuda",
@@ -4866,7 +4914,7 @@ def eig_kernel_record(f1, f1_clock, s2, s3, s4, device, gpu):
         replaces="qnmfits_tpu/spectrum/solver.py:60",
         launches=f1["eig_launches"],
         max_abs_err=max(r["max_abs_err"] for r in
-                        [*main.values(), where, *checks]),
+                        [*main.values(), where, *checks, *small]),
         ms=v["ms"], plain_ms=v["plain_ms"], bound_ms=v["bound_ms"],
         bound_by=v["bound_by"], library_ms=v["library_ms"],
         library="torch.linalg.eigvals of the CUDA matrices (cusolver's "
@@ -4875,7 +4923,8 @@ def eig_kernel_record(f1, f1_clock, s2, s3, s4, device, gpu):
         batch=v["batch"], n=v["n"], call_ms=v["call_ms"],
         sweeps_mean=v["sweeps_mean"], ops=v["ops"],
         rel_err=v["rel_err"], timed_by=v["timed_by"],
-        vectors=main["vectors"], fine_pass_800=where, checks=checks)
+        vectors=main["vectors"], fine_pass_800=where,
+        small_launches=small, checks=checks)
 
 
 # ---------------------------------------------------------------------------

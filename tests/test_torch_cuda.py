@@ -925,7 +925,7 @@ def test_debug_nans_sees_the_factored_kernels_output(cuda, monkeypatch):
 EIG_NLS = (1, 2, 5, 25, 28, 34, 64)
 
 
-def _eig_held(s, l, m, c, nl, variant=None):
+def _eig_held(s, l, m, c, nl, variant=None, team=None):
     """Both modes of the kernel on the CUDA c against the plain version of
     its CPU copy: eigenvalues as a set within 1e-12 max(1, ||M||_F); the
     selected eigenvalue and vector (the guess near the eigenvalue whose
@@ -941,9 +941,9 @@ def _eig_held(s, l, m, c, nl, variant=None):
     k = torch.argmax(C_all[:, sel, :].abs(), dim=1)
     guess = A_all[torch.arange(len(cc)), k] + 1e-4
     before = eig_cuda.launches
-    ev, _, _ = eig_cuda._launch(s, m, c, nl, variant=variant)
+    ev, _, _ = eig_cuda._launch(s, m, c, nl, variant=variant, team=team)
     _, A, C = eig_cuda._launch(s, m, c, nl, guess.to(c.device), sel,
-                               variant=variant)
+                               variant=variant, team=team)
     torch.cuda.synchronize()
     assert eig_cuda.launches == before + 2
     _, gap = eig_matching(ev.cpu().numpy(), eig_cuda.eigvals_plain(
@@ -968,6 +968,27 @@ def test_angular_eig_kernel_matches_plain(cuda, s, m):
             c = 5.0 * rng.random(B) * np.exp(2j * np.pi * rng.random(B))
             _eig_held(s, max(abs(s), abs(m)) + min(2, nl - 1), m,
                       torch.as_tensor(c, device=cuda), nl)
+
+
+@pytest.mark.parametrize("team", [1, 2])
+@pytest.mark.parametrize("variant", ["shared", "global"])
+@pytest.mark.parametrize("nl", [25, 28, 34])
+@pytest.mark.parametrize("B", [1, 2])
+def test_angular_eig_kernel_small_launches_match_plain(cuda, B, nl, variant,
+                                                       team):
+    """The coarse pass's launches, one and two matrices, at the solver's
+    orders under every plan the wrapper can take (shared memory, or the
+    workspace's kernel; a team of two warps a matrix, one a block, as the
+    plan takes for such launches, or one warp a matrix), c of the coarse
+    pass's kind."""
+    from qnmfits_tpu_torch.ops import eig_cuda
+    rng = np.random.default_rng(10 * nl + B)
+    c = (0.5 + rng.random(B)) * np.exp(-1j * (0.3 + rng.random(B)))
+    assert eig_cuda.plan(nl, B)["team"] == 2
+    _eig_held(-2, 5, 2, torch.as_tensor(c, device=cuda), nl, variant, team)
+    assert eig_cuda.last_plan["variant"] == variant
+    assert eig_cuda.last_plan["team"] == team
+    assert eig_cuda.last_plan["blocks"] == (1 if team == 1 else B)
 
 
 @pytest.mark.parametrize("nl,variant", [(28, "global"), (130, None)])
