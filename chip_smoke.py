@@ -9,10 +9,12 @@ flushed line each with elapsed seconds:
 1. the card's name and power limit (nvidia-smi);
 2. the build of the solve kernels (csrc/chol_solve.cu, sm_90a), the
    Leaver CF kernel (csrc/leaver_cf.cu, FP64 and double-double), the
-   factored sweep's systems and epilogue kernels (csrc/factored_sweep.cu)
-   and the angular eig kernel (csrc/angular_eig.cu), one nvcc each, started together, from this checkout into
-   build/qnmfits_tpu_torch/, and ptxas's registers and spills for each
-   instantiation (no spill allowed);
+   factored sweep's systems and epilogue kernels (csrc/factored_sweep.cu),
+   the angular eig kernel (csrc/angular_eig.cu) and the optimisers'
+   window moments kernel (csrc/window_moments.cu), one nvcc each,
+   started together, from this checkout into build/qnmfits_tpu_torch/,
+   and ptxas's registers and spills for each instantiation (no spill
+   allowed);
 3. the kernels against their plain PyTorch version on the card, on
    random batches with dead columns and padding: the team kernel at every
    n = 1..16, at B = 8208 and at batches that leave partial slabs (B = 1,
@@ -81,20 +83,24 @@ flushed line each with elapsed seconds:
    host-device copies and the rest, with the device's idle share;
 8. the optimisers at the same width, each through its public entry point
    with the launch counts read as in phase 6 and held to the count derived
-   from the code (``opt_launches``): O1 ``free_frequency_fit_array`` on
-   the (2,2) row with the overtones (2,2,n=1..3) fixed and one free mode
-   (193 bordered seeds a window, then 30 Newton steps, each a forward, a
-   backward and two Hessian passes through the solve and a trial fit); O2
-   ``calculate_epsilon_array`` on both rows with the (2,2,n<8) ladder (189
-   seed fits and 5 polished trajectories a window); O3
-   ``mismatch_omega_grid(engine='fast')``, the bordered grid, which
-   launches no solve; and the one-window L-BFGS-B paths
+   from the code (``opt_launches``), solve and window-moments launches
+   apart: O1 ``free_frequency_fit_array`` on the (2,2) row with the
+   overtones (2,2,n=1..3) fixed and one free mode (193 bordered seeds a
+   window, then 30 Newton steps, each the order-2 window moments, three
+   stacked solves for the fit and its derivatives, and a trial fit from
+   the order-0 moments); O2 ``calculate_epsilon_array`` on both rows with
+   the (2,2,n<8) ladder (189 seed fits and 5 polished trajectories a
+   window); O3 ``mismatch_omega_grid(engine='fast')``, the bordered grid,
+   which launches no solve; and the one-window L-BFGS-B paths
    ``calculate_epsilon`` and ``free_frequency_fit`` at t0 = 0, 10, 20
    (two launches an objective evaluation).  Each is held against the same
-   call with the plain solve in its forward and backward passes, and its
-   oracle (Nelder-Mead, the one-window path, or the NumPy grid); O1's and
-   O2's gradients and Hessians through both routes, their device-time
-   split, and the solve on O2's own systems;
+   call with the plain solve and the plain moments, and its oracle
+   (Nelder-Mead, the one-window path, or the NumPy grid); the moments
+   kernel against its plain version on O1's and O2's own first order-2
+   and order-0 inputs; O1's and O2's gradients and Hessians through both
+   routes and against autograd, their device-time split, the moments
+   kernel timed on O2's and O1's inputs beside its bound, its plain
+   version and batched torch.matmul, and the solve on O2's own systems;
 9. the diagnostics and the stacked spectrum grids at the same width, each
    through its public entry point with the launch counts read as in phase
    6 and held to the count derived from the code: G1
@@ -906,6 +912,12 @@ def check_build():
     log(f"ptxas, the angular eig kernel: {eig}")
     if any(r["spill_stores"] or r["spill_loads"] for r in eig.values()):
         raise RuntimeError(f"ptxas reports spills in the eig kernel: {eig}")
+    from qnmfits_tpu_torch.ops import moments_cuda
+    mom = moments_cuda.ptxas_report()
+    log(f"ptxas, the window moments kernel by its order: {mom}")
+    if any(r["spill_stores"] or r["spill_loads"] for r in mom.values()):
+        raise RuntimeError(f"ptxas reports spills in the window moments "
+                           f"kernel: {mom}")
     return regs, spill
 
 
@@ -1289,16 +1301,19 @@ def drive(fn):
     """fn() with the kernels' launch counts set to 0 just before it and
     read just after.  Returns (result, launches of both solve kernels,
     launches of the wide solve kernel, wall seconds, (launches of the
-    factored sweep's systems kernel, of its epilogue kernel)); results
-    are NumPy arrays, so the device has finished."""
-    from qnmfits_tpu_torch.ops import chol_cuda, sweep_cuda
+    factored sweep's systems kernel, of its epilogue kernel, of the window
+    moments kernel)); results are NumPy arrays, so the device has
+    finished."""
+    from qnmfits_tpu_torch.ops import chol_cuda, moments_cuda, sweep_cuda
     chol_cuda.launches = chol_cuda.wide_launches = 0
     sweep_cuda.systems_launches = sweep_cuda.epilogue_launches = 0
+    moments_cuda.launches = 0
     t = time.perf_counter()
     out = fn()
     wall = time.perf_counter() - t
     return (out, chol_cuda.launches, chol_cuda.wide_launches, wall,
-            (sweep_cuda.systems_launches, sweep_cuda.epilogue_launches))
+            (sweep_cuda.systems_launches, sweep_cuda.epilogue_launches,
+             moments_cuda.launches))
 
 
 def _diff(a, b, pre):
@@ -1561,7 +1576,7 @@ def run_specs(specs, device):
                     f"(largest {bnd:.3e})")
 
         with recorded(all_plain_check or bounded is not None) as calls:
-            mm, n, n_wide, wall, (n_sys, n_epi) = drive(spec["kernel"])
+            mm, n, n_wide, wall, (n_sys, n_epi, _) = drive(spec["kernel"])
         mm = np.asarray(mm)
         name = spec["name"]
         if not np.all(np.isfinite(mm)):
@@ -1871,6 +1886,8 @@ def _kernel_kind(name):
     low = name.lower()
     if "regularised_solve" in name:
         return "solve"
+    if "window_moments" in name:
+        return "moments"
     if "factored_systems" in name or "mismatch_rephase" in name:
         return "sweep"
     if "memcpy" in low or "memset" in low:
@@ -1916,8 +1933,8 @@ def device_split(fn, reps=2, host_ops=True):
             fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t) / reps * 1e3
-    split = dict(products=0.0, elementwise=0.0, solve=0.0, sweep=0.0,
-                 copies=0.0, rest=0.0)
+    split = dict(products=0.0, elementwise=0.0, solve=0.0, moments=0.0,
+                 sweep=0.0, copies=0.0, rest=0.0)
     kernels = copies = 0
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA or e.count == 0:
@@ -2052,44 +2069,80 @@ def _nearest(t0s, values):
 
 
 def opt_launches(problem, kind, K, J):
-    """The solve launches an array optimiser must make, derived from the
-    code: its window chunks (optimize.free_frequency_chunks /
-    epsilon_chunks over the distinct windows) times, per chunk, the seed
-    solves (none for the bordered free-frequency seeds; one per join group
-    of each of the remnant's two seed stages), one exact fit of the
-    winning seed (free frequency), 7 a Newton step (the forward, the
-    backward, two for each of the two Hessian rows, the trial fit) and 2
-    for the final gradient.  Returns (launches, forward solves, chunks)."""
-    from qnmfits_tpu_torch import engine_real, optimize
+    """The solve and window-moments launches an array optimiser must make,
+    derived from the code: its window chunks (optimize.free_frequency_
+    chunks / epsilon_chunks over the distinct windows) times, per chunk:
+    the seeds' (none for the bordered free-frequency seeds; for the
+    remnant's two seed stages one moments launch and one solve each); the
+    winning seed's exact fit (free frequency: one of each); each Newton
+    step's 4 solves from 2 moments launches (the order-2 moments, then the
+    fit C, its first derivatives and its second, each order one stacked
+    solve; the trial fit's order-0 moments and solve); and the final
+    gradient's order-1 moments and 2 solves.  The plain route makes every
+    solve through its given solve, so its solves are the launches.
+    Returns (solve launches, moments launches, chunks)."""
+    from qnmfits_tpu_torch import optimize
     t0s, maxiter = problem["t0s"], problem["opt_maxiter"]
     n_win = len(optimize._windows(problem["times"], t0s, problem["T"], "geq",
                                   True)[0])
-    launches = forward = 0
     if kind == "ff":
         chunks = optimize.free_frequency_chunks(n_win, K, J - 1)
-        for _ in chunks:
-            launches += 1 + 7 * maxiter + 2
-            forward += 1 + 2 * maxiter + 1
+        seeds = 1
     else:
         chunks = optimize.epsilon_chunks(n_win, K, J)
-        for lo, hi in chunks:
-            for items, per in optimize.epsilon_seed_items(hi - lo, K, J):
-                sizes = [min(per, items - a) for a in range(0, items, per)]
-                groups = len(engine_real.join_groups(sizes, 2 * J * J * 16))
-                launches += groups
-                forward += groups
-            launches += 7 * maxiter + 2
-            forward += 2 * maxiter + 1
-    return launches, forward, len(chunks)
+        seeds = 2
+    solves = (seeds + 4 * maxiter + 2) * len(chunks)
+    moments = (seeds + 2 * maxiter + 1) * len(chunks)
+    return solves, moments, len(chunks)
+
+
+@contextlib.contextmanager
+def plain_moments():
+    """Inside it the array optimisers' window moments run their plain
+    PyTorch version on the card (with a PlainSolve, every stage of an
+    optimiser's fits is plain).  The port never does that itself; this
+    script swaps the module's function for the comparison and puts it
+    back."""
+    from qnmfits_tpu_torch.ops import moments_cuda
+    saved = moments_cuda.window_moments
+    moments_cuda.window_moments = moments_cuda.window_moments_plain
+    try:
+        yield
+    finally:
+        moments_cuda.window_moments = saved
+
+
+@contextlib.contextmanager
+def recording_moments():
+    """Keeps the arguments of the first call of the window moments at each
+    order made inside it ({order: args}); the calls themselves are
+    unchanged."""
+    from qnmfits_tpu_torch.ops import moments_cuda
+    calls = {}
+    saved = moments_cuda.window_moments
+
+    def call(*args):
+        calls.setdefault(args[-1], args)
+        return saved(*args)
+
+    moments_cuda.window_moments = call
+    try:
+        yield calls
+    finally:
+        moments_cuda.window_moments = saved
 
 
 def opt_gradients(problem, device, kind, x, n_check=64):
-    """The objective's gradient and Hessian (optimize._grad) through the
-    kernel route against the plain route, on the first n_check distinct
-    windows with t0 >= 0: the largest relative differences 0.01 off their
-    optimum x (in both parameters), and at x, where the gradient is a
-    cancellation to ~0, the gradient's difference as a step,
-    max |d g| / max |H|.  Returns (grad_rel, hess_rel, grad_step)."""
+    """The objective's gradient and Hessian (``optimize._fit_derivs``, the
+    window moments and the implicit solve) through the kernel route (the
+    moments kernel and the solve kernel) against the plain route (their
+    plain versions), and against autograd through the kernel solve
+    (``optimize._grad``), on the first n_check distinct windows with t0 >=
+    0: the largest relative differences 0.01 off their optimum x (in both
+    parameters), and at x, where the gradient is a cancellation to ~0, the
+    gradient's difference between the routes as a step, max |d g| / max
+    |H|.  Returns dict(grad_rel, hess_rel, grad_step, autograd_grad_rel,
+    autograd_hess_rel)."""
     import torch
     from qnmfits_tpu_torch import engine_real, optimize
     from qnmfits_tpu_torch.engine import cached_evaluator
@@ -2114,14 +2167,24 @@ def opt_gradients(problem, device, kind, x, n_check=64):
                         ("plain", engine_real._regularised_solve_plain)):
         prob = optimize._Problem(problem["times"], rows, t0s[keep], Ts[keep],
                                  "geq", dev, solve)
-        out[name] = [optimize._grad(lambda y: prob.mm(*spectrum(y), win),
-                                    xt + shift, hessian=True)
-                     for shift in (0.01, 0.0)]
+        with plain_moments() if name == "plain" else contextlib.nullcontext():
+            out[name] = [optimize._fit_derivs(prob, spectrum, xt + shift,
+                                              win, 2)[1:]
+                         for shift in (0.01, 0.0)]
+        if name == "kernel":
+            out["autograd"] = optimize._grad(
+                lambda y: prob.mm(*spectrum(y), win), xt + 0.01,
+                hessian=True)
     (g, H), (g0, H0) = out["kernel"]
     (gp, Hp), (gp0, _) = out["plain"]
-    return (float((g - gp).abs().max() / gp.abs().max()),
-            float((H - Hp).abs().max() / Hp.abs().max()),
-            float((g0 - gp0).abs().max() / H0.abs().max()))
+    ga, Ha = out["autograd"]
+
+    def rel(a, b):
+        return float((a - b).abs().max() / b.abs().max())
+
+    return dict(grad_rel=rel(g, gp), hess_rel=rel(H, Hp),
+                grad_step=float((g0 - gp0).abs().max() / H0.abs().max()),
+                autograd_grad_rel=rel(g, ga), autograd_hess_rel=rel(H, Ha))
 
 
 def optimiser_specs(problem, device):
@@ -2170,11 +2233,11 @@ def optimiser_specs(problem, device):
                                "Nelder-Mead")
         return gaps
 
-    ff_l, ff_f, ff_c = opt_launches(problem, "ff", K, len(OPT_FIXED) + 1)
+    ff_l, ff_m, ff_c = opt_launches(problem, "ff", K, len(OPT_FIXED) + 1)
     specs.append(dict(
         key="o1", name=f"O1 free_frequency_fit_array, (2,2) row, "
-        f"{len(OPT_FIXED)} fixed + 1 free", expect=ff_l, forward=ff_f,
-        chunks=ff_c, kind="ff",
+        f"{len(OPT_FIXED)} fixed + 1 free", expect=ff_l, forward=ff_l,
+        moments=ff_m, chunks=ff_c, kind="ff",
         kernel=lambda: tq.free_frequency_fit_array(times, row, t0s, **ff_kw),
         plain=lambda solve: optimize.free_frequency_fit_array(
             times, row, t0s, solve=solve, **ff_kw), check=ff_check))
@@ -2197,11 +2260,11 @@ def optimiser_specs(problem, device):
                                "one-window calculate_epsilon")
         return gaps
 
-    eps_l, eps_f, eps_c = opt_launches(problem, "eps", K, len(deep))
+    eps_l, eps_m, eps_c = opt_launches(problem, "eps", K, len(deep))
     specs.append(dict(
         key="o2", name=f"O2 calculate_epsilon_array, both rows, "
-        f"(2,2,n<{len(deep)})", expect=eps_l, forward=eps_f, chunks=eps_c,
-        kind="eps",
+        f"(2,2,n<{len(deep)})", expect=eps_l, forward=eps_l, moments=eps_m,
+        chunks=eps_c, kind="eps",
         kernel=lambda: tq.calculate_epsilon_array(times, data, deep, MF, CHIF,
                                                   t0s, **eps_kw),
         plain=lambda solve: optimize.calculate_epsilon_array(
@@ -2267,33 +2330,202 @@ def optimiser_specs(problem, device):
     return specs
 
 
+MOMENTS_RTOL = 1e-12     # moments kernel vs plain, of a moment's largest entry
+MOMENTS_TIMED_BY = dict(
+    ms="CUDA events around 20 back-to-back launches of the kernel's C "
+       "entry (moments_cuda._launch) on preallocated outputs",
+    call_ms="CUDA events around back-to-back wrapper calls (the windows' "
+            "bounds and the outputs' allocation included)",
+    plain_ms="CUDA events around back-to-back plain-version calls",
+    library_ms="CUDA events around the 2 (order + 1) batched torch.matmul "
+               "pairs of the same moments (A^H phi and h conj(A) for each "
+               "weighted design A) from designs materialised beforehand: "
+               "the designs' build is excluded")
+
+
+def moments_gap(args):
+    """The window moments kernel against its plain version on the same
+    inputs ``args`` (a recorded call): for each moment (S or P, weight v,
+    power p) the largest |difference| over the moment's largest entry
+    (over the batch), the largest of these (rel), the largest |difference|
+    (max_abs) and the batch (M)."""
+    from qnmfits_tpu_torch.ops import moments_cuda
+    S, P = moments_cuda.window_moments(*args)
+    Sp, Pp = moments_cuda.window_moments_plain(*args)
+    rel = max_abs = 0.0
+    for a, b in ((S, Sp), (P, Pp)):
+        for v in range(2):
+            for p in range(a.shape[2]):
+                d = float((a[:, v, p] - b[:, v, p]).abs().max())
+                rel = max(rel, d / float(b[:, v, p].abs().max()))
+                max_abs = max(max_abs, d)
+    return dict(rel=rel, max_abs=max_abs, M=int(args[2].shape[0]))
+
+
+def moments_bound(count, win, K, N, I, J, order):
+    """(FP64 operations, bytes) of the window moments kernel on these
+    inputs.  Operations, of its own loops: a (trajectory, window sample,
+    entry) its conj product (6) and its 2 (order + 1) weighted sums (4
+    each); a (trajectory, sample, mode) its phase (4 products, the exp and
+    the sincos one operation each); a (trajectory, sample) its 2 (order +
+    1) weights; count (N,) the windows' sample counts, win (M,) the
+    trajectories' windows.  Bytes: each input read once (times, rows,
+    omega, t0s, tau, the windows' bounds and win), each output written
+    once (S and P)."""
+    nw = 2 * (order + 1)
+    M = win.shape[0]
+    samples = int(count[win].sum())
+    flops = samples * ((J * (J + 1) // 2 + I * J) * (6 + 4 * nw) + 6 * J
+                       + nw)
+    nbytes = (8 * K + 16 * I * K + 16 * M * J + 8 * N + 8 * N * K + 16 * N
+              + 8 * M + 16 * M * nw * (J * J + I * J))
+    return flops, nbytes
+
+
+def moments_library_ms(args):
+    """``MOMENTS_TIMED_BY['library_ms']`` on the inputs ``args``."""
+    import torch
+    from qnmfits_tpu_torch.ops.cmath import damped_phase
+    times, rows, omega, t0s, w, tau, win, order = args
+    wm = w[win]
+    s = (times - t0s[win][:, None]) * wm
+    phi = damped_phase(omega[:, None, :], s[..., None])
+    powers = [torch.ones_like(s), s, s * s][:order + 1]
+    mats = []
+    for vw in (wm, tau[win]):
+        for sp in powers:
+            a = phi * (vw * sp)[..., None]
+            mats.append((a, a.conj().resolve_conj()))
+    del s, wm
+
+    def library():
+        for a, ac in mats:
+            torch.matmul(a.mH, phi)
+            torch.matmul(rows, ac)
+
+    return event_ms(library, reps=5)
+
+
+def moments_timing(args):
+    """The moments kernel's ms, call_ms and plain_ms (``MOMENTS_TIMED_BY``)
+    and its bound on the inputs ``args``."""
+    import torch
+    from qnmfits_tpu_torch.ops import moments_cuda
+    times, rows, omega, t0s, w, tau, win, order = args
+    first, count = (b.to(torch.int32)
+                    for b in moments_cuda.window_bounds(w))
+    S, P = moments_cuda.window_moments(*args)
+    I, K = rows.shape
+    M, J = omega.shape
+    rec = dict(
+        M=M, order=order,
+        ms=event_ms(lambda: moments_cuda._launch(
+            times, rows, omega, t0s, tau, first, count, win, S, P, order)),
+        call_ms=event_ms(lambda: moments_cuda.window_moments(*args)),
+        plain_ms=event_ms(lambda: moments_cuda.window_moments_plain(*args),
+                          reps=3))
+    flops, nbytes = moments_bound(count.long(), win, K, t0s.shape[0], I, J,
+                                  order)
+    ops_ms = flops / FP64_FLOP_PER_S * 1e3
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    rec.update(flops=flops, bytes=nbytes, bound_ms=max(ops_ms, bytes_ms),
+               bound_by="operations" if ops_ms >= bytes_ms else "bytes")
+    rec["bound_share"] = rec["bound_ms"] / rec["ms"]
+    return rec
+
+
+def measure_moments(moments, records, gpu):
+    """The window moments kernel's JSON record: timed on O2's first
+    Newton step's order-2 inputs (2565 trajectories; with library_ms) and
+    on its first seed stage's order-0 inputs, and on O1's order-2 inputs;
+    its registers, its launches on phase 8's O1 and O2, and its largest
+    gap from the plain version on their own inputs."""
+    from qnmfits_tpu_torch.ops import moments_cuda
+    timed = {}
+    for key, order in (("o2", 2), ("o2", 0), ("o1", 2)):
+        r = timed[f"{key}_order{order}"] = moments_timing(
+            moments[(key, order)]["args"])
+        if (key, order) == ("o2", 2):
+            r["library_ms"] = moments_library_ms(moments[(key, order)]["args"])
+        log(f"window moments kernel on {key}'s order-{order} inputs "
+            f"({r['M']} trajectories) on {gpu}: {r['ms']:.4f} ms (call "
+            f"{r['call_ms']:.4f} ms), bound {r['bound_ms']:.3e} ms "
+            f"({r['bound_by']}, {r['flops']:.3e} FP64 operations), share "
+            f"{r['bound_share']:.3f}; plain {r['plain_ms']:.4f} ms"
+            + (f"; batched torch.matmul from built designs "
+               f"{r['library_ms']:.4f} ms" if "library_ms" in r else ""))
+    main = timed["o2_order2"]
+    by_key = {r["key"]: r for r in records}
+    report = moments_cuda.ptxas_report()
+    return dict(
+        name="window_moments", route="cuda",
+        source="qnmfits_tpu_torch/csrc/window_moments.cu",
+        replaces="qnmfits_tpu/optimize.py:177",
+        launches=by_key["o2"]["moments_launches"],
+        launches_o1=by_key["o1"]["moments_launches"],
+        max_abs_err=max(m["max_abs"] for m in moments.values()),
+        max_rel_err=max(m["rel"] for m in moments.values()),
+        ms=main["ms"], plain_ms=main["plain_ms"],
+        bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+        library_ms=main["library_ms"], bound_share=main["bound_share"],
+        call_ms=main["call_ms"], timed_by=MOMENTS_TIMED_BY,
+        shapes={k: {x: v for x, v in r.items()} for k, r in timed.items()},
+        registers={k: r["registers"] for k, r in report.items()})
+
+
 def run_optimisers(problem, device, gpu=None):
     """Phase 8: drive each optimiser path through its public entry point
     with the launch counts read as in phase 6, check the launches against
     the derived counts (the one-window paths: twice their objective
     evaluations), hold each against its plain route and its oracle, and
-    on the card check the objectives' gradients and Hessians through both
-    routes, split each array optimiser's device time and time the solve on
-    O2's own systems.  Returns (path records, O2's solve timings)."""
+    on the card hold the window moments kernel to its plain version on
+    O1's and O2's own first order-2 and order-0 inputs, check the
+    objectives' gradients and Hessians through both routes and against
+    autograd, split each array optimiser's device time and time the
+    moments kernel and the solve on O2's own inputs.  Returns (path
+    records, O2's solve timings, the phase's wall, the moments kernel's
+    JSON record or None on the CPU)."""
     from qnmfits_tpu_torch import optimize
     t = time.perf_counter()
-    records, solves = [], {}
+    records, solves, moments = [], {}, {}
     for spec in optimiser_specs(problem, device):
         optimize.evaluations = 0
-        out, n, n_wide, wall, _ = drive(spec["kernel"])
+        with recording_moments() as mom_args:
+            out, n, n_wide, wall, (_, _, n_mom) = drive(spec["kernel"])
         expect = (2 * optimize.evaluations if spec["expect"] is None
                   else spec["expect"])
         rec = dict(key=spec["key"], name=spec["name"], launches=n,
                    wide_launches=n_wide, expected_launches=expect,
+                   moments_launches=n_mom,
+                   expected_moments_launches=spec.get("moments", 0),
                    chunks=spec["chunks"], wall_s=wall)
-        if device != "cpu" and (n, n_wide) != (expect, 0):
-            raise RuntimeError(f"{spec['name']}: {n} launches ({n_wide} "
-                               f"wide), derived {expect}")
+        if device != "cpu" and (n, n_wide, n_mom) != (
+                expect, 0, rec["expected_moments_launches"]):
+            raise RuntimeError(f"{spec['name']}: {n} solve launches "
+                               f"({n_wide} wide) and {n_mom} moments "
+                               f"launches, derived {expect} and "
+                               f"{rec['expected_moments_launches']}")
+        if device != "cpu" and spec["key"] in ("o1", "o2"):
+            for order in (2, 0):
+                gap = moments_gap(mom_args[order])
+                rec[f"moments_rel_order{order}"] = gap["rel"]
+                moments[(spec["key"], order)] = dict(gap,
+                                                     args=mom_args[order])
+                log(f"  window moments kernel vs plain on {spec['key']}'s "
+                    f"first order-{order} inputs ({gap['M']} "
+                    f"trajectories): {gap['rel']:.3e} of each moment's "
+                    f"largest entry (bound {MOMENTS_RTOL:.0e}), largest "
+                    f"|difference| {gap['max_abs']:.3e}")
+                if not gap["rel"] <= MOMENTS_RTOL:
+                    raise RuntimeError(f"{spec['name']}: the moments kernel "
+                                       f"and its plain version differ by "
+                                       f"{gap['rel']:.3e}")
         plain = None
         if spec["plain"] is not None:
             plain = PlainSolve()
             t_p = time.perf_counter()
-            out_p = spec["plain"](plain)
+            with plain_moments():
+                out_p = spec["plain"](plain)
             rec["plain_wall_s"] = time.perf_counter() - t_p
             calls = len(plain.systems)
             if spec["forward"] is not None and calls != spec["forward"]:
@@ -2316,14 +2548,18 @@ def run_optimisers(problem, device, gpu=None):
             x = (np.stack([out[0].real, out[0].imag], 1) if spec["key"] == "o1"
                  else np.stack([out[1], out[2]], 1))
             x = _distinct(problem, x)
-            rec["grad_rel"], rec["hess_rel"], rec["grad_step"] = \
-                opt_gradients(problem, device, spec["kind"], x)
-            if not (rec["grad_rel"] <= GRAD_RTOL
-                    and rec["hess_rel"] <= GRAD_RTOL):
+            rec.update(opt_gradients(problem, device, spec["kind"], x))
+            worst = max(rec[k] for k in ("grad_rel", "hess_rel",
+                                         "autograd_grad_rel",
+                                         "autograd_hess_rel"))
+            if not worst <= GRAD_RTOL:
                 raise RuntimeError(f"{spec['name']}: gradient or Hessian "
-                                   "through the kernel and the plain route "
-                                   f"differ: {rec['grad_rel']:.3e}, "
-                                   f"{rec['hess_rel']:.3e}")
+                                   "through the kernel route, the plain "
+                                   "route and autograd differ: "
+                                   f"{rec['grad_rel']:.3e}, "
+                                   f"{rec['hess_rel']:.3e}, "
+                                   f"{rec['autograd_grad_rel']:.3e}, "
+                                   f"{rec['autograd_hess_rel']:.3e}")
             rec["split"] = device_split(spec["kernel"], reps=1,
                                         host_ops=False)
         if device != "cpu" and spec["key"] == "o2":
@@ -2347,8 +2583,10 @@ def run_optimisers(problem, device, gpu=None):
         if "grad_rel" in rec:
             log(f"  gradient / Hessian kernel vs plain route, 0.01 off the "
                 f"optimum: {rec['grad_rel']:.3e} / {rec['hess_rel']:.3e} "
-                f"relative (bound {GRAD_RTOL:.0e}); at the optimum the "
-                f"gradient's difference as a step {rec['grad_step']:.3e}")
+                f"relative, vs autograd {rec['autograd_grad_rel']:.3e} / "
+                f"{rec['autograd_hess_rel']:.3e} (bound {GRAD_RTOL:.0e}); "
+                f"at the optimum the gradient's difference as a step "
+                f"{rec['grad_step']:.3e}")
         split = rec.get("split")
         if split is not None:
             log(f"  device-time split: warm wall {split['wall_ms']:.1f} ms "
@@ -2358,13 +2596,17 @@ def run_optimisers(problem, device, gpu=None):
                 f"{split['peak_gib']:.2f} GiB; {split['kernels']} kernels: "
                 f"products {split['products_ms']:.2f}, elementwise "
                 f"{split['elementwise_ms']:.2f}, solve "
-                f"{split['solve_ms']:.3f}, factored kernels "
+                f"{split['solve_ms']:.3f}, moments kernel "
+                f"{split['moments_ms']:.3f}, factored kernels "
                 f"{split['sweep_ms']:.3f}, copies {split['copies_ms']:.2f}, "
                 f"rest {split['rest_ms']:.2f} ms")
         records.append(rec)
+    record = None
+    if device != "cpu":
+        record = measure_moments(moments, records, gpu)
     wall = time.perf_counter() - t
     log(f"phase 8: {len(records)} paths in {wall:.1f} s")
-    return records, solves, wall
+    return records, solves, wall, record
 
 
 def _distinct(problem, x):
@@ -4997,8 +5239,9 @@ def mesh_specs(problem, device):
     and the time-sharded fit, the mesh function) with that mesh, or with
     mesh=None, the reference, returning a dict of NumPy arrays; ``gates``,
     (field, bound for t0 >= 0, bound for t0 < 0, the t0 < 0 mask or
-    None); ``expect(n_sweep)``, the launches each rank must make on the
-    card."""
+    None); ``expect(n_sweep)``, the solve launches each rank must make on
+    the card, and ``expect_moments(n_sweep)`` its window moments launches
+    (none but on the optimisers' paths)."""
     import torch
     import qnmfits_tpu_torch as tq
     from qnmfits_tpu_torch import batched, engine, engine_real
@@ -5009,9 +5252,10 @@ def mesh_specs(problem, device):
     pre = t0s < 0
     specs = []
 
-    def add(key, name, n4, call, gates, expect):
+    def add(key, name, n4, call, gates, expect, expect_moments=None):
         specs.append(dict(key=key, name=name, n4=n4, call=call, gates=gates,
-                          expect=expect))
+                          expect=expect,
+                          expect_moments=expect_moments or (lambda n: 0)))
 
     # The main path, with and without dedup.
     omegas, _ = batched._modesets_spectrum_fn(
@@ -5103,18 +5347,22 @@ def mesh_specs(problem, device):
             mesh=mesh, device=device)
         return dict(mm=mm, x=np.stack([Mf, chif], 1), ok=ok)
 
-    def opt_expect(kind, ts, J_o):
+    def opt_expect(kind, ts, J_o, which):
         def expect(n):
             # The same on every rank: each holds a block of one size.
             blk = _block_size(len(ts), n)
             sub = dict(problem, t0s=ts[:blk])
-            return opt_launches(sub, kind, K, J_o)[0]
+            return opt_launches(sub, kind, K, J_o)[which]
         return expect
 
-    add("o1", f"O1 free_frequency_fit_array(mesh=), {len(t0_o1)} windows",
-        None, o1, opt_gates, opt_expect("ff", t0_o1, len(OPT_FIXED) + 1))
-    add("o2", f"O2 calculate_epsilon_array(mesh=), {len(t0_o2)} windows",
-        None, o2, opt_gates, opt_expect("eps", t0_o2, len(deep)))
+    for key, kind, ts, J_o, call in (
+            ("o1", "ff", t0_o1, len(OPT_FIXED) + 1, o1),
+            ("o2", "eps", t0_o2, len(deep), o2)):
+        entry = ("free_frequency_fit_array" if kind == "ff"
+                 else "calculate_epsilon_array")
+        add(key, f"{key.upper()} {entry}(mesh=), {len(ts)} windows", None,
+            call, opt_gates, opt_expect(kind, ts, J_o, 0),
+            opt_expect(kind, ts, J_o, 1))
 
     # Both axes live, on the (2, 2) mesh of the four-rank layout.
     def two_d(analytic):
@@ -5181,8 +5429,9 @@ def mesh_rank(layout, device, build_kw):
     out = {}
     for s in specs:
         mesh = meshes[(1, 1) if layout == "N1" else s["n4"]]
-        res, n, _, wall, _ = drive(lambda: s["call"](mesh))
-        out[s["key"]] = dict(res=res, launches=n, wall=wall)
+        res, n, _, wall, (_, _, n_mom) = drive(lambda: s["call"](mesh))
+        out[s["key"]] = dict(res=res, launches=n, moments_launches=n_mom,
+                             wall=wall)
     jax = sorted(m for m in sys.modules
                  if m.split(".")[0] in ("jax", "jaxlib", "qnmfits_tpu"))
     return dict(rank=dist.get_rank(), backend=dist.get_backend(), out=out,
@@ -5223,6 +5472,8 @@ def run_mesh(problem, device, gpu=None):
                 continue
             n_sweep = 1 if layout == "N1" else s["n4"][0]
             expect = s["expect"](n_sweep) if device != "cpu" else 0
+            expect_m = (s["expect_moments"](n_sweep) if device != "cpu"
+                        else 0)
             ref, _, _, ref_wall, _ = refs[s["key"]]
             got = [rk["out"][s["key"]] for rk in ranks]
             gaps = {}
@@ -5240,16 +5491,22 @@ def run_mesh(problem, device, gpu=None):
                         f"{gaps[f'{field}_pre']:.3e} (t0 < 0; bound "
                         f"{tol_pre}) from mesh=None")
             launches = [g["launches"] for g in got]
-            if launches != [expect] * world:
+            moments = [g["moments_launches"] for g in got]
+            if launches != [expect] * world or moments != [expect_m] * world:
                 raise RuntimeError(f"{layout} {s['name']}: launches by rank "
-                                   f"{launches}, derived {expect} each")
+                                   f"{launches} and moments launches "
+                                   f"{moments}, derived {expect} and "
+                                   f"{expect_m} each")
             paths[s["key"]] = dict(
                 name=s["name"], mesh=[n_sweep, world // n_sweep],
                 wall_s=[g["wall"] for g in got], ref_wall_s=ref_wall,
-                launches=launches, expected_launches=expect, gaps=gaps)
+                launches=launches, expected_launches=expect,
+                moments_launches=moments, expected_moments_launches=expect_m,
+                gaps=gaps)
             log(f"phase 13 {layout} {s['name']} on a "
                 f"{tuple(paths[s['key']]['mesh'])} mesh: launches by rank "
-                f"{launches} (derived {expect}), gaps from mesh=None "
+                f"{launches} (derived {expect}), moments {moments} "
+                f"(derived {expect_m}), gaps from mesh=None "
                 + ", ".join(f"{k} {v:.3e}" for k, v in gaps.items())
                 + f"; {max(g['wall'] for g in got):.2f} s (mesh=None "
                 f"{ref_wall:.2f} s)")
@@ -5271,7 +5528,8 @@ def main():
         return 2
     sys.path.insert(0, ROOT)
     from concurrent.futures import ThreadPoolExecutor
-    from qnmfits_tpu_torch.ops import cf_cuda, chol_cuda, eig_cuda, sweep_cuda
+    from qnmfits_tpu_torch.ops import (cf_cuda, chol_cuda, eig_cuda,
+                                       moments_cuda, sweep_cuda)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -5285,9 +5543,10 @@ def main():
 
     # One nvcc for each source, started together.
     t = time.perf_counter()
-    with ThreadPoolExecutor(4) as pool:
+    with ThreadPoolExecutor(5) as pool:
         libs = list(pool.map(lambda mod: mod.build(),
-                             (chol_cuda, cf_cuda, sweep_cuda, eig_cuda)))
+                             (chol_cuda, cf_cuda, sweep_cuda, eig_cuda,
+                              moments_cuda)))
     log(f"built {', '.join(os.path.relpath(lib, ROOT) for lib in libs)} in "
         f"{time.perf_counter() - t:.2f} s (sm_90a, in parallel)")
     build = check_build()
@@ -5322,8 +5581,8 @@ def main():
         rec["dynamic_paths"] = {
             k: {x: r[x] for x in keys if x in r} for k, r in solves.items()
             if (r["n"] > chol_cuda.TEAM_MAX_N) == (rec is wide)}
-    optimisers, opt_solves, phase8_wall = run_optimisers(problem, device,
-                                                         gpu)
+    optimisers, opt_solves, phase8_wall, moments = run_optimisers(
+        problem, device, gpu)
     record["optimiser_paths"] = {
         p["key"]: dict(launches=p["launches"],
                        expected_launches=p["expected_launches"])
@@ -5365,8 +5624,8 @@ def main():
                       "phase11_wall_s": phase11_wall,
                       "phase12_wall_s": phase12_wall}), flush=True)
     print(json.dumps({"mesh": mesh}), flush=True)
-    print(json.dumps({"kernels": [record, wide, *factored, *cf_records]}),
-          flush=True)
+    print(json.dumps({"kernels": [record, wide, *factored, *cf_records,
+                                  moments]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -101,17 +101,49 @@ class SpectrumEvaluator:
                 np.asarray(getattr(self, name)), device=device)
         return self._on_device[key]
 
-    def _spline_t(self, name, chif):
+    def _spline_t(self, name, chif, order=0):
         """Packed coefficients ``name`` (..., P-1, 4) at spins chif (N,):
         the segment searchsorted(grid, chif, side='right') - 1, clipped to
         the table, and Horner's rule in dx = chif - grid[i], so the
-        derivative is the cubic's on that segment.  Returns (..., N)."""
+        derivative is the cubic's on that segment.  Returns (..., N); with
+        ``order`` 1 or 2 also that cubic's first ``order`` derivatives in
+        chif, stacked on a new leading axis: (order + 1, ..., N)."""
         grid = self._const("chi_grid", chif.device)
         i = torch.clamp(torch.searchsorted(grid, chif.detach(), right=True)
                         - 1, 0, grid.shape[0] - 2)
         dx = chif - grid[i]
         c = self._const(name, chif.device)[..., i, :]
-        return ((c[..., 0] * dx + c[..., 1]) * dx + c[..., 2]) * dx + c[..., 3]
+        v = ((c[..., 0] * dx + c[..., 1]) * dx + c[..., 2]) * dx + c[..., 3]
+        if not order:
+            return v
+        dx = dx.to(c.dtype)
+        parts = [v, (3.0 * c[..., 0] * dx + 2.0 * c[..., 1]) * dx + c[..., 2]]
+        if order == 2:
+            parts.append(6.0 * c[..., 0] * dx + 2.0 * c[..., 1])
+        return torch.stack(parts)
+
+    def _omega_of(self, w, delta_factor):
+        """The mirror, nonlinear-sum and (J,) perturbation-factor logic on
+        spline values w (..., J, Kc, N) -> (..., J, N); linear in w, so it
+        maps the spline's chif-derivatives to omega's."""
+        dev = w.device
+        w = torch.where(self._const("signs", dev)[..., None] > 0, w,
+                        -w.conj())
+        w = torch.where(self._const("mask", dev)[..., None], w,
+                        torch.zeros((), dtype=w.dtype, device=dev)).sum(dim=-2)
+        if delta_factor is not None:
+            df = torch.as_tensor(np.asarray(delta_factor, float), device=dev)
+            w = w * (df[:, None] if df.ndim else df)
+        return w
+
+    def _mu_of(self, mu):
+        """The sign, parity and structural-zero logic of ``mu`` on spline
+        values mu (..., I, J, N); linear in mu."""
+        dev = mu.device
+        mu = torch.where(self._const("mu_signs", dev)[..., None] > 0, mu,
+                         self._const("mu_parity", dev)[..., None] * mu.conj())
+        return torch.where(self._const("mu_nonzero", dev)[..., None], mu,
+                           torch.zeros((), dtype=mu.dtype, device=dev))
 
     def omega_t(self, chif, Mf, delta_factor=None):
         """(N, J) frequencies at spins chif (N,) and masses Mf (N,) or a
@@ -119,28 +151,30 @@ class SpectrumEvaluator:
         nonlinear-sum and (J,) perturbation-factor logic of ``omega``.
         Spins are not range-checked (the callers clip them)."""
         w = self._spline_t("omega_coeffs", chif)                # (J, Kc, N)
-        dev = chif.device
-        w = torch.where(self._const("signs", dev)[..., None] > 0, w,
-                        -w.conj())
-        w = torch.where(self._const("mask", dev)[..., None], w,
-                        torch.zeros((), dtype=w.dtype, device=dev)).sum(dim=1)
-        if delta_factor is not None:
-            df = torch.as_tensor(np.asarray(delta_factor, float), device=dev)
-            w = w * (df[:, None] if df.ndim else df)
-        return (w / Mf).T
+        return (self._omega_of(w, delta_factor) / Mf).T
 
     def mu_t(self, chif):
         """(N, I, J) mixing coefficients at spins chif (N,), a float64
         tensor, differentiable; the logic of ``mu``."""
         if self.mu_coeffs is None:
             raise ValueError("no spherical_modes were compiled")
-        dev = chif.device
         mu = self._spline_t("mu_coeffs", chif)                  # (I, J, N)
-        mu = torch.where(self._const("mu_signs", dev)[..., None] > 0, mu,
-                         self._const("mu_parity", dev)[..., None] * mu.conj())
-        mu = torch.where(self._const("mu_nonzero", dev)[..., None], mu,
-                         torch.zeros((), dtype=mu.dtype, device=dev))
-        return mu.permute(2, 0, 1)
+        return self._mu_of(mu).permute(2, 0, 1)
+
+    def omega_chi_t(self, chif, order, delta_factor=None):
+        """(order + 1, N, J): the frequencies at unit mass at spins chif
+        (N,) and their first ``order`` (1 or 2) derivatives in chif, the
+        spline's own on its segment (``_spline_t``)."""
+        w = self._spline_t("omega_coeffs", chif, order)   # (o+1, J, Kc, N)
+        return self._omega_of(w, delta_factor).transpose(-2, -1)
+
+    def mu_chi_t(self, chif, order):
+        """(order + 1, N, I, J): the mixing coefficients at spins chif (N,)
+        and their first ``order`` (1 or 2) derivatives in chif."""
+        if self.mu_coeffs is None:
+            raise ValueError("no spherical_modes were compiled")
+        mu = self._spline_t("mu_coeffs", chif, order)     # (o+1, I, J, N)
+        return self._mu_of(mu).permute(0, 3, 1, 2)
 
     def _check(self, chif):
         if np.ndim(chif) == 0:

@@ -11,8 +11,8 @@ import numpy as np
 from .engine import SpectrumEvaluator
 
 __all__ = ["bench_mode_sets", "eig_matching", "random_factored_sweep",
-           "random_hermitian_systems", "run_world", "synthetic_multimode",
-           "synthetic_single"]
+           "random_hermitian_systems", "random_window_moments", "run_world",
+           "synthetic_multimode", "synthetic_single"]
 
 
 def default_time_grid(t_min=-50.0, t_max=150.0, dt=0.1):
@@ -191,6 +191,36 @@ def random_factored_sweep(K, I, S, J, B, seed=0, n_pad=0, layout="random"):
     order = np.argsort(t0s, kind="stable")
     return dict(times=times, data=data, omegas=omegas, mus=mus,
                 col_masks=masks, t0s=t0s[order], Ts=Ts[order])
+
+
+def random_window_moments(K, N, M, I, J, seed=0, uniform=True):
+    """Inputs of the window moments (numpy): times (K,) from -5 in steps
+    of 0.1 (``uniform``) or of 0.05-0.15 drawn at random, data rows (I, K),
+    M trajectories' damped omega (M, J) and windows win (M,) among N
+    'geq' windows (t0s, Ts (N,)) anywhere on the grid up to a fifth of it
+    long; among them (N >= 4) one too short to hold a sample, one that
+    starts past the grid (empty), one that runs off the grid's end and one
+    of one sample, and every window has a trajectory."""
+    rng = np.random.default_rng(seed)
+    steps = (np.full(K - 1, 0.1) if uniform
+             else rng.uniform(0.05, 0.15, K - 1))
+    times = -5.0 + np.concatenate([[0.0], np.cumsum(steps)])
+    span = times[-1] - times[0]
+    data = rng.standard_normal((I, K)) + 1j * rng.standard_normal((I, K))
+    omega = rng.uniform(0.2, 1.5, (M, J)) - 1j * rng.uniform(0.02, 0.6,
+                                                              (M, J))
+    t0s = rng.uniform(times[0], times[-1], N)
+    Ts = rng.uniform(min(0.5, 0.1 * span), 0.2 * span, N)
+    if N >= 4:
+        k = K // 3
+        t0s[0], Ts[0] = times[k] + 0.01, 0.01 * (times[k + 1] - times[k])
+        t0s[1] = times[-1] + 1.0
+        t0s[2], Ts[2] = times[-1] - 0.35, 50.0
+        t0s[3], Ts[3] = times[k], 0.5 * (times[k + 1] - times[k])
+    win = np.concatenate([np.arange(min(N, M)),
+                          rng.integers(0, N, max(M - N, 0))])
+    return dict(times=times, data=data, omega=omega, t0s=t0s, Ts=Ts,
+                win=rng.permutation(win))
 
 
 def _rank_main(fn, rank, world, backend, tmp, args):

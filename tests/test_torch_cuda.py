@@ -266,15 +266,20 @@ def test_optimiser_paths_through_kernel_match_plain(cuda):
     """chip_smoke.py's phase 8 at a small size: O1-O3 and the one-window
     L-BFGS-B paths, each with the launches derived from the code, held
     against its plain route and its oracle, with O1's and O2's gradients
-    and Hessians through both routes."""
+    and Hessians through both routes and autograd, and the window moments
+    kernel held to its plain version on their own inputs."""
     import chip_smoke
     problem = chip_smoke.build_problem(**chip_smoke.SMALL)
-    paths, solves, _ = chip_smoke.run_optimisers(problem, "cuda")
+    paths, solves, _, moments = chip_smoke.run_optimisers(problem, "cuda")
     assert [p["key"] for p in paths] == ["o1", "o2", "o3", "single"]
     assert [p["launches"] == p["expected_launches"] for p in paths] == [
         True] * 4
+    assert [p["moments_launches"] == p["expected_moments_launches"]
+            for p in paths] == [True] * 4
     assert paths[2]["launches"] == 0 and paths[0]["launches"] > 0
+    assert paths[0]["moments_launches"] > 0 and paths[1]["moments_launches"]
     assert solves
+    assert moments["max_rel_err"] <= chip_smoke.MOMENTS_RTOL
 
 
 SPH_CUDA = [(2, 2), (3, 2)]
@@ -1084,3 +1089,153 @@ def test_angular_eig_kernel_counts_operations(cuda):
                for k in range(n - 2))
     sweeps = info[:, 1] - hess
     assert np.all(sweeps % 20 == 0) and np.all(sweeps >= 80 * info[:, 0])
+
+
+# ---------------------------------------------------------------------------
+# The window moments kernel (csrc/window_moments.cu)
+# ---------------------------------------------------------------------------
+
+def _moments_inputs(device, K, N, M, I, J, seed, uniform=True):
+    """window_moments' arguments (before the order) on ``device``, from
+    ``testing.random_window_moments``."""
+    from qnmfits_tpu_torch.ops.windows import trapz_weights, window_geq
+    from qnmfits_tpu_torch.testing import random_window_moments
+    r = random_window_moments(K, N, M, I, J, seed=seed, uniform=uniform)
+    times = torch.as_tensor(r["times"], device=device)
+    t0s = torch.as_tensor(r["t0s"], device=device)
+    w = window_geq(times, t0s[:, None],
+                   torch.as_tensor(r["Ts"], device=device)[:, None])
+    return (times, torch.as_tensor(r["data"], device=device),
+            torch.as_tensor(r["omega"], device=device), t0s, w,
+            trapz_weights(times, w), torch.as_tensor(r["win"], device=device))
+
+
+def _moments_gap(out, ref):
+    """The largest |difference| of each moment (S or P, weight, power)
+    over that moment's largest entry, the largest over the moments."""
+    gap = 0.0
+    for a, b in zip(out, ref):
+        for v in range(2):
+            for p in range(a.shape[2]):
+                gap = max(gap, float((a[:, v, p] - b[:, v, p]).abs().max()
+                                     / b[:, v, p].abs().max()))
+    return gap
+
+
+@pytest.mark.parametrize("order", [0, 1, 2])
+@pytest.mark.parametrize("J", range(1, 17))
+def test_window_moments_kernel_matches_plain(cuda, order, J):
+    """Orders 0-2, J = 1..16 with I = 1..3 rows, on a uniform grid of 2001
+    samples and (every third J) a non-uniform one: every moment within
+    1e-12 of its largest entry (two orders of summation over <= 400
+    samples), the Gram Hermitian with a real diagonal."""
+    from qnmfits_tpu_torch.ops import moments_cuda
+    args = _moments_inputs(cuda, 2001, 40, 97, 1 + J % 3, J, seed=J,
+                           uniform=J % 3 != 0)
+    before = moments_cuda.launches
+    S, P = moments_cuda.window_moments(*args, order)
+    assert moments_cuda.launches == before + 1
+    ref = moments_cuda.window_moments_plain(*args, order)
+    torch.cuda.synchronize()
+    assert S.shape == ref[0].shape and P.shape == ref[1].shape
+    assert _moments_gap((S, P), ref) <= 1e-12
+    assert torch.equal(S, S.mH)
+
+
+@pytest.mark.parametrize("K,N,M,I,J,order", [
+    (20001, 12, 64, 2, 8, 2), (20001, 6, 30, 3, 16, 1),
+    (20001, 9, 513, 1, 4, 0), (7, 4, 9, 2, 3, 2), (2001, 513, 2565, 2, 8, 2),
+    (2001, 40, 300, 3, 40, 1)])
+def test_window_moments_kernel_shapes_match_plain(cuda, K, N, M, I, J,
+                                                  order):
+    """Long grids (windows of up to 4000 samples), a grid shorter than a
+    tile, O2's Newton shape (2565 trajectories on 513 windows) and more
+    entries than threads a block (J = 40: several passes a window)."""
+    from qnmfits_tpu_torch.ops import moments_cuda
+    args = _moments_inputs(cuda, K, N, M, I, J, seed=K + J)
+    out = moments_cuda.window_moments(*args, order)
+    ref = moments_cuda.window_moments_plain(*args, order)
+    torch.cuda.synchronize()
+    assert _moments_gap(out, ref) <= 1e-12
+
+
+def test_window_moments_kernel_counts_and_rejects_bad_input(cuda):
+    """One count a launch, none for an empty batch or a refused call; a
+    wrong dtype, shape, order, device mix or a non-contiguous input
+    raises before any launch."""
+    from qnmfits_tpu_torch.ops import moments_cuda
+    args = list(_moments_inputs(cuda, 301, 5, 11, 2, 3, seed=1))
+    before = moments_cuda.launches
+    moments_cuda.window_moments(*args, 1)
+    assert moments_cuda.launches == before + 1
+    empty = list(args)
+    empty[2], empty[6] = args[2][:0], args[6][:0]
+    S, _ = moments_cuda.window_moments(*empty, 1)
+    assert S.shape == (0, 2, 2, 3, 3)
+    assert moments_cuda.launches == before + 1
+    bad = [((2, args[2].to(torch.complex64)), TypeError, "complex128"),
+           ((6, args[6].to(torch.int32)), TypeError, "int64"),
+           ((1, args[1].T.contiguous().T), ValueError, "contiguous"),
+           ((2, args[2].T.contiguous().T), ValueError, "contiguous"),
+           ((4, args[4][:, :-1]), ValueError, "shapes"),
+           ((0, args[0].cpu()), ValueError, "tensors on")]
+    for (i, t), exc, match in bad:
+        call = list(args)
+        call[i] = t
+        with pytest.raises(exc, match=match):
+            moments_cuda.window_moments(*call, 1)
+    with pytest.raises(ValueError, match="order 3"):
+        moments_cuda.window_moments(*args, 3)
+    assert moments_cuda.launches == before + 1
+
+
+def test_window_moments_kernel_does_not_spill(cuda):
+    from qnmfits_tpu_torch.ops import moments_cuda
+    report = moments_cuda.ptxas_report()
+    assert set(report) == {"order0", "order1", "order2"}
+    for name, r in report.items():
+        assert r["spill_stores"] == 0 and r["spill_loads"] == 0, (name, r)
+
+
+def test_array_optimisers_launch_the_moments_kernel(cuda):
+    """The Newton stage's fits and derivatives on the card go through the
+    moments kernel and the solve kernel: f, g and H against the plain
+    moments and plain solve, and against autograd (``optimize._grad``),
+    on 50 trajectories over several windows."""
+    from qnmfits_tpu_torch import optimize
+    from qnmfits_tpu_torch.engine import cached_evaluator
+    from qnmfits_tpu_torch.ops import moments_cuda
+    from qnmfits_tpu_torch.testing import synthetic_multimode
+    s = synthetic_multimode(modes=[(2, 2, n, 1) for n in range(4)],
+                            spherical_modes=SPH_CUDA,
+                            times=np.arange(-10.0, 30.0, 0.1), seed=21)
+    data = np.stack([s["data_dict"][lm] for lm in SPH_CUDA])
+    modes = [(2, 2, n, 1) for n in range(3)]
+    spectrum = optimize.epsilon_spectrum(
+        cached_evaluator(modes, SPH_CUDA), SPH_CUDA, 1.0, cuda)
+    rng = np.random.default_rng(5)
+    t0s = np.array([0.0, 2.0, 5.0, 12.0, 25.0])
+    win = torch.as_tensor(rng.integers(0, 5, 50), device=cuda)
+    x = torch.as_tensor(np.stack([rng.uniform(0.8, 1.1, 50),
+                                  rng.uniform(0.5, 0.98, 50)], 1),
+                        device=cuda)
+    out = {}
+    for name, solve in (("kernel", None),
+                        ("plain", engine_real._regularised_solve_plain)):
+        prob = optimize._Problem(s["times"], data, t0s, np.full(5, 20.0),
+                                 "geq", cuda, solve)
+        saved = moments_cuda.window_moments
+        if name == "plain":
+            moments_cuda.window_moments = moments_cuda.window_moments_plain
+        try:
+            before = moments_cuda.launches
+            out[name] = optimize._fit_derivs(prob, spectrum, x, win, 2)
+            assert moments_cuda.launches == before + (name == "kernel")
+        finally:
+            moments_cuda.window_moments = saved
+    g, H = optimize._grad(lambda y: prob.mm(*spectrum(y), win), x,
+                          hessian=True)
+    for a, b in zip(out["kernel"], out["plain"]):
+        assert _rel(a.reshape(1, -1), b.reshape(1, -1)) <= 1e-10
+    assert _rel(out["kernel"][1].reshape(1, -1), g.reshape(1, -1)) <= 1e-8
+    assert _rel(out["kernel"][2].reshape(1, -1), H.reshape(1, -1)) <= 1e-8

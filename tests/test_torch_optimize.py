@@ -26,6 +26,7 @@ import qnmfits_tpu_torch as tq
 from qnmfits_tpu_torch import engine_real as ter
 from qnmfits_tpu_torch import optimize as to
 from qnmfits_tpu_torch.engine import SpectrumEvaluator
+from qnmfits_tpu_torch.ops import moments_cuda
 from qnmfits_tpu_torch.testing import synthetic_multimode
 
 SPH = [(2, 2), (3, 2)]
@@ -163,17 +164,24 @@ def test_epsilon_mismatch_derivatives_match_jax(syn, sph):
 
 
 def test_newton_step_solve_count(syn, monkeypatch):
-    """A Newton step makes 7 solves: forward, backward, two for each of
-    the two Hessian rows, and the trial fit; the gradient check 2 (the
-    launch arithmetic of PERF.md and chip_smoke.py)."""
-    calls = []
-    real = ter._solve_detached
-    monkeypatch.setattr(ter, "_solve_detached",
+    """A Newton step makes 4 solves: from one launch of the order-2 window
+    moments, the fit C, its first derivatives (both parameters stacked in
+    one solve) and its second (the three pairs stacked), then the trial
+    fit from an order-0 launch; the winning seed's fit makes 1 and the
+    final gradient check 2 (C and its first derivatives).  So a call of
+    one chunk makes 1 + 4 maxiter + 2 solves and 1 + 2 maxiter + 1 moments
+    launches (the launch arithmetic of PERF.md and chip_smoke.py)."""
+    calls, moments = [], []
+    real, real_m = ter._solve_detached, moments_cuda.window_moments
+    monkeypatch.setattr(to, "_solve_detached",
                         lambda G, b: calls.append(1) or real(G, b))
+    monkeypatch.setattr(moments_cuda, "window_moments",
+                        lambda *a: moments.append(a[-1]) or real_m(*a))
     tq.free_frequency_fit_array(syn["times"], syn["row"], T0S[:2],
                                 T_array=T, maxiter=3, device="cpu",
                                 dedup=False)
-    assert len(calls) == 1 + 7 * 3 + 2
+    assert len(calls) == 1 + 4 * 3 + 2
+    assert moments == [0] + [2, 0] * 3 + [1]
 
 
 # ---------------------------------------------------------------------------
