@@ -11,7 +11,8 @@ flushed line each with elapsed seconds:
    Leaver CF kernel (csrc/leaver_cf.cu, FP64 and double-double), the
    factored sweep's systems and epilogue kernels (csrc/factored_sweep.cu),
    the angular eig kernel (csrc/angular_eig.cu) and the optimisers'
-   window moments kernel (csrc/window_moments.cu), one nvcc each,
+   window moments kernel (csrc/window_moments.cu, also its phases build),
+   one nvcc each,
    started together, from this checkout into build/qnmfits_tpu_torch/,
    and ptxas's registers and spills for each instantiation (no spill
    allowed);
@@ -97,10 +98,15 @@ flushed line each with elapsed seconds:
    call with the plain solve and the plain moments, and its oracle
    (Nelder-Mead, the one-window path, or the NumPy grid); the moments
    kernel against its plain version on O1's and O2's own first order-2
-   and order-0 inputs; O1's and O2's gradients and Hessians through both
-   routes and against autograd, their device-time split, the moments
-   kernel timed on O2's and O1's inputs beside its bound, its plain
-   version and batched torch.matmul, and the solve on O2's own systems;
+   and order-0 inputs, in the variant the wrapper picks (their grid is
+   uniform) and in the general variant forced, and the wrapper's
+   (general) variant on a non-uniform copy of O2's order-2 inputs; O1's
+   and O2's gradients and Hessians through both routes and against
+   autograd, their device-time split, the moments kernel timed in both
+   variants on O2's and O1's inputs (and the general variant on O2's
+   non-uniform copy) beside its bound and the variant's own, its plain
+   version and batched torch.matmul, with a warp's cycles by phase on
+   O2's Newton inputs, and the solve on O2's own systems;
 9. the diagnostics and the stacked spectrum grids at the same width, each
    through its public entry point with the launch counts read as in phase
    6 and held to the count derived from the code: G1
@@ -914,7 +920,10 @@ def check_build():
         raise RuntimeError(f"ptxas reports spills in the eig kernel: {eig}")
     from qnmfits_tpu_torch.ops import moments_cuda
     mom = moments_cuda.ptxas_report()
-    log(f"ptxas, the window moments kernel by its order: {mom}")
+    mom.update({f"phases_{k}": r for k, r in
+                moments_cuda.ptxas_report(phases=True).items()})
+    log(f"ptxas, the window moments kernel by variant and order (and its "
+        f"phases build): {mom}")
     if any(r["spill_stores"] or r["spill_loads"] for r in mom.values()):
         raise RuntimeError(f"ptxas reports spills in the window moments "
                            f"kernel: {mom}")
@@ -2105,7 +2114,8 @@ def plain_moments():
     back."""
     from qnmfits_tpu_torch.ops import moments_cuda
     saved = moments_cuda.window_moments
-    moments_cuda.window_moments = moments_cuda.window_moments_plain
+    moments_cuda.window_moments = (
+        lambda *a, grid=None: moments_cuda.window_moments_plain(*a))
     try:
         yield
     finally:
@@ -2121,9 +2131,9 @@ def recording_moments():
     calls = {}
     saved = moments_cuda.window_moments
 
-    def call(*args):
+    def call(*args, **kw):
         calls.setdefault(args[-1], args)
-        return saved(*args)
+        return saved(*args, **kw)
 
     moments_cuda.window_moments = call
     try:
@@ -2333,52 +2343,129 @@ def optimiser_specs(problem, device):
 MOMENTS_RTOL = 1e-12     # moments kernel vs plain, of a moment's largest entry
 MOMENTS_TIMED_BY = dict(
     ms="CUDA events around 20 back-to-back launches of the kernel's C "
-       "entry (moments_cuda._launch) on preallocated outputs",
+       "entry (moments_cuda._launch) on preallocated outputs, in the "
+       "variant the wrapper picks (variant_ms: each variant so)",
+    phases="moments_cuda.phase_cycles: a warp's clock64 cycles by phase "
+           "in the phases build, one launch, in the wrapper's variant",
     call_ms="CUDA events around back-to-back wrapper calls (the windows' "
-            "bounds and the outputs' allocation included)",
+            "bounds and the outputs' allocation included, the grid given "
+            "as the optimisers give it)",
     plain_ms="CUDA events around back-to-back plain-version calls",
     library_ms="CUDA events around the 2 (order + 1) batched torch.matmul "
                "pairs of the same moments (A^H phi and h conj(A) for each "
                "weighted design A) from designs materialised beforehand: "
-               "the designs' build is excluded")
+               "the designs' build is excluded",
+    variant_bound_ms="the bound of the operations and bytes the variant "
+                     "needs: the uniform one sums (order + 1) weights, "
+                     "not 2 (order + 1), and reads no tau")
 
 
-def moments_gap(args):
-    """The window moments kernel against its plain version on the same
-    inputs ``args`` (a recorded call): for each moment (S or P, weight v,
-    power p) the largest |difference| over the moment's largest entry
-    (over the batch), the largest of these (rel), the largest |difference|
-    (max_abs) and the batch (M)."""
+def moments_forced(args, grid):
+    """S and P of one launch of the moments kernel through its C entry
+    (``moments_cuda._launch``) on a recorded call's inputs ``args``, in
+    the variant of ``grid`` (``moments_cuda.moments_grid``'s, or (False,
+    0.0) for the general variant on any grid)."""
+    import torch
     from qnmfits_tpu_torch.ops import moments_cuda
-    S, P = moments_cuda.window_moments(*args)
-    Sp, Pp = moments_cuda.window_moments_plain(*args)
+    from qnmfits_tpu_torch.ops.windows import trapz_weights
+    times, rows, omega, t0s, w, win, order = args
+    first, count = (b.to(torch.int32) for b in moments_cuda.window_bounds(w))
+    M, J = omega.shape
+    S, P = (torch.full((M, 2, order + 1, n, J), complex("nan+nanj"),
+                       dtype=torch.complex128, device=omega.device)
+            for n in (J, rows.shape[0]))
+    tau = None if grid[0] else trapz_weights(times, w)
+    moments_cuda._launch(times, rows, omega, t0s, tau, first, count, win, S,
+                         P, order, grid)
+    return S, P
+
+
+def moments_gap(out, ref):
+    """The window moments ``out`` against the plain version's ``ref`` on
+    the same inputs: for each moment (S or P, weight v, power p) the
+    largest |difference| over the moment's largest entry (over the
+    batch), the largest of these (rel), the largest |difference|
+    (max_abs) and the batch (M)."""
     rel = max_abs = 0.0
-    for a, b in ((S, Sp), (P, Pp)):
+    for a, b in zip(out, ref):
         for v in range(2):
             for p in range(a.shape[2]):
                 d = float((a[:, v, p] - b[:, v, p]).abs().max())
                 rel = max(rel, d / float(b[:, v, p].abs().max()))
                 max_abs = max(max_abs, d)
-    return dict(rel=rel, max_abs=max_abs, M=int(args[2].shape[0]))
+    return dict(rel=rel, max_abs=max_abs, M=int(out[0].shape[0]))
 
 
-def moments_bound(count, win, K, N, I, J, order):
-    """(FP64 operations, bytes) of the window moments kernel on these
-    inputs.  Operations, of its own loops: a (trajectory, window sample,
-    entry) its conj product (6) and its 2 (order + 1) weighted sums (4
-    each); a (trajectory, sample, mode) its phase (4 products, the exp and
-    the sincos one operation each); a (trajectory, sample) its 2 (order +
-    1) weights; count (N,) the windows' sample counts, win (M,) the
+def nonuniform_copy(args, seed=0):
+    """A recorded call's inputs on a grid that the uniform gate refuses:
+    each time moved by up to 1e-3 of a step, the same windows (w)."""
+    import torch
+    times, rows, omega, t0s, w, win, order = args
+    rng = np.random.default_rng(seed)
+    dt = float(times[1] - times[0])
+    moved = times + torch.as_tensor(
+        rng.uniform(-1e-3, 1e-3, times.shape[0]) * dt, device=times.device)
+    return (moved, rows, omega, t0s, w, win, order)
+
+
+def check_moments_variants(key, order, args, nonuniform=False):
+    """Phase 8's check of the moments kernel on an optimiser's recorded
+    inputs ``args`` (their grid uniform): the variant the wrapper picks
+    (the uniform one), the general one forced, and with ``nonuniform`` the
+    wrapper on ``nonuniform_copy`` (the general one), each against the
+    plain version on the same inputs (``MOMENTS_RTOL``).  Returns {name:
+    gap}."""
+    from qnmfits_tpu_torch.ops import moments_cuda
+    plain = moments_cuda.window_moments_plain
+    ref = plain(*args)
+    out = moments_cuda.window_moments(*args)
+    gaps = {"wrapper": dict(moments_gap(out, ref),
+                            variant=moments_cuda.last_plan["variant"]),
+            "general": dict(moments_gap(moments_forced(args, (False, 0.0)),
+                                        ref),
+                            variant=moments_cuda.last_plan["variant"])}
+    if nonuniform:
+        copy = nonuniform_copy(args)
+        out = moments_cuda.window_moments(*copy)
+        gaps["nonuniform"] = dict(moments_gap(out, plain(*copy)),
+                                  variant=moments_cuda.last_plan["variant"])
+    want = dict(wrapper="uniform", general="general", nonuniform="general")
+    for name, gap in gaps.items():
+        log(f"  window moments kernel ({name}: {gap['variant']} variant) vs "
+            f"plain on {key}'s first order-{order} inputs ({gap['M']} "
+            f"trajectories): {gap['rel']:.3e} of each moment's largest "
+            f"entry (bound {MOMENTS_RTOL:.0e}), largest |difference| "
+            f"{gap['max_abs']:.3e}")
+        if gap["variant"] != want[name]:
+            raise RuntimeError(f"{key}: the moments wrapper ran the "
+                               f"{gap['variant']} variant for {name}")
+        if not gap["rel"] <= MOMENTS_RTOL:
+            raise RuntimeError(f"{key}: the moments kernel ({name}) and its "
+                               f"plain version differ by {gap['rel']:.3e}")
+    return gaps
+
+
+def moments_bound(count, win, K, N, I, J, order, weights=2):
+    """(FP64 operations, bytes) of the window moments on these inputs,
+    with ``weights`` weights summed: 2 (w and tau, the first design's
+    loops: the yardstick every design's share is read against) or 1 (the
+    uniform variant, which sums the w moments only and reads no tau).
+    Operations: a (trajectory, window sample, entry) its conj product (6)
+    and its weights (order + 1) weighted sums (4 each); a (trajectory,
+    sample, mode) its phase (4 products, the exp and the sincos one
+    operation each); a (trajectory, sample) its weights (order + 1)
+    weights; count (N,) the windows' sample counts, win (M,) the
     trajectories' windows.  Bytes: each input read once (times, rows,
-    omega, t0s, tau, the windows' bounds and win), each output written
-    once (S and P)."""
-    nw = 2 * (order + 1)
+    omega, t0s, tau where summed, the windows' bounds and win), each
+    output written once (S and P)."""
+    nw = weights * (order + 1)
     M = win.shape[0]
     samples = int(count[win].sum())
     flops = samples * ((J * (J + 1) // 2 + I * J) * (6 + 4 * nw) + 6 * J
                        + nw)
-    nbytes = (8 * K + 16 * I * K + 16 * M * J + 8 * N + 8 * N * K + 16 * N
-              + 8 * M + 16 * M * nw * (J * J + I * J))
+    nbytes = (8 * K + 16 * I * K + 16 * M * J + 8 * N
+              + 8 * N * K * (weights - 1) + 16 * N + 8 * M
+              + 16 * M * 2 * (order + 1) * (J * J + I * J))
     return flops, nbytes
 
 
@@ -2386,17 +2473,19 @@ def moments_library_ms(args):
     """``MOMENTS_TIMED_BY['library_ms']`` on the inputs ``args``."""
     import torch
     from qnmfits_tpu_torch.ops.cmath import damped_phase
-    times, rows, omega, t0s, w, tau, win, order = args
+    from qnmfits_tpu_torch.ops.windows import trapz_weights
+    times, rows, omega, t0s, w, win, order = args
     wm = w[win]
+    tau = trapz_weights(times, w)[win]
     s = (times - t0s[win][:, None]) * wm
     phi = damped_phase(omega[:, None, :], s[..., None])
     powers = [torch.ones_like(s), s, s * s][:order + 1]
     mats = []
-    for vw in (wm, tau[win]):
+    for vw in (wm, tau):
         for sp in powers:
             a = phi * (vw * sp)[..., None]
             mats.append((a, a.conj().resolve_conj()))
-    del s, wm
+    del s, wm, tau
 
     def library():
         for a, ac in mats:
@@ -2406,54 +2495,84 @@ def moments_library_ms(args):
     return event_ms(library, reps=5)
 
 
-def moments_timing(args):
-    """The moments kernel's ms, call_ms and plain_ms (``MOMENTS_TIMED_BY``)
-    and its bound on the inputs ``args``."""
+def moments_timing(args, phases=False):
+    """The moments kernel's ms (the wrapper's variant), each variant's
+    (variant_ms), call_ms and plain_ms (``MOMENTS_TIMED_BY``), its bound
+    on the inputs ``args`` and the variant's own (``variant_bound_ms``),
+    and with ``phases`` a warp's cycles by phase in the wrapper's variant
+    (``moments_cuda.phase_cycles``)."""
     import torch
     from qnmfits_tpu_torch.ops import moments_cuda
-    times, rows, omega, t0s, w, tau, win, order = args
+    from qnmfits_tpu_torch.ops.windows import trapz_weights
+    times, rows, omega, t0s, w, win, order = args
+    grid = moments_cuda.moments_grid(times)
     first, count = (b.to(torch.int32)
                     for b in moments_cuda.window_bounds(w))
-    S, P = moments_cuda.window_moments(*args)
+    tau = trapz_weights(times, w)
+    S, P = moments_cuda.window_moments(*args, grid=grid)
+    variant = moments_cuda.last_plan["variant"]
     I, K = rows.shape
     M, J = omega.shape
+    grids = ({"uniform": grid, "general": (False, 0.0)} if grid[0]
+             else {"general": grid})
+    variant_ms = {v: event_ms(lambda g=g: moments_cuda._launch(
+        times, rows, omega, t0s, None if g[0] else tau, first, count, win, S,
+        P, order, g)) for v, g in grids.items()}
     rec = dict(
-        M=M, order=order,
-        ms=event_ms(lambda: moments_cuda._launch(
-            times, rows, omega, t0s, tau, first, count, win, S, P, order)),
-        call_ms=event_ms(lambda: moments_cuda.window_moments(*args)),
+        M=M, order=order, variant=variant, ms=variant_ms[variant],
+        variant_ms=variant_ms,
+        call_ms=event_ms(lambda: moments_cuda.window_moments(*args,
+                                                             grid=grid)),
         plain_ms=event_ms(lambda: moments_cuda.window_moments_plain(*args),
                           reps=3))
-    flops, nbytes = moments_bound(count.long(), win, K, t0s.shape[0], I, J,
-                                  order)
-    ops_ms = flops / FP64_FLOP_PER_S * 1e3
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    rec.update(flops=flops, bytes=nbytes, bound_ms=max(ops_ms, bytes_ms),
-               bound_by="operations" if ops_ms >= bytes_ms else "bytes")
-    rec["bound_share"] = rec["bound_ms"] / rec["ms"]
+    if phases:
+        rec["phases"] = moments_cuda.phase_cycles(*args, grid=grid)
+    for name, weights in (("", 2), ("variant_", 1 if grid[0] else 2)):
+        flops, nbytes = moments_bound(count.long(), win, K, t0s.shape[0], I,
+                                      J, order, weights)
+        ops_ms = flops / FP64_FLOP_PER_S * 1e3
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        rec.update({f"{name}flops": flops, f"{name}bytes": nbytes,
+                    f"{name}bound_ms": max(ops_ms, bytes_ms),
+                    f"{name}bound_by": ("operations" if ops_ms >= bytes_ms
+                                        else "bytes")})
+        rec[f"{name}bound_share"] = rec[f"{name}bound_ms"] / rec["ms"]
     return rec
 
 
 def measure_moments(moments, records, gpu):
     """The window moments kernel's JSON record: timed on O2's first
-    Newton step's order-2 inputs (2565 trajectories; with library_ms) and
-    on its first seed stage's order-0 inputs, and on O1's order-2 inputs;
-    its registers, its launches on phase 8's O1 and O2, and its largest
-    gap from the plain version on their own inputs."""
+    Newton step's order-2 inputs (2565 trajectories; with library_ms and
+    a warp's cycles by phase) and on its first seed stage's order-0
+    inputs, on O1's order-2 inputs, and on O2's order-2 inputs on a
+    non-uniform grid (the general variant); its registers, its launches
+    on phase 8's O1 and O2, and its largest gap from the plain version on
+    their own inputs."""
     from qnmfits_tpu_torch.ops import moments_cuda
     timed = {}
-    for key, order in (("o2", 2), ("o2", 0), ("o1", 2)):
-        r = timed[f"{key}_order{order}"] = moments_timing(
-            moments[(key, order)]["args"])
-        if (key, order) == ("o2", 2):
-            r["library_ms"] = moments_library_ms(moments[(key, order)]["args"])
+    for key, order in (("o2", 2), ("o2", 0), ("o1", 2), ("o2_nonuniform", 2)):
+        args = (nonuniform_copy(moments[("o2", 2)]["args"])
+                if key == "o2_nonuniform" else moments[(key, order)]["args"])
+        main = (key, order) == ("o2", 2)
+        r = timed[f"{key}_order{order}"] = moments_timing(args, phases=main)
+        if main:
+            r["library_ms"] = moments_library_ms(args)
         log(f"window moments kernel on {key}'s order-{order} inputs "
-            f"({r['M']} trajectories) on {gpu}: {r['ms']:.4f} ms (call "
-            f"{r['call_ms']:.4f} ms), bound {r['bound_ms']:.3e} ms "
+            f"({r['M']} trajectories) on {gpu}: {r['ms']:.4f} ms "
+            f"({r['variant']} variant; "
+            + ", ".join(f"{v} {t:.4f} ms" for v, t in r["variant_ms"].items())
+            + f"; call {r['call_ms']:.4f} ms), bound {r['bound_ms']:.3e} ms "
             f"({r['bound_by']}, {r['flops']:.3e} FP64 operations), share "
-            f"{r['bound_share']:.3f}; plain {r['plain_ms']:.4f} ms"
+            f"{r['bound_share']:.3f}; the variant's own bound "
+            f"{r['variant_bound_ms']:.3e} ms, share "
+            f"{r['variant_bound_share']:.3f}; plain {r['plain_ms']:.4f} ms"
             + (f"; batched torch.matmul from built designs "
                f"{r['library_ms']:.4f} ms" if "library_ms" in r else ""))
+        if "phases" in r:
+            log(f"  {r['variant']} variant, a warp's cycles by phase: "
+                + ", ".join(f"{name} {c:.0f}" for name, c in
+                            r["phases"].items()
+                            if name not in ("warps", "variant")))
     main = timed["o2_order2"]
     by_key = {r["key"]: r for r in records}
     report = moments_cuda.ptxas_report()
@@ -2465,9 +2584,13 @@ def measure_moments(moments, records, gpu):
         launches_o1=by_key["o1"]["moments_launches"],
         max_abs_err=max(m["max_abs"] for m in moments.values()),
         max_rel_err=max(m["rel"] for m in moments.values()),
+        variant=main["variant"], variant_ms=main["variant_ms"],
+        phases=main["phases"],
         ms=main["ms"], plain_ms=main["plain_ms"],
         bound_ms=main["bound_ms"], bound_by=main["bound_by"],
         library_ms=main["library_ms"], bound_share=main["bound_share"],
+        variant_bound_ms=main["variant_bound_ms"],
+        variant_bound_share=main["variant_bound_share"],
         call_ms=main["call_ms"], timed_by=MOMENTS_TIMED_BY,
         shapes={k: {x: v for x, v in r.items()} for k, r in timed.items()},
         registers={k: r["registers"] for k, r in report.items()})
@@ -2507,19 +2630,18 @@ def run_optimisers(problem, device, gpu=None):
                                f"{rec['expected_moments_launches']}")
         if device != "cpu" and spec["key"] in ("o1", "o2"):
             for order in (2, 0):
-                gap = moments_gap(mom_args[order])
-                rec[f"moments_rel_order{order}"] = gap["rel"]
-                moments[(spec["key"], order)] = dict(gap,
-                                                     args=mom_args[order])
-                log(f"  window moments kernel vs plain on {spec['key']}'s "
-                    f"first order-{order} inputs ({gap['M']} "
-                    f"trajectories): {gap['rel']:.3e} of each moment's "
-                    f"largest entry (bound {MOMENTS_RTOL:.0e}), largest "
-                    f"|difference| {gap['max_abs']:.3e}")
-                if not gap["rel"] <= MOMENTS_RTOL:
-                    raise RuntimeError(f"{spec['name']}: the moments kernel "
-                                       f"and its plain version differ by "
-                                       f"{gap['rel']:.3e}")
+                gaps = check_moments_variants(
+                    spec["key"], order, mom_args[order],
+                    nonuniform=(spec["key"], order) == ("o2", 2))
+                rec[f"moments_rel_order{order}"] = max(
+                    g["rel"] for g in gaps.values())
+                rec[f"moments_variants_order{order}"] = {
+                    k: {x: g[x] for x in ("rel", "variant")}
+                    for k, g in gaps.items()}
+                moments[(spec["key"], order)] = dict(
+                    gaps["wrapper"], args=mom_args[order],
+                    rel=rec[f"moments_rel_order{order}"],
+                    max_abs=max(g["max_abs"] for g in gaps.values()))
         plain = None
         if spec["plain"] is not None:
             plain = PlainSolve()
@@ -5543,10 +5665,11 @@ def main():
 
     # One nvcc for each source, started together.
     t = time.perf_counter()
-    with ThreadPoolExecutor(5) as pool:
-        libs = list(pool.map(lambda mod: mod.build(),
-                             (chol_cuda, cf_cuda, sweep_cuda, eig_cuda,
-                              moments_cuda)))
+    with ThreadPoolExecutor(6) as pool:
+        libs = list(pool.map(lambda build: build(),
+                             (chol_cuda.build, cf_cuda.build, sweep_cuda.build,
+                              eig_cuda.build, moments_cuda.build,
+                              lambda: moments_cuda.build(phases=True))))
     log(f"built {', '.join(os.path.relpath(lib, ROOT) for lib in libs)} in "
         f"{time.perf_counter() - t:.2f} s (sm_90a, in parallel)")
     build = check_build()

@@ -250,8 +250,8 @@ def _fit_derivs(prob, spectrum, x, win, order):
     (f,), (f, g) or (f, g, H)."""
     omega, mu = spectrum.jets(x, order)
     S, P = moments_cuda.window_moments(
-        prob.times, prob.rows, omega[0].contiguous(), prob.t0s, prob.w,
-        prob.tau, win, order)
+        prob.times, prob.rows, omega[0].contiguous(), prob.t0s, prob.w, win,
+        order, grid=prob.grid)
     # The jets of the moments, from the phase exponents' derivative
     # factors (components, M, 1, J, J) and (components, M, 1, 1, J).
     dS = _moment_jets(S, 1j * (omega.conj()[:, :, None, :, None]
@@ -335,6 +335,12 @@ class _Problem:
         self.dnorm = self.tau @ (self.rows.real ** 2
                                  + self.rows.imag ** 2).sum(dim=0)
         self.solve = solve
+
+    @functools.cached_property
+    def grid(self):
+        """The window moments' grid, made at the first launch and kept
+        (``moments_cuda.moments_grid``: one copy of times to the host)."""
+        return moments_cuda.moments_grid(self.times)
 
     def mm(self, omega, mu, win):
         """Mismatches of fits with spectra omega (M, J) and mu (M, I, J)

@@ -193,18 +193,27 @@ def random_factored_sweep(K, I, S, J, B, seed=0, n_pad=0, layout="random"):
                 col_masks=masks, t0s=t0s[order], Ts=Ts[order])
 
 
-def random_window_moments(K, N, M, I, J, seed=0, uniform=True):
-    """Inputs of the window moments (numpy): times (K,) from -5 in steps
-    of 0.1 (``uniform``) or of 0.05-0.15 drawn at random, data rows (I, K),
-    M trajectories' damped omega (M, J) and windows win (M,) among N
-    'geq' windows (t0s, Ts (N,)) anywhere on the grid up to a fifth of it
-    long; among them (N >= 4) one too short to hold a sample, one that
-    starts past the grid (empty), one that runs off the grid's end and one
-    of one sample, and every window has a trajectory."""
+def random_window_moments(K, N, M, I, J, seed=0, grid="uniform"):
+    """Inputs of the window moments (numpy): times (K,) on a ``grid``,
+    "uniform" (-5 + 0.1 k, which ``batched._uniform_spacing`` passes, so
+    the kernel takes its uniform variant), "near-uniform" (-5 plus the
+    running sum of steps of 0.1, off by more rounding than the gate
+    allows: the general variant) or "random" (steps of 0.05-0.15 drawn at
+    random), data rows (I, K), M trajectories' damped omega (M, J) and
+    windows win (M,) among N 'geq' windows (t0s, Ts (N,)) anywhere on the
+    grid up to a fifth of it long; among them (N >= 4) one too short to
+    hold a sample, one that starts past the grid (empty), one that runs
+    off the grid's end and one of one sample, and every window has a
+    trajectory."""
     rng = np.random.default_rng(seed)
-    steps = (np.full(K - 1, 0.1) if uniform
-             else rng.uniform(0.05, 0.15, K - 1))
-    times = -5.0 + np.concatenate([[0.0], np.cumsum(steps)])
+    if grid == "uniform":
+        times = -5.0 + 0.1 * np.arange(K)
+    elif grid in ("near-uniform", "random"):
+        steps = (np.full(K - 1, 0.1) if grid == "near-uniform"
+                 else rng.uniform(0.05, 0.15, K - 1))
+        times = -5.0 + np.concatenate([[0.0], np.cumsum(steps)])
+    else:
+        raise ValueError(f"unknown grid {grid!r}")
     span = times[-1] - times[0]
     data = rng.standard_normal((I, K)) + 1j * rng.standard_normal((I, K))
     omega = rng.uniform(0.2, 1.5, (M, J)) - 1j * rng.uniform(0.02, 0.6,

@@ -36,6 +36,7 @@ its own process, in turns (A, B, B, A), within one call.  Needs CUDA.
 """
 
 import argparse
+import inspect
 import json
 import os
 import subprocess
@@ -138,9 +139,18 @@ def step_moments(optimize, prob, spectrum, x, traj, reps):
     parts["jets_ms"], jets = host_ms(
         lambda: spectrum.jets(x, 2), reps)
     omega = jets[0][0].contiguous()
-    parts["moments_ms"] = host_ms(lambda: moments_cuda.window_moments(
-        prob.times, prob.rows, omega, prob.t0s, prob.w, prob.tau, traj, 2),
-        reps)[0]
+    if "tau" in inspect.signature(moments_cuda.window_moments).parameters:
+        # a tree whose wrapper takes the trapezoid weights
+        def moments():
+            return moments_cuda.window_moments(
+                prob.times, prob.rows, omega, prob.t0s, prob.w, prob.tau,
+                traj, 2)
+    else:
+        def moments():
+            return moments_cuda.window_moments(
+                prob.times, prob.rows, omega, prob.t0s, prob.w, traj, 2,
+                grid=prob.grid)
+    parts["moments_ms"] = host_ms(moments, reps)[0]
     parts["derivs_ms"] = host_ms(lambda: optimize._fit_derivs(
         prob, spectrum, x, traj, 2), reps)[0]
     parts["trial_ms"] = host_ms(lambda: optimize._fit_derivs(

@@ -862,8 +862,9 @@ def test_factored_kernels_do_not_spill(cuda):
 
 def test_main_path_sweep_launches_each_kernel_once(cuda):
     """One main-path sweep, with and without dedup: one launch of the
-    systems kernel, one of the solve and one of the epilogue, and the
-    result within 1e-11 of the all-plain route for t0 >= 0."""
+    systems kernel, one of the solve and one of the epilogue (and none of
+    the window moments), and the result within 1e-11 of the all-plain
+    route for t0 >= 0."""
     import chip_smoke
     from qnmfits_tpu_torch.ops import sweep_cuda
     problem = chip_smoke.build_problem(**chip_smoke.SMALL)
@@ -871,7 +872,7 @@ def test_main_path_sweep_launches_each_kernel_once(cuda):
     for dedup in (True, False):
         mm, n, _, _, fac = chip_smoke.drive(
             lambda: chip_smoke.sweep(problem, "cuda", dedup=dedup))
-        assert (n, *fac) == (1, 1, 1)
+        assert (n, *fac) == (1, 1, 1, 0)
         before = sweep_cuda.systems_launches, sweep_cuda.epilogue_launches
         with chip_smoke.all_plain():
             mm_plain = chip_smoke.sweep(
@@ -1095,19 +1096,19 @@ def test_angular_eig_kernel_counts_operations(cuda):
 # The window moments kernel (csrc/window_moments.cu)
 # ---------------------------------------------------------------------------
 
-def _moments_inputs(device, K, N, M, I, J, seed, uniform=True):
+def _moments_inputs(device, K, N, M, I, J, seed, grid="uniform"):
     """window_moments' arguments (before the order) on ``device``, from
-    ``testing.random_window_moments``."""
-    from qnmfits_tpu_torch.ops.windows import trapz_weights, window_geq
+    ``testing.random_window_moments`` on its ``grid``."""
+    from qnmfits_tpu_torch.ops.windows import window_geq
     from qnmfits_tpu_torch.testing import random_window_moments
-    r = random_window_moments(K, N, M, I, J, seed=seed, uniform=uniform)
+    r = random_window_moments(K, N, M, I, J, seed=seed, grid=grid)
     times = torch.as_tensor(r["times"], device=device)
     t0s = torch.as_tensor(r["t0s"], device=device)
     w = window_geq(times, t0s[:, None],
                    torch.as_tensor(r["Ts"], device=device)[:, None])
     return (times, torch.as_tensor(r["data"], device=device),
             torch.as_tensor(r["omega"], device=device), t0s, w,
-            trapz_weights(times, w), torch.as_tensor(r["win"], device=device))
+            torch.as_tensor(r["win"], device=device))
 
 
 def _moments_gap(out, ref):
@@ -1122,19 +1123,50 @@ def _moments_gap(out, ref):
     return gap
 
 
+def _moments_variant(args, order, uniform):
+    """One launch of the kernel's variant (``uniform``: the uniform one,
+    with the grid's step, tau not passed; else the general one) on the
+    wrapper's arguments, through its C entry: S, P and the plan it ran."""
+    from qnmfits_tpu_torch.ops import moments_cuda
+    from qnmfits_tpu_torch.ops.windows import trapz_weights
+    times, rows, omega, t0s, w, win = args
+    grid = moments_cuda.moments_grid(times) if uniform else (False, 0.0)
+    assert grid[0] == uniform
+    tau = None if uniform else trapz_weights(times, w)
+    first, count = (b.to(torch.int32) for b in moments_cuda.window_bounds(w))
+    M, J = omega.shape
+    I = rows.shape[0]
+    S = torch.full((M, 2, order + 1, J, J), complex("nan+nanj"),
+                   dtype=torch.complex128, device=omega.device)
+    P = torch.full((M, 2, order + 1, I, J), complex("nan+nanj"),
+                   dtype=torch.complex128, device=omega.device)
+    moments_cuda._launch(times, rows, omega, t0s, tau, first, count, win, S,
+                         P, order, grid)
+    return (S, P), moments_cuda.last_plan
+
+
+# The grid of random_window_moments a J takes: two in three uniform (the
+# uniform variant), the rest near-uniform or random (the general one).
+_GRID_OF = {0: "random", 1: "uniform", 2: "uniform"}
+
+
 @pytest.mark.parametrize("order", [0, 1, 2])
 @pytest.mark.parametrize("J", range(1, 17))
 def test_window_moments_kernel_matches_plain(cuda, order, J):
     """Orders 0-2, J = 1..16 with I = 1..3 rows, on a uniform grid of 2001
-    samples and (every third J) a non-uniform one: every moment within
-    1e-12 of its largest entry (two orders of summation over <= 400
+    samples and (every third J) a random or near-uniform one: the wrapper
+    launches the variant of the grid's gate (``last_plan``), every moment
+    within 1e-12 of its largest entry (two orders of summation over <= 400
     samples), the Gram Hermitian with a real diagonal."""
     from qnmfits_tpu_torch.ops import moments_cuda
+    grid = _GRID_OF[J % 3] if J % 6 else "near-uniform"
     args = _moments_inputs(cuda, 2001, 40, 97, 1 + J % 3, J, seed=J,
-                           uniform=J % 3 != 0)
+                           grid=grid)
     before = moments_cuda.launches
     S, P = moments_cuda.window_moments(*args, order)
     assert moments_cuda.launches == before + 1
+    assert moments_cuda.last_plan["variant"] == (
+        "uniform" if grid == "uniform" else "general")
     ref = moments_cuda.window_moments_plain(*args, order)
     torch.cuda.synchronize()
     assert S.shape == ref[0].shape and P.shape == ref[1].shape
@@ -1142,39 +1174,92 @@ def test_window_moments_kernel_matches_plain(cuda, order, J):
     assert torch.equal(S, S.mH)
 
 
+@pytest.mark.parametrize("order", [0, 1, 2])
+@pytest.mark.parametrize("I", [1, 2, 3])
+@pytest.mark.parametrize("J", [1, 3, 8, 9, 17])
+def test_window_moments_variants_match_plain(cuda, order, I, J):
+    """Both variants on a uniform grid (the general one forced through the
+    C entry), and the general one on a near-uniform grid that the gate
+    refuses, each within 1e-12 of the plain version; the empty, one-sample
+    and off-the-end windows of ``random_window_moments`` among them."""
+    from qnmfits_tpu_torch.ops import moments_cuda
+    for grid, variants in (("uniform", (True, False)),
+                           ("near-uniform", (False,))):
+        args = _moments_inputs(cuda, 2001, 24, 61, I, J,
+                               seed=100 * order + 10 * I + J, grid=grid)
+        assert moments_cuda.moments_grid(args[0])[0] == (grid == "uniform")
+        ref = moments_cuda.window_moments_plain(*args, order)
+        for uniform in variants:
+            out, plan = _moments_variant(args, order, uniform)
+            torch.cuda.synchronize()
+            assert plan == moments_cuda.plan(I, J, order, uniform, 61)
+            assert _moments_gap(out, ref) <= 1e-12, (grid, uniform)
+            assert torch.equal(out[0], out[0].mH)
+
+
 @pytest.mark.parametrize("K,N,M,I,J,order", [
     (20001, 12, 64, 2, 8, 2), (20001, 6, 30, 3, 16, 1),
     (20001, 9, 513, 1, 4, 0), (7, 4, 9, 2, 3, 2), (2001, 513, 2565, 2, 8, 2),
-    (2001, 40, 300, 3, 40, 1)])
+    (2001, 40, 300, 3, 40, 1), (2001, 20, 40, 17, 5, 2)])
 def test_window_moments_kernel_shapes_match_plain(cuda, K, N, M, I, J,
                                                   order):
     """Long grids (windows of up to 4000 samples), a grid shorter than a
-    tile, O2's Newton shape (2565 trajectories on 513 windows) and more
-    entries than threads a block (J = 40: several passes a window)."""
+    tile, O2's Newton shape (2565 trajectories on 513 windows), many units
+    a trajectory (J = 40: five mode groups) and 17 data rows (stage
+    buffers past 48 KiB of shared memory, by opt-in), in the uniform
+    variant the wrapper picks and in the general one."""
     from qnmfits_tpu_torch.ops import moments_cuda
     args = _moments_inputs(cuda, K, N, M, I, J, seed=K + J)
     out = moments_cuda.window_moments(*args, order)
+    assert moments_cuda.last_plan["variant"] == "uniform"
     ref = moments_cuda.window_moments_plain(*args, order)
+    general, plan = _moments_variant(args, order, False)
     torch.cuda.synchronize()
+    assert plan["variant"] == "general"
     assert _moments_gap(out, ref) <= 1e-12
+    assert _moments_gap(general, ref) <= 1e-12
+
+
+def test_window_moments_trajectories_sharing_windows(cuda):
+    """64 trajectories on 3 windows (the seeds' layout: many a window),
+    each omega given to two trajectories on the same window: their moments
+    are equal bit for bit, and match the plain version, in both variants."""
+    from qnmfits_tpu_torch.ops import moments_cuda
+    times, rows, omega, t0s, w, _ = _moments_inputs(
+        cuda, 2001, 3, 32, 2, 8, seed=5)
+    omega = torch.cat([omega, omega])
+    win = torch.as_tensor(np.tile(np.arange(32) % 3, 2), device=cuda)
+    args = (times, rows, omega, t0s, w, win)
+    for order in (0, 2):
+        ref = moments_cuda.window_moments_plain(*args, order)
+        for uniform in (True, False):
+            (S, P), _ = _moments_variant(args, order, uniform)
+            torch.cuda.synchronize()
+            assert torch.equal(S[:32], S[32:]) and torch.equal(P[:32], P[32:])
+            assert _moments_gap((S, P), ref) <= 1e-12
 
 
 def test_window_moments_kernel_counts_and_rejects_bad_input(cuda):
     """One count a launch, none for an empty batch or a refused call; a
-    wrong dtype, shape, order, device mix or a non-contiguous input
-    raises before any launch."""
+    wrong dtype, shape, order, device mix, a non-contiguous input or more
+    data rows than a block's shared memory holds (49) raises before any
+    launch; a grid given (``moments_grid``) is the one launched."""
     from qnmfits_tpu_torch.ops import moments_cuda
     args = list(_moments_inputs(cuda, 301, 5, 11, 2, 3, seed=1))
     before = moments_cuda.launches
     moments_cuda.window_moments(*args, 1)
     assert moments_cuda.launches == before + 1
+    assert moments_cuda.last_plan["variant"] == "uniform"
+    moments_cuda.window_moments(*args, 1, grid=(False, 0.0))
+    assert moments_cuda.last_plan["variant"] == "general"
+    assert moments_cuda.launches == before + 2
     empty = list(args)
-    empty[2], empty[6] = args[2][:0], args[6][:0]
+    empty[2], empty[5] = args[2][:0], args[5][:0]
     S, _ = moments_cuda.window_moments(*empty, 1)
     assert S.shape == (0, 2, 2, 3, 3)
-    assert moments_cuda.launches == before + 1
+    assert moments_cuda.launches == before + 2
     bad = [((2, args[2].to(torch.complex64)), TypeError, "complex128"),
-           ((6, args[6].to(torch.int32)), TypeError, "int64"),
+           ((5, args[5].to(torch.int32)), TypeError, "int64"),
            ((1, args[1].T.contiguous().T), ValueError, "contiguous"),
            ((2, args[2].T.contiguous().T), ValueError, "contiguous"),
            ((4, args[4][:, :-1]), ValueError, "shapes"),
@@ -1186,15 +1271,34 @@ def test_window_moments_kernel_counts_and_rejects_bad_input(cuda):
             moments_cuda.window_moments(*call, 1)
     with pytest.raises(ValueError, match="order 3"):
         moments_cuda.window_moments(*args, 3)
-    assert moments_cuda.launches == before + 1
+    many = list(args)
+    many[1] = args[1].repeat(25, 1)[:49]
+    with pytest.raises(ValueError, match="shared memory"):
+        moments_cuda.window_moments(*many, 1)
+    assert moments_cuda.launches == before + 2
 
 
 def test_window_moments_kernel_does_not_spill(cuda):
+    """Neither variant spills at any order, nor does the phases build."""
     from qnmfits_tpu_torch.ops import moments_cuda
-    report = moments_cuda.ptxas_report()
-    assert set(report) == {"order0", "order1", "order2"}
-    for name, r in report.items():
-        assert r["spill_stores"] == 0 and r["spill_loads"] == 0, (name, r)
+    for phases in (False, True):
+        report = moments_cuda.ptxas_report(phases)
+        assert set(report) == {f"{v}_order{p}" for v in moments_cuda.VARIANTS
+                               for p in (0, 1, 2)}
+        for name, r in report.items():
+            assert r["spill_stores"] == 0 and r["spill_loads"] == 0, (name, r)
+
+
+def test_window_moments_phase_cycles(cuda):
+    """The phases build runs and reads a warp's cycles by phase, in the
+    variant the grid takes."""
+    from qnmfits_tpu_torch.ops import moments_cuda
+    for grid in ("uniform", "near-uniform"):
+        args = _moments_inputs(cuda, 2001, 24, 61, 2, 8, seed=3, grid=grid)
+        per = moments_cuda.phase_cycles(*args, 2)
+        assert per["variant"] == ("uniform" if grid == "uniform"
+                                  else "general")
+        assert per["warps"] == 61 and per["mma"] > 0
 
 
 def test_array_optimisers_launch_the_moments_kernel(cuda):
@@ -1226,7 +1330,8 @@ def test_array_optimisers_launch_the_moments_kernel(cuda):
                                  "geq", cuda, solve)
         saved = moments_cuda.window_moments
         if name == "plain":
-            moments_cuda.window_moments = moments_cuda.window_moments_plain
+            moments_cuda.window_moments = (
+                lambda *a, grid=None: moments_cuda.window_moments_plain(*a))
         try:
             before = moments_cuda.launches
             out[name] = optimize._fit_derivs(prob, spectrum, x, win, 2)

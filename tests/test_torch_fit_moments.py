@@ -94,8 +94,7 @@ def test_plain_moments_reproduce_fit_systems(method, I, J, uniform):
                             - 1j * rng.uniform(0.02, 0.6, (M, J)))
     mu = torch.as_tensor(rng.standard_normal((M, I, J))
                          + 1j * rng.standard_normal((M, I, J)))
-    S, P = moments_cuda.window_moments(times, rows, omega, t0s, w, tau, win,
-                                       0)
+    S, P = moments_cuda.window_moments(times, rows, omega, t0s, w, win, 0)
     assert S.shape == (M, 2, 1, J, J) and P.shape == (M, 2, 1, I, J)
     Mmu = mu.mH @ mu
     got = (Mmu * S[:, 0, 0], (mu.conj() * P[:, 0, 0]).sum(dim=-2),
@@ -289,7 +288,7 @@ def test_array_optimisers_never_build_designs(syn, monkeypatch):
     orders = []
     real = moments_cuda.window_moments
     monkeypatch.setattr(moments_cuda, "window_moments",
-                        lambda *a: orders.append(a[-1]) or real(*a))
+                        lambda *a, **k: orders.append(a[-1]) or real(*a, **k))
     t0s = np.linspace(0.0, 0.55, 4)
     w, mm, ok = tq.free_frequency_fit_array(
         syn["times"], syn["row"], t0s, modes=MODES[:1], Mf=syn["Mf"],

@@ -176,7 +176,8 @@ def test_newton_step_solve_count(syn, monkeypatch):
     monkeypatch.setattr(to, "_solve_detached",
                         lambda G, b: calls.append(1) or real(G, b))
     monkeypatch.setattr(moments_cuda, "window_moments",
-                        lambda *a: moments.append(a[-1]) or real_m(*a))
+                        lambda *a, **k: moments.append(a[-1])
+                        or real_m(*a, **k))
     tq.free_frequency_fit_array(syn["times"], syn["row"], T0S[:2],
                                 T_array=T, maxiter=3, device="cpu",
                                 dedup=False)
