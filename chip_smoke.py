@@ -188,9 +188,11 @@ flushed line each with elapsed seconds:
    each launch's team and segment, gated relative to |U| + |T| and timed
    beside its bound; S1-X the kernel's double-double variant (spins
    beyond chi = 0.985) against its plain version at the solver's
-   near-extremal tiers and retries (B = 1-256, N = 8192-884736) and at
-   every team, gated at 1e-17 of |U| + |T|, and a batch straddling chi =
-   0.985 whose FP64 elements are bit for bit an FP64-only call; then both
+   near-extremal tiers and retries (B = 1-256, N = 8192-884736), each
+   element over ``plan_dd``'s team and blocks, and at every (team, blocks)
+   of ``dd_plans``, gated at 1e-17 of |U| + |T|, with one launch's cycles
+   by phase, and a batch straddling chi = 0.985 whose FP64 elements are
+   bit for bit an FP64-only call; then both
    variants timed on F1's largest launches.  F1 also holds its (5,2,8) to
    no point on the coarse track and, beyond chi = 0.985, to the JAX
    package's 80-bit pins (PIN_528), and counts each solve's double-double
@@ -4044,6 +4046,12 @@ CF_DD_TOL = 1e-17
 # the finish (~40), ~100 x 60.
 CF_DD_OPS_PER_STEP = 874
 CF_DD_OPS_ONCE = 6000
+# The kernel's own count a step, beside that yardstick: tau_k 66 and R_k
+# 168 by Horner as before, the two rows 376 with one renormalisation a sum
+# (csrc/leaver_cf.cu's zdot 116 and zmul_sub 72, two of each; a part of
+# either: a product 7, its leading part and its rounding error; a join 8,
+# a two-sum and two additions; the last two-sum 6).
+CF_DD_KERNEL_OPS_PER_STEP = 66 + 168 + 2 * 116 + 2 * 72
 CF_DD_CHI = (0.985, 0.9995)
 # The angular eigen-kernel (csrc/angular_eig.cu) against its plain version
 # (torch.linalg.eig of the CPU copy): eigenvalues as sets within EIG_TOL
@@ -4168,12 +4176,12 @@ class SolverClock:
             self.events.append(ev)
             return out
 
-        def launch(omega, a, A, s, m, n_inv, N, team, extended=False):
+        def launch(omega, a, A, s, m, n_inv, N, team, extended=False, **kw):
             key = (omega.shape[0], N)
             book = self.launch_shapes[extended]
             book[key] = book.get(key, 0) + 1
             if not extended:
-                return orig_launch(omega, a, A, s, m, n_inv, N, team)
+                return orig_launch(omega, a, A, s, m, n_inv, N, team, **kw)
             if key[0] * N > self._largest_dd_work:
                 self._largest_dd_work = key[0] * N
                 self.largest_dd = tuple(x.clone() if torch.is_tensor(x)
@@ -4181,7 +4189,8 @@ class SolverClock:
                                         (omega, a, A, s, m, n_inv, N))
             ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
             ev[0].record()
-            out = orig_launch(omega, a, A, s, m, n_inv, N, team, extended)
+            out = orig_launch(omega, a, A, s, m, n_inv, N, team, extended,
+                              **kw)
             ev[1].record()
             self.dd_events.append(ev)
             return out
@@ -4384,13 +4393,15 @@ def _clocked(fn, watch=None):
     return out, rec, clk
 
 
-def cf_bound_ms(B, N, extended=False):
+def cf_bound_ms(B, N, extended=False, per_step=None):
     """Least time of one CF launch of B elements at depth N: the larger of
     the bytes over HBM bandwidth and the FP64 operations (N + 1 recursion
     steps an element, upward and backward together; double-double steps
-    where ``extended``) over the FP64 peak."""
-    per_step, once = ((CF_DD_OPS_PER_STEP, CF_DD_OPS_ONCE) if extended
-                      else (CF_OPS_PER_STEP, CF_OPS_ONCE))
+    where ``extended``, at ``per_step`` operations a step where given)
+    over the FP64 peak."""
+    step, once = ((CF_DD_OPS_PER_STEP, CF_DD_OPS_ONCE) if extended
+                  else (CF_OPS_PER_STEP, CF_OPS_ONCE))
+    per_step = step if per_step is None else per_step
     t_bytes = B * CF_BYTES / HBM_BYTES_PER_S
     t_ops = B * (per_step * (N + 1) + once) / FP64_FLOP_PER_S
     return (1e3 * max(t_bytes, t_ops),
@@ -4490,13 +4501,14 @@ def _kernel_name(extended):
 
 def check_cf(inputs, device, reps=10, extended=False):
     """One variant of the CF kernel (FP64, or double-double where
-    ``extended``), launched on the whole batch with ``cf_cuda.plan``'s team,
-    against its plain version (``cf_parts``, ``cf_dd``), with both
-    timed: on the card ``ms`` is the kernel's device time and ``call_ms``
-    the launch call's (CUDA events around reps calls), on the CPU both the
-    plain version's host time.  Returns its record, with the launch's team
-    and segment length (None on the CPU); raises beyond CF_TOL
-    (CF_DD_TOL)."""
+    ``extended``), launched on the whole batch with ``cf_cuda.plan``'s team
+    (``plan_dd``'s team and blocks), against
+    its plain version (``cf_parts``, ``cf_dd``), with both timed: on the
+    card ``ms`` is the kernel's device time and ``call_ms`` the launch
+    call's (CUDA events around reps calls), on the CPU both the plain
+    version's host time.  Returns its record, with the launch's team,
+    blocks an element and segment length (None on the CPU); raises beyond
+    CF_TOL (CF_DD_TOL)."""
     import torch
     from qnmfits_tpu_torch.ops import cf_cuda
     w, a, A, s, m, n_inv, N = inputs
@@ -4513,24 +4525,28 @@ def check_cf(inputs, device, reps=10, extended=False):
 
     plain_ms = _timed_ms(run_plain, device, 1)
     ref, ref_scale = plain["f"]
-    team = segment = None
+    team = blocks = segment = None
     if device == "cpu":
         call = run_plain
         f, scale = ref, ref_scale
     else:
-        team = cf_cuda.plan(B, N, torch.cuda.get_device_properties(
-            w.device).multi_processor_count)[0]
+        sms = torch.cuda.get_device_properties(w.device).multi_processor_count
+        team, blocks = (cf_cuda.plan_dd(B, N, sms)[:2] if extended
+                        else (cf_cuda.plan(B, N, sms)[0], 1))
 
         def call():
             return cf_cuda._launch(w, a, A, s, m, n_inv, N, team,
-                                   extended=extended)
+                                   extended=extended, blocks=blocks)
 
         before = cf_cuda.dd_launches if extended else cf_cuda.launches
         f, scale = call()
         after = cf_cuda.dd_launches if extended else cf_cuda.launches
         if after != before + 1:
             raise RuntimeError(f"{_kernel_name(extended)} did not launch")
-        team, segment = cf_cuda.last_plan
+        if extended:
+            team, blocks, segment = cf_cuda.last_dd_plan
+        else:
+            team, segment = cf_cuda.last_plan
     err = float(((f - ref).abs() / scale).max())
     err_scale = float(((scale - ref_scale).abs() / scale).max())
     bound, by = cf_bound_ms(B, N, extended)
@@ -4541,23 +4557,29 @@ def check_cf(inputs, device, reps=10, extended=False):
         raise RuntimeError(f"{_kernel_name(extended)} vs plain at B={B}, "
                            f"N={N}: {err:.3e} of |U| + |T| (scale "
                            f"{err_scale:.3e}); bound {tol:.0e}")
-    return dict(batch=B, N=N, chain_steps=N + 1, team=team, segment=segment,
-                rel_err=err, scale_err=err_scale,
-                max_abs_err=float((f - ref).abs().max()), ms=ms,
-                call_ms=call_ms, plain_ms=plain_ms, bound_ms=bound,
-                bound_by=by, bound_share=bound / ms,
-                timed_by=CF_TIMED_BY_CPU if device == "cpu" else CF_TIMED_BY)
+    rec = dict(batch=B, N=N, chain_steps=N + 1, team=team, blocks=blocks,
+               segment=segment, rel_err=err, scale_err=err_scale,
+               max_abs_err=float((f - ref).abs().max()), ms=ms,
+               call_ms=call_ms, plain_ms=plain_ms, bound_ms=bound,
+               bound_by=by, bound_share=bound / ms,
+               timed_by=CF_TIMED_BY_CPU if device == "cpu" else CF_TIMED_BY)
+    if extended:
+        own, _ = cf_bound_ms(B, N, True, CF_DD_KERNEL_OPS_PER_STEP)
+        rec.update(variant_bound_ms=own, variant_bound_share=own / ms)
+    return rec
 
 
 def cf_replay_s(shapes, device, extended=False):
     """Device seconds of one CF kernel variant over a solve's launches,
     replayed: the kernel timed at each (B, N) of its launches (``shapes``,
-    as SolverClock keeps them by variant) on S1's inputs (S1-X's for the
-    double-double variant), times that shape's count; and the ms of one
-    launch by shape.  The CUDA events of SolverClock bracket each wrapper
-    call and so also count the host's work in it, which at these shapes
-    outlasts the kernel.  (Profiles of 5 calls recorded no CF kernel after
-    phases 1-11; those of kernel_ms's 20 do.)"""
+    as SolverClock keeps them by variant) on S1's inputs with ``plan``'s
+    team (S1-X's through ``leaver_cf``, all beyond CHI_EXTENDED, with the
+    wrapper's own plan for the double-double variant), times that shape's
+    count; and the ms of one launch by shape.  The CUDA events of
+    SolverClock bracket each wrapper call and so also count the host's
+    work in it, which at these shapes outlasts the kernel.  (Profiles of
+    5 calls recorded no CF kernel after phases 1-11; those of kernel_ms's
+    20 do.)"""
     import torch
     from qnmfits_tpu_torch.ops import cf_cuda
     rng = np.random.default_rng(CF_SEED)
@@ -4567,9 +4589,10 @@ def cf_replay_s(shapes, device, extended=False):
         w, a, A, s, m, n_inv, _ = cf_inputs(
             rng, B, N, device, CF_DD_CHI if extended else None)
         team = cf_cuda.plan(B, N, sms)[0]
-        ms = kernel_ms(lambda: cf_cuda._launch(
-            w, a, A, s, m, n_inv, N, team, extended=extended),
-            kernel=_kernel_name(extended))
+        ms = kernel_ms((lambda: cf_cuda.leaver_cf(w, a, A, s, m, n_inv, N))
+                       if extended else (lambda: cf_cuda._launch(
+                           w, a, A, s, m, n_inv, N, team)),
+                       kernel=_kernel_name(extended))
         by_shape[f"{B}x{N}"] = ms
         total += count * ms / 1e3
     return total, by_shape
@@ -4612,8 +4635,10 @@ def cf_checks(problem, device, gpu):
 def cf_dd_checks(problem, device, gpu):
     """S1-X: the double-double variant against its plain version on random
     batches at spins CF_DD_CHI (the solver's near-extremal tiers and
-    retries) at each (B, N) of the problem with ``plan``'s team, then at
-    every team of TEAMS on the first; and a mixed batch: spins on both
+    retries) at each (B, N) of the problem with ``plan_dd``'s team and
+    blocks, then at every (team, blocks) of ``dd_plans`` on the first; a
+    launch's cycles by phase (``cf_cuda.phase_cycles``) at the first
+    shape's plan; and a mixed batch: spins on both
     sides of CHI_EXTENDED through ``leaver_cf``, its FP64 elements bit for
     bit an FP64-only call of them, the others a double-double-only one."""
     import torch
@@ -4625,24 +4650,36 @@ def cf_dd_checks(problem, device, gpu):
                      reps=10 if B * N < 2e6 else 3, extended=True)
         out.append(r)
         log(f"S1-X double-double CF kernel vs plain on {gpu or device}, "
-            f"B={B}, N={N} (team {r['team']}, {r['segment']} steps a "
-            f"thread): {r['rel_err']:.3e} of |U| + |T| (bound "
+            f"B={B}, N={N} (team {r['team']} x {r['blocks']} blocks, "
+            f"{r['segment']} steps a thread): {r['rel_err']:.3e} of |U| + "
+            f"|T| (bound "
             f"{CF_DD_TOL:.0e}); {r['ms']:.4f} ms (call {r['call_ms']:.4f} "
             f"ms), plain {r['plain_ms']:.2f} ms, bound {r['bound_ms']:.3e} ms "
-            f"({r['bound_by']}), share {r['bound_share']:.2e}")
-    teams = {}
+            f"({r['bound_by']}), share {r['bound_share']:.2e}; the "
+            f"kernel's own count's bound {r['variant_bound_ms']:.3e} ms, "
+            f"share {r['variant_bound_share']:.2e}")
+    teams, phases = {}, None
     if device != "cpu":
         B, N = problem["cf_dd_shapes"][0]
         inputs = cf_inputs(rng, B, N, device, CF_DD_CHI)
         ref, scale = cf_cuda.cf_dd(*inputs)
-        for team in cf_cuda.TEAMS:
-            f, _ = cf_cuda._launch(*inputs, team, extended=True)
-            teams[team] = float(((f - ref).abs() / scale).max())
-        log(f"S1-X every team at B={B}, N={N}: largest error "
-            f"{max(teams.values()):.3e} of |U| + |T| (bound {CF_DD_TOL:.0e})")
+        for team, blocks in cf_cuda.dd_plans():
+            f, _ = cf_cuda._launch(*inputs, team, extended=True,
+                                   blocks=blocks)
+            teams[f"{team}x{blocks}"] = float(((f - ref).abs() / scale).max())
+        log(f"S1-X every (team, blocks) at B={B}, N={N} ({len(teams)}): "
+            f"largest error {max(teams.values()):.3e} of |U| + |T| (bound "
+            f"{CF_DD_TOL:.0e})")
         if max(teams.values()) > CF_DD_TOL:
-            raise RuntimeError(f"S1-X: a team misses its plain version: "
-                               f"{teams}")
+            raise RuntimeError(f"S1-X: a (team, blocks) misses its plain "
+                               f"version: {teams}")
+        phases = cf_cuda.phase_cycles(*inputs)
+        log(f"S1-X a double-double launch's cycles by phase at B={B}, N={N} "
+            f"(team {phases['team']} x {phases['blocks']} blocks; per "
+            f"segment block, per warp for segments, per last block, per "
+            f"element for terms): "
+            + ", ".join(f"{k} {v:.0f}" for k, v in phases["cycles"].items())
+            + f"; counts {phases['counts']}")
     # The mixed batch: spins 0.97-0.999, a tier straddling CHI_EXTENDED.
     B, N = 64, 8192 if device != "cpu" else 300
     w, _, A, s, m, n_inv, _ = cf_inputs(rng, B, N, device)
@@ -4668,7 +4705,7 @@ def cf_dd_checks(problem, device, gpu):
                            "their single-arithmetic calls")
     if device != "cpu" and mixed_launches != (1, 1):
         raise RuntimeError(f"S1-X: the mixed batch launched {mixed_launches}")
-    return out, dict(teams=teams, mixed=dict(batch=B, N=N,
+    return out, dict(teams=teams, phases=phases, mixed=dict(batch=B, N=N,
                                              extended=int(ext.sum()),
                                              launches=list(mixed_launches),
                                              **same))
@@ -5207,7 +5244,8 @@ def run_spectrum(problem, device, gpu=None):
     if dd_main is not None:
         log(f"double-double CF kernel on F1's largest launch of it "
             f"(B={dd_main['batch']}, N={dd_main['N']}, team "
-            f"{dd_main['team']}) on {gpu or device}: {dd_main['ms']:.4f} ms "
+            f"{dd_main['team']} x {dd_main['blocks']} blocks) on "
+            f"{gpu or device}: {dd_main['ms']:.4f} ms "
             f"(call {dd_main['call_ms']:.4f} ms), plain "
             f"{dd_main['plain_ms']:.2f} ms, bound {dd_main['bound_ms']:.3e} "
             f"ms ({dd_main['bound_by']}); {dd_main['rel_err']:.3e} of "
@@ -5241,8 +5279,15 @@ def run_spectrum(problem, device, gpu=None):
         library_ms=None,
         library="none: no PyTorch call evaluates a continued fraction",
         arithmetic="double-double, spins beyond cf_cuda.CHI_EXTENDED",
-        bound_share=dd_ref["bound_share"], batch=dd_ref["batch"],
-        N=dd_ref["N"], team=dd_ref["team"], segment=dd_ref["segment"],
+        bound_share=dd_ref["bound_share"],
+        variant_bound_ms=dd_ref["variant_bound_ms"],
+        variant_bound_share=dd_ref["variant_bound_share"],
+        variant_bound=(f"the operations the kernel does, "
+                       f"{CF_DD_KERNEL_OPS_PER_STEP} a step (the bound's "
+                       f"{CF_DD_OPS_PER_STEP} is the first design's)"),
+        batch=dd_ref["batch"],
+        N=dd_ref["N"], team=dd_ref["team"], blocks=dd_ref["blocks"],
+        segment=dd_ref["segment"],
         call_ms=dd_ref["call_ms"], timed_by=dd_ref["timed_by"],
         from_f1=dd_main is not None,
         rel_err_max=max(r["rel_err"] for r in s1x + [dd_ref]),
@@ -5665,11 +5710,12 @@ def main():
 
     # One nvcc for each source, started together.
     t = time.perf_counter()
-    with ThreadPoolExecutor(6) as pool:
+    with ThreadPoolExecutor(7) as pool:
         libs = list(pool.map(lambda build: build(),
                              (chol_cuda.build, cf_cuda.build, sweep_cuda.build,
                               eig_cuda.build, moments_cuda.build,
-                              lambda: moments_cuda.build(phases=True))))
+                              lambda: moments_cuda.build(phases=True),
+                              lambda: cf_cuda.build(phases=True))))
     log(f"built {', '.join(os.path.relpath(lib, ROOT) for lib in libs)} in "
         f"{time.perf_counter() - t:.2f} s (sm_90a, in parallel)")
     build = check_build()

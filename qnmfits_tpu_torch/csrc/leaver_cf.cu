@@ -74,6 +74,23 @@
 //   * The same scripts/torch_cf_teams.py times every team on the card and
 //     reads each one's error against the plain version (PERF.md, section
 //     6).
+//   * The double-double variant spreads an element further, over G
+//     blocks (``cf_cuda.plan_dd``): its near-extremal launches hold a few
+//     elements at depths up to 884736, which one block an element would
+//     run on a few of the card's SMs.  The chain splits into T = G team
+//     segments in index order; each block forms its team's segments and
+//     reduces them by the pairwise tree, writes the product to a workspace
+//     and counts on the element's arrival counter.  The grid's first
+//     blocks form each element's terms that do not depend on the product
+//     while the segments run (U in one half of such a block, the Nollert
+//     tail's start and tau at n_inv in the other, a thread an element),
+//     and count on the same counter.  The last of the G + 2 arrivals
+//     continues the tree over the G products (the segments j and j + off
+//     combine at off = team, 2 team, ...) and finishes: T = tau + (c + d
+//     x_N) / (a + b x_N), then the outputs.  So the card rounds as the
+//     host twin with a team of T.  A double-double step sums each row's
+//     products with one renormalisation; a tree level splits each
+//     product's rows over the pair of lanes that hold its factors.
 
 // Layout: split real and imaginary float64 arrays, as cf_kernel.cpp takes
 // them; n_inv int32.  Newton's two evaluations (at omega and omega + h)
@@ -86,10 +103,11 @@
 // combine (a 2 x 2 complex product and a rescale a tree level).  The work
 // spreads over B x team threads: the solver's batches (2 in the sequential
 // continuation, <= ~800 on a spin grid) take teams of 64..256 an element,
-// S1's 4096 teams of 8.  A double-double step takes 874 FP64 operations
-// (a fused multiply-add counted as 2: tau_k 66, R_k 168, the two rows
-// 640) and ~2.3x the registers; the near-extremal batches are small (a few
-// elements at depths 8192..884736), so teams of 128..256 carry them.
+// S1's 4096 teams of 8.  The first design's double-double step took 874
+// FP64 operations (a fused multiply-add counted as 2: tau_k 66, R_k 168,
+// the two rows 640), the bound's count; this one's 610 (tau_k and R_k by
+// Horner as before, the rows 376 with one renormalisation a sum), at
+// ~2.3x the FP64 kernel's registers.
 
 #include <cfloat>
 #include <cmath>
@@ -561,7 +579,58 @@ QNM_HD zdd gamma_dd(double n, const RecDD& r) {
   return r.G1 * n + r.G0 + n * n;
 }
 QNM_HD zdd tau_dd(double n, zdd t1, zdd t0) { return (t1 - n) * n + t0; }
+QNM_HD zdd cubic_dd(double n, const BasisDD& p) {
+  return ((p.r3 * n + p.r2) * n + p.r1) * n + p.r0;
+}
 
+// Sums of double-double products with one renormalisation: each
+// product's leading part joins the sum by an exact two-sum; its rounding
+// error (an exact fused multiply-add), its cross terms and the two-sums'
+// errors are summed in FP64; one two-sum at the end.  Its error is a few
+// units of 2^-106 of the sum of the products' magnitudes, against one
+// renormalisation a product and a sum in the plain version (cf_dd).
+struct Acc {
+  double hi, lo;
+};
+QNM_HD double prod_lo(dd x, dd y, double p) {
+  return exact_fma(x.hi, y.hi, -p) + exact_fma(x.hi, y.lo, x.lo * y.hi);
+}
+QNM_HD Acc acc_of(dd x, dd y) {
+  const double p = x.hi * y.hi;
+  return Acc{p, prod_lo(x, y, p)};
+}
+QNM_HD void acc_add(Acc& s, dd x, dd y) {
+  const double p = x.hi * y.hi;
+  const dd t = two_sum(s.hi, p);
+  s.hi = t.hi;
+  s.lo += t.lo + prod_lo(x, y, p);
+}
+QNM_HD void acc_add(Acc& s, dd x) {
+  const dd t = two_sum(s.hi, x.hi);
+  s.hi = t.hi;
+  s.lo += t.lo + x.lo;
+}
+QNM_HD dd acc_done(Acc s) { return two_sum(s.hi, s.lo); }
+
+// x y + z w and x y - z for complex double-doubles, each part one sum.
+QNM_HD zdd zdot(const zdd& x, const zdd& y, const zdd& z, const zdd& w) {
+  Acc re = acc_of(x.re, y.re), im = acc_of(x.re, y.im);
+  acc_add(re, -x.im, y.im);
+  acc_add(im, x.im, y.re);
+  acc_add(re, z.re, w.re);
+  acc_add(im, z.re, w.im);
+  acc_add(re, -z.im, w.im);
+  acc_add(im, z.im, w.re);
+  return zdd{acc_done(re), acc_done(im)};
+}
+QNM_HD zdd zmul_sub(const zdd& x, const zdd& y, const zdd& z) {
+  Acc re = acc_of(x.re, y.re), im = acc_of(x.re, y.im);
+  acc_add(re, -x.im, y.im);
+  acc_add(im, x.im, y.re);
+  acc_add(re, -z.re);
+  acc_add(im, -z.im);
+  return zdd{acc_done(re), acc_done(im)};
+}
 struct Mat2dd {
   zdd a, b, c, d;
 };
@@ -571,8 +640,8 @@ QNM_HD Mat2dd identity_dd() {
   return Mat2dd{o, z, z, o};
 }
 QNM_HD Mat2dd operator*(const Mat2dd& x, const Mat2dd& y) {
-  return Mat2dd{x.a * y.a + x.b * y.c, x.a * y.b + x.b * y.d,
-                x.c * y.a + x.d * y.c, x.c * y.b + x.d * y.d};
+  return Mat2dd{zdot(x.a, y.a, x.b, y.c), zdot(x.a, y.b, x.b, y.d),
+                zdot(x.c, y.a, x.d, y.c), zdot(x.c, y.b, x.d, y.d)};
 }
 QNM_HD int max_exp(const zdd& x) {
   return imax(biased_exp(x.re.hi), biased_exp(x.im.hi));
@@ -597,26 +666,28 @@ QNM_HD void rescale(Mat2dd& S) {
 
 // S <- S Mh_k at n = k, as step().
 QNM_HD void step(Mat2dd& S, double n, const BasisDD& p) {
-  const zdd tau = tau_dd(n, p.t1, p.t0);
-  const zdd R = ((p.r3 * n + p.r2) * n + p.r1) * n + p.r0;
-  const zdd a = S.a * tau + S.b * R;
-  const zdd c = S.c * tau + S.d * R;
-  S.b = S.b * tau - S.a;
-  S.d = S.d * tau - S.c;
+  const zdd tau = tau_dd(n, p.t1, p.t0), R = cubic_dd(n, p);
+  const zdd a = zdot(S.a, tau, S.b, R);
+  const zdd c = zdot(S.c, tau, S.d, R);
+  S.b = zmul_sub(S.b, tau, S.a);
+  S.d = zmul_sub(S.d, tau, S.c);
   S.a = a;
   S.c = c;
 }
 
-// As segment(): rescaled after every kRescale steps and after the last.
+// As segment(): the product Mh_lo ... Mh_{hi-1}, rescaled after every
+// kRescale steps and after the last.
 QNM_HD Mat2dd segment(int lo, int hi, const BasisDD& p) {
   Mat2dd S = identity_dd();
   double n = static_cast<double>(lo);
-  for (int k = lo; k < hi; ++k) {
-    step(S, n, p);
-    n += 1.0;
-    if ((k - lo) % kRescale == kRescale - 1) rescale(S);
+  for (int k = lo; k < hi; k += kRescale) {
+    const int end = hi - k < kRescale ? hi : k + kRescale;
+#ifdef __CUDACC__
+#pragma unroll 1
+#endif
+    for (int j = k; j < end; ++j, n += 1.0) step(S, n, p);
+    rescale(S);
   }
-  rescale(S);
   return S;
 }
 
@@ -638,62 +709,97 @@ QNM_HD zdd upward_dd(int n_inv, const RecDD& r) {
   return p1 / p0;
 }
 
-// As finish(), the coefficients formed again from the inputs (the team's
-// shared memory holds only the basis).
-QNM_HD void finish_dd(const Mat2dd& P, int n_inv, int N, int s, int m,
-                      double a, cplx w_in, cplx A_in, cplx* f,
-                      double* scale) {
-  const RecDD r = leaver_rec_dd(s, m, a, w_in, A_in);
+// What the finish needs that does not depend on the product, formed
+// while the segments run, in two parts: U = U_{n_inv} and |U|; x_N = T_N
+// - tau_N (the Nollert tail's start in the basis) and tau at n_inv (at N
+// where n_inv >= N, the product then empty).
+struct UpDD {
+  zdd U;
+  dd absU;
+};
+struct TailDD {
+  zdd xN, tau_lo;
+};
+struct TermsDD {
+  UpDD up;
+  TailDD tail;
+};
+
+QNM_HD UpDD up_dd(int n_inv, const RecDD& r) {
+  const zdd U = upward_dd(n_inv, r);
+  return UpDD{U, zabs(U)};
+}
+
+QNM_HD TailDD tail_dd(int n_inv, int N, double a, cplx w_in,
+                      const RecDD& r) {
   zdd u = -zsqrt(scaled(times_i(widen(w_in) * spin_b_dd(a)), -2.0));
   if (u.re.hi > 0.0) u = -u;
   const zdd v = scaled(u * u + 0.5 + r.G1 - r.A1, 0.5);
   const double dN = static_cast<double>(N);
   const zdd TN = -alpha_dd(dN, r) *
                  (u / dd_sqrt(dd_of(dN)) + v / dd_of(dN) + 1.0);
-  const zdd xN = TN - tau_dd(dN, r.t1, r.t0);
-  const double lo = static_cast<double>(n_inv < N ? n_inv : N);
-  const zdd T = tau_dd(lo, r.t1, r.t0) + (P.c + P.d * xN) / (P.a + P.b * xN);
-  const zdd U = upward_dd(n_inv, r);
-  const zdd d = U - T;
-  *f = mk(rounded(d.re), rounded(d.im));
-  *scale = rounded(zabs(U) + zabs(T));
+  return TailDD{
+      TN - tau_dd(dN, r.t1, r.t0),
+      tau_dd(static_cast<double>(n_inv < N ? n_inv : N), r.t1, r.t0)};
 }
 
-// The two arithmetics of one element, for the team's code below: what the
-// team's first warp leaves in shared memory (Coef), its segments' product
-// (Mat), and the finish.
-struct F64 {
-  using Coef = Rec;
-  using Mat = Mat2;
-  static QNM_HD Coef coef(int s, int m, double a, cplx w, cplx A) {
-    return leaver_rec(s, m, a, w, A);
-  }
-  static QNM_HD Mat ident() { return identity2(); }
-  static QNM_HD void fin(const Mat& P, int n_inv, int N, int, int, double a,
-                         cplx w, cplx, const Coef& c, cplx* f,
-                         double* scale) {
-    finish(P, n_inv, N, a, w, c, f, scale);
-  }
-};
-struct DD {
-  using Coef = BasisDD;
-  using Mat = Mat2dd;
-  static QNM_HD Coef coef(int s, int m, double a, cplx w, cplx A) {
-    return basis_dd(leaver_rec_dd(s, m, a, w, A));
-  }
-  static QNM_HD Mat ident() { return identity_dd(); }
-  static QNM_HD void fin(const Mat& P, int n_inv, int N, int s, int m,
-                         double a, cplx w, cplx A, const Coef&, cplx* f,
-                         double* scale) {
-    finish_dd(P, n_inv, N, s, m, a, w, A, f, scale);
-  }
-};
+// As finish(), from the element's product P = Mh_{n_inv} ... Mh_{N-1}
+// and its terms: T_{n_inv} = tau_{n_inv} + y2 / y1, [y1; y2] = P [1; x_N];
+// f = U - T and |U| + |T| rounded once to FP64.
+QNM_HD void finish_dd(const Mat2dd& P, const TermsDD& t, cplx* f,
+                      double* scale) {
+  const zdd T = t.tail.tau_lo + (P.c + P.d * t.tail.xN) /
+                                    (P.a + P.b * t.tail.xN);
+  const zdd d = t.up.U - T;
+  *f = mk(rounded(d.re), rounded(d.im));
+  *scale = rounded(t.up.absU + zabs(T));
+}
+
+// The workspace of a double-double launch (doubles; the wrapper allocates
+// it): each element's blocks' products (kMatDoubles each), then each
+// element's terms (kTermsDoubles).
+constexpr int kMatDoubles = sizeof(Mat2dd) / sizeof(double);
+constexpr int kUpDoubles = sizeof(UpDD) / sizeof(double);
+constexpr int kTermsDoubles = sizeof(TermsDD) / sizeof(double);
+static_assert(kMatDoubles == 16 && kUpDoubles == 6 && kTermsDoubles == 14,
+              "packed layouts");
 
 }  // namespace
 
 #ifdef __CUDACC__
 
+// Built with -DQNM_CF_PHASES (``cf_cuda.phase_cycles``), the double-double
+// kernel adds the clock64 cycles of its phases into qnm_cf_phase_cycles
+// (the indices are ``cf_cuda.PHASES``'s), which qnm_cf_phases reads: the
+// clock reads slow the steps they time.  Otherwise these are empty.
+#if defined(QNM_CF_PHASES)
+__device__ unsigned long long qnm_cf_phase_cycles[16];
+#endif
+#if defined(QNM_CF_PHASES) && defined(__CUDA_ARCH__)
+#define QNM_CLOCK(v) const long long v = clock64();
+#define QNM_SPAN(cond, v, idx)                                     \
+  if (cond)                                                        \
+    atomicAdd(&qnm_cf_phase_cycles[idx],                           \
+              static_cast<unsigned long long>(clock64() - (v)));
+#define QNM_COUNT(cond, idx) \
+  if (cond) atomicAdd(&qnm_cf_phase_cycles[idx], 1ull);
+#else
+#define QNM_CLOCK(v)
+#define QNM_SPAN(cond, v, idx)
+#define QNM_COUNT(cond, idx)
+#endif
+
 namespace {
+
+// Phase counters: a segment block's coefficients, its warps' segments,
+// its tree (with the wait for its slowest warp), its arrival, the last
+// block's cross-block combine and finish, the terms, a segment block
+// whole; then the counts of segment blocks, warps, last blocks and terms.
+enum {
+  kPhaseCoef, kPhaseSegments, kPhaseTree, kPhaseArrive, kPhaseCombine,
+  kPhaseFinish, kPhaseTerms, kPhaseBlock, kCountBlocks, kCountWarps,
+  kCountLast, kCountTerms
+};
 
 __device__ __forceinline__ double shfl_down(double x, int off) {
   return __shfl_down_sync(0xffffffffu, x, off);
@@ -706,6 +812,12 @@ __device__ __forceinline__ dd shfl_down(dd x, int off) {
 }
 __device__ __forceinline__ zdd shfl_down(zdd x, int off) {
   return zdd{shfl_down(x.re, off), shfl_down(x.im, off)};
+}
+__device__ __forceinline__ zdd shfl_up(zdd x, int off) {
+  const auto up = [off](double v) {
+    return __shfl_up_sync(0xffffffffu, v, off);
+  };
+  return zdd{dd{up(x.re.hi), up(x.re.lo)}, dd{up(x.im.hi), up(x.im.lo)}};
 }
 
 // The ordered product of each group of `width` lanes' matrices (a power
@@ -724,11 +836,34 @@ __device__ __forceinline__ Mat tree_product(Mat S, int j, int width) {
   return S;
 }
 
+// As tree_product, for double-double products: the two lanes of a pair
+// split the product X Y by rows (X in lane j, Y in lane j + off): lane j
+// forms the first row from Y's shuffled copy, lane j + off the second
+// from X's second row, which lane j then takes back.  The same entries,
+// in the same order, as X * Y, at half a lane's work.
+__device__ __forceinline__ Mat2dd tree_product(Mat2dd S, int j, int width) {
+  for (int off = 1; off < width; off <<= 1) {
+    const Mat2dd Y{shfl_down(S.a, off), shfl_down(S.b, off),
+                   shfl_down(S.c, off), shfl_down(S.d, off)};
+    const zdd xc = shfl_up(S.c, off), xd = shfl_up(S.d, off);
+    const bool left = (j & (2 * off - 1)) == 0;
+    const zdd r0 = left ? S.a : xc, r1 = left ? S.b : xd;
+    const zdd ya = left ? Y.a : S.a, yb = left ? Y.b : S.b;
+    const zdd yc = left ? Y.c : S.c, yd = left ? Y.d : S.d;
+    const zdd e0 = zdot(r0, ya, r1, yc), e1 = zdot(r0, yb, r1, yd);
+    const zdd f0 = shfl_down(e0, off), f1 = shfl_down(e1, off);
+    if (left) {
+      S = Mat2dd{e0, e1, f0, f1};
+      rescale(S);
+    }
+  }
+  return S;
+}
+
 // A team of `team` threads (a power of two, 1..256) an element; a block
 // of kThreads = max(team, 128) threads holds kThreads / team elements, so
-// teams below a warp share their warp's setup, tree and finish.  K is the
-// element's arithmetic (F64 or DD).
-template <int kThreads, class K>
+// teams below a warp share their warp's setup, tree and finish.
+template <int kThreads>
 __device__ __forceinline__ void team_cf(
     long long B, const double* __restrict__ w_re,
     const double* __restrict__ w_im, const double* __restrict__ a,
@@ -736,9 +871,8 @@ __device__ __forceinline__ void team_cf(
     const int* __restrict__ n_inv_in, int s, int m, int N, int team,
     double* __restrict__ f_re, double* __restrict__ f_im,
     double* __restrict__ scale) {
-  using Mat = typename K::Mat;
-  __shared__ typename K::Coef rec_s[kThreads <= 128 ? kThreads : 1];
-  __shared__ Mat warp_s[kThreads / 32];
+  __shared__ Rec rec_s[kThreads <= 128 ? kThreads : 1];
+  __shared__ Mat2 warp_s[kThreads / 32];
   const int t = threadIdx.x, e = t / team, j = t % team;
   const long long i = static_cast<long long>(blockIdx.x) * (kThreads / team) +
                       e;
@@ -747,29 +881,28 @@ __device__ __forceinline__ void team_cf(
   // The team's first warp (all of a team below a warp) forms the
   // coefficients.
   if (j < 32 && live) {
-    const typename K::Coef r =
-        K::coef(s, m, a[i], mk(w_re[i], w_im[i]), mk(A_re[i], A_im[i]));
+    const Rec r =
+        leaver_rec(s, m, a[i], mk(w_re[i], w_im[i]), mk(A_re[i], A_im[i]));
     if (j == 0) rec_s[e] = r;
   }
   __syncthreads();
   int lo, hi;
   lane_range(j, team, n_inv, N, &lo, &hi);
-  Mat S = tree_product(segment(lo, hi, rec_s[e]), j & 31,
-                       team < 32 ? team : 32);
+  Mat2 S = tree_product(segment(lo, hi, rec_s[e]), j & 31,
+                        team < 32 ? team : 32);
   if (team > 32) {
     // The warps' products, in order, to the team's first warp.
     const int lane = t & 31, first = (t - j) >> 5;
     if (lane == 0) warp_s[t >> 5] = S;
     __syncthreads();
     if (j >= 32) return;
-    S = tree_product(lane < team / 32 ? warp_s[first + lane] : K::ident(),
+    S = tree_product(lane < team / 32 ? warp_s[first + lane] : identity2(),
                      lane, team / 32);
   }
   if (j != 0 || !live) return;
   cplx f;
   double sc;
-  K::fin(S, n_inv, N, s, m, a[i], mk(w_re[i], w_im[i]),
-         mk(A_re[i], A_im[i]), rec_s[e], &f, &sc);
+  finish(S, n_inv, N, a[i], mk(w_re[i], w_im[i]), rec_s[e], &f, &sc);
   f_re[i] = f.re;
   f_im[i] = f.im;
   scale[i] = sc;
@@ -785,55 +918,280 @@ __device__ __forceinline__ void team_cf(
 #define QNM_CF_ARGS \
   B, w_re, w_im, a, A_re, A_im, n_inv, s, m, N, team, f_re, f_im, scale
 
-// The FP64 kernel and the double-double one (spins beyond CHI_EXTENDED).
+// The FP64 kernel.
 template <int kThreads>
 __global__ void __launch_bounds__(kThreads)
     leaver_cf_kernel(QNM_CF_PARAMS) {
-  team_cf<kThreads, F64>(QNM_CF_ARGS);
+  team_cf<kThreads>(QNM_CF_ARGS);
 }
+
+// Loads and stores of the workspace through L2 (another SM's block wrote
+// or reads it), as doubles.
+template <class T>
+__device__ __forceinline__ void store_cg(double* dst, const T& x) {
+  const double* src = reinterpret_cast<const double*>(&x);
+  QNM_UNROLL
+  for (int k = 0; k < static_cast<int>(sizeof(T) / sizeof(double)); ++k)
+    __stcg(dst + k, src[k]);
+}
+template <class T>
+__device__ __forceinline__ T load_cg(const double* src) {
+  T x;
+  double* dst = reinterpret_cast<double*>(&x);
+  QNM_UNROLL
+  for (int k = 0; k < static_cast<int>(sizeof(T) / sizeof(double)); ++k)
+    dst[k] = __ldcg(src + k);
+  return x;
+}
+
+// The element's outputs from its product and its terms (in the
+// workspace); its arrival count back to 0 for the next launch.
+__device__ __forceinline__ void finish_element(
+    long long i, const Mat2dd& P, const double* terms, unsigned* arrivals,
+    double* f_re, double* f_im, double* scale) {
+  cplx f;
+  double sc;
+  finish_dd(P, load_cg<TermsDD>(terms + i * kTermsDoubles), &f, &sc);
+  f_re[i] = f.re;
+  f_im[i] = f.im;
+  scale[i] = sc;
+  arrivals[i] = 0u;
+}
+
+// The double-double kernel (spins beyond CHI_EXTENDED).  The grid's first
+// `term_blocks` blocks form the terms, two threads an element (U, the
+// tail's start); the others are the segment blocks: `blocks` (G) of them
+// an element, each with one team of `team` threads (team = kThreads, 128
+// or 256, where G > 1), or, where G = 1, kThreads / team teams of the
+// elements in order, as the FP64 kernel's.  Team thread j of block g
+// takes segment g team + j of T = G team.  Each team's product and each
+// part of an element's terms go to the workspace and count on the
+// element's arrival counter; the last of the G + 2 arrivals combines the
+// G products by the same pairwise tree (a block's threads, or, where a
+// part of the terms comes last, its thread serially, in the same order)
+// and finishes, so the arithmetic is the host twin's with a team of T
+// whichever block comes last.
 template <int kThreads>
 __global__ void __launch_bounds__(kThreads)
-    leaver_cf_dd_kernel(QNM_CF_PARAMS) {
-  team_cf<kThreads, DD>(QNM_CF_ARGS);
+    leaver_cf_dd_kernel(QNM_CF_PARAMS, int blocks, int term_blocks,
+                        double* __restrict__ ws,
+                        unsigned* __restrict__ arrivals) {
+  double* const parts = ws;
+  double* const terms = ws + B * blocks * kMatDoubles;
+  const int t = threadIdx.x;
+  if (static_cast<int>(blockIdx.x) < term_blocks) {
+    // The block's first half forms U of its elements, a thread an
+    // element, the second half the tail's start: two arrivals.
+    constexpr int kHalf = kThreads / 2;
+    const bool up = t < kHalf;
+    const long long i =
+        static_cast<long long>(blockIdx.x) * kHalf + (up ? t : t - kHalf);
+    if (i >= B) return;
+    QNM_CLOCK(c0)
+    const cplx w = mk(w_re[i], w_im[i]);
+    const RecDD r = leaver_rec_dd(s, m, a[i], w, mk(A_re[i], A_im[i]));
+    double* const tm = terms + i * kTermsDoubles;
+    if (up)
+      store_cg(tm, up_dd(n_inv[i], r));
+    else
+      store_cg(tm + kUpDoubles, tail_dd(n_inv[i], N, a[i], w, r));
+    __threadfence();
+    QNM_SPAN(true, c0, kPhaseTerms)
+    QNM_COUNT(true, kCountTerms)
+    if (atomicAdd(&arrivals[i], 1u) != static_cast<unsigned>(blocks) + 1u)
+      return;
+    // The terms came last (segments shorter than the terms' work): the
+    // blocks' products combined here, serially, in place.
+    __threadfence();
+    double* const P = parts + i * blocks * kMatDoubles;
+    for (int off = 1; off < blocks; off <<= 1) {
+      for (int g = 0; g + off < blocks; g += 2 * off) {
+        Mat2dd x = load_cg<Mat2dd>(P + g * kMatDoubles) *
+                   load_cg<Mat2dd>(P + (g + off) * kMatDoubles);
+        rescale(x);
+        store_cg(P + g * kMatDoubles, x);
+      }
+    }
+    finish_element(i, load_cg<Mat2dd>(P), terms, arrivals, f_re, f_im,
+                   scale);
+    return;
+  }
+  __shared__ BasisDD rec_s[kThreads <= 128 ? kThreads : 1];
+  __shared__ Mat2dd warp_s[kThreads / 32];
+  __shared__ bool last_s;
+  QNM_CLOCK(c0)
+  const int e = t / team, j = t % team, lane = t & 31;
+  const long long slot =
+      static_cast<long long>(blockIdx.x - term_blocks) * (kThreads / team) +
+      e;
+  const long long i = slot / blocks;
+  const int g = static_cast<int>(slot % blocks);
+  const bool live = i < B;
+  const int n_inv_i = live ? n_inv[i] : N;
+  // The team's first warp (all of a team below a warp) forms the basis.
+  if (j < 32 && live) {
+    const BasisDD r = basis_dd(leaver_rec_dd(s, m, a[i], mk(w_re[i], w_im[i]),
+                                             mk(A_re[i], A_im[i])));
+    if (j == 0) rec_s[e] = r;
+  }
+  __syncthreads();
+  QNM_SPAN(t == 0, c0, kPhaseCoef)
+  QNM_CLOCK(c1)
+  int lo, hi;
+  lane_range(g * team + j, team * blocks, n_inv_i, N, &lo, &hi);
+  Mat2dd S = segment(lo, hi, rec_s[e]);
+  QNM_SPAN(lane == 0, c1, kPhaseSegments)
+  QNM_COUNT(lane == 0, kCountWarps)
+  QNM_CLOCK(c2)
+  S = tree_product(S, j & 31, team < 32 ? team : 32);
+  if (team > 32) {
+    // The warps' products, in order, to the team's first warp.
+    const int first = (t - j) >> 5;
+    if (lane == 0) warp_s[t >> 5] = S;
+    __syncthreads();
+    if (j < 32)
+      S = tree_product(lane < team / 32 ? warp_s[first + lane] : identity_dd(),
+                       lane, team / 32);
+  }
+  QNM_SPAN(t == 0, c2, kPhaseTree)
+  QNM_COUNT(t == 0, kCountBlocks)
+  if (blocks == 1) {
+    // The element's one team: its product to the workspace; whichever of
+    // it and the terms comes second finishes.
+    if (j != 0 || !live) return;
+    QNM_CLOCK(c3)
+    store_cg(parts + i * kMatDoubles, S);
+    __threadfence();
+    const bool last = atomicAdd(&arrivals[i], 1u) == 2u;
+    QNM_SPAN(t == 0, c3, kPhaseArrive)
+    QNM_SPAN(t == 0 && !last, c0, kPhaseBlock)
+    if (!last) return;
+    __threadfence();
+    QNM_CLOCK(c5)
+    finish_element(i, S, terms, arrivals, f_re, f_im, scale);
+    QNM_SPAN(t == 0, c5, kPhaseFinish)
+    QNM_COUNT(t == 0, kCountLast)
+    QNM_SPAN(t == 0, c0, kPhaseBlock)
+    return;
+  }
+  // G > 1: the block is one team (team = kThreads).
+  QNM_CLOCK(c3)
+  if (t == 0) {
+    store_cg(parts + (i * blocks + g) * kMatDoubles, S);
+    __threadfence();
+    last_s = atomicAdd(&arrivals[i], 1u) == static_cast<unsigned>(blocks) + 1u;
+  }
+  __syncthreads();
+  QNM_SPAN(t == 0, c3, kPhaseArrive)
+  QNM_SPAN(t == 0 && !last_s, c0, kPhaseBlock)
+  if (!last_s) return;
+  // The last block: the G products, in order, by the same tree.
+  __threadfence();
+  QNM_CLOCK(c4)
+  S = t < blocks ? load_cg<Mat2dd>(parts + (i * blocks + t) * kMatDoubles)
+                 : identity_dd();
+  S = tree_product(S, lane, blocks < 32 ? blocks : 32);
+  if (blocks > 32) {
+    if (lane == 0) warp_s[t >> 5] = S;
+    __syncthreads();
+    if (t < 32)
+      S = tree_product(lane < blocks / 32 ? warp_s[lane] : identity_dd(),
+                       lane, blocks / 32);
+  }
+  if (t != 0) return;
+  QNM_SPAN(true, c4, kPhaseCombine)
+  QNM_CLOCK(c5)
+  finish_element(i, S, terms, arrivals, f_re, f_im, scale);
+  QNM_SPAN(true, c5, kPhaseFinish)
+  QNM_COUNT(true, kCountLast)
+  QNM_SPAN(true, c0, kPhaseBlock)
 }
 
 template <int kThreads>
-int launch(bool extended, cudaStream_t stream, QNM_CF_PARAMS) {
+int launch(cudaStream_t stream, QNM_CF_PARAMS) {
   const long long per_block = kThreads / team;
-  const unsigned blocks =
-      static_cast<unsigned>((B + per_block - 1) / per_block);
-  if (extended)
-    leaver_cf_dd_kernel<kThreads><<<blocks, kThreads, 0, stream>>>(
-        QNM_CF_ARGS);
-  else
-    leaver_cf_kernel<kThreads><<<blocks, kThreads, 0, stream>>>(QNM_CF_ARGS);
+  const unsigned grid = static_cast<unsigned>((B + per_block - 1) / per_block);
+  leaver_cf_kernel<kThreads><<<grid, kThreads, 0, stream>>>(QNM_CF_ARGS);
   return static_cast<int>(cudaGetLastError());
 }
 
-int entry(bool extended, int device, void* stream, QNM_CF_PARAMS) {
+template <int kThreads>
+int launch_dd(cudaStream_t stream, QNM_CF_PARAMS, int blocks, double* ws,
+              unsigned* arrivals) {
+  const long long per_block = kThreads / team;
+  const long long term_blocks = (B + kThreads / 2 - 1) / (kThreads / 2);
+  const long long seg_blocks =
+      blocks > 1 ? B * blocks : (B + per_block - 1) / per_block;
+  if (term_blocks + seg_blocks > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  leaver_cf_dd_kernel<kThreads>
+      <<<static_cast<unsigned>(term_blocks + seg_blocks), kThreads, 0,
+         stream>>>(QNM_CF_ARGS, blocks, static_cast<int>(term_blocks), ws,
+                   arrivals);
+  return static_cast<int>(cudaGetLastError());
+}
+
+bool pow2_upto(int x, int most) {
+  return x >= 1 && x <= most && (x & (x - 1)) == 0;
+}
+
+int entry(int device, void* stream, QNM_CF_PARAMS) {
   if (B <= 0) return 0;
-  if (N < 1 || N > kMaxN || B > 0x7fffffffLL || team < 1 || team > 256 ||
-      (team & (team - 1)) != 0)
+  if (N < 1 || N > kMaxN || B > 0x7fffffffLL || !pow2_upto(team, 256))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (team <= 128) return launch<128>(extended, st, QNM_CF_ARGS);
-  return launch<256>(extended, st, QNM_CF_ARGS);
+  if (team <= 128) return launch<128>(st, QNM_CF_ARGS);
+  return launch<256>(st, QNM_CF_ARGS);
+}
+
+int entry_dd(int device, void* stream, QNM_CF_PARAMS, int blocks,
+             double* ws, unsigned* arrivals) {
+  if (B <= 0) return 0;
+  if (N < 1 || N > kMaxN || B > 0x7fffffffLL || !pow2_upto(team, 256) ||
+      !pow2_upto(blocks, 256) ||
+      (blocks > 1 && (team < 128 || blocks > team)) || !ws || !arrivals)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (team <= 128)
+    return launch_dd<128>(st, QNM_CF_ARGS, blocks, ws, arrivals);
+  return launch_dd<256>(st, QNM_CF_ARGS, blocks, ws, arrivals);
 }
 
 }  // namespace
 
 // Evaluate B elements on `stream` of device `device`, a team of `team`
-// threads (a power of two, 1..256) an element, in FP64 (qnm_leaver_cf) or
-// in double-double (qnm_leaver_cf_dd).  Returns the CUDA error of the
-// launch (0 on success).
+// threads (a power of two, 1..256) an element, in FP64.  Returns the CUDA
+// error of the launch (0 on success).
 extern "C" int qnm_leaver_cf(QNM_CF_PARAMS, int device, void* stream) {
-  return entry(false, device, stream, QNM_CF_ARGS);
+  return entry(device, stream, QNM_CF_ARGS);
 }
-extern "C" int qnm_leaver_cf_dd(QNM_CF_PARAMS, int device, void* stream) {
-  return entry(true, device, stream, QNM_CF_ARGS);
+// The same in double-double, each element over `blocks` (a power of two,
+// 1..256; above 1 only with a team of 128 or 256 and at most `team`)
+// blocks of the team: `ws` B (16 blocks + 14) doubles of workspace and
+// `arrivals` B counters, 0 before the launch and left 0 after it (so one
+// zeroed set serves every launch of a stream).
+extern "C" int qnm_leaver_cf_dd(QNM_CF_PARAMS, int blocks, double* ws,
+                                unsigned* arrivals, int device,
+                                void* stream) {
+  return entry_dd(device, stream, QNM_CF_ARGS, blocks, ws, arrivals);
 }
+
+#ifdef QNM_CF_PHASES
+// The phase counters (QNM_CF_PHASES): reset to 0, or copied into out[16].
+extern "C" int qnm_cf_phases(unsigned long long* out, int reset) {
+  if (reset) {
+    const unsigned long long zero[16] = {0};
+    return static_cast<int>(
+        cudaMemcpyToSymbol(qnm_cf_phase_cycles, zero, sizeof zero));
+  }
+  return static_cast<int>(cudaMemcpyFromSymbol(
+      out, qnm_cf_phase_cycles, 16 * sizeof(unsigned long long)));
+}
+#endif
 
 #else
 
@@ -842,16 +1200,15 @@ namespace {
 // Host build of the same arithmetic (g++ -x c++): the same segments for a
 // team of `team` threads (any team >= 1), combined by the same pairwise
 // tree, serially.  Returns 0, or 1 on arguments the kernel refuses.
-template <class K>
 int host_cf(long long B, const double* w_re, const double* w_im,
             const double* a, const double* A_re, const double* A_im,
             const int* n_inv, int s, int m, int N, int team, double* f_re,
             double* f_im, double* scale) {
   if (N < 1 || N > kMaxN || team < 1) return 1;
-  std::vector<typename K::Mat> P(team);
+  std::vector<Mat2> P(team);
   for (long long i = 0; i < B; ++i) {
     const cplx w = mk(w_re[i], w_im[i]), A = mk(A_re[i], A_im[i]);
-    const typename K::Coef r = K::coef(s, m, a[i], w, A);
+    const Rec r = leaver_rec(s, m, a[i], w, A);
     for (int j = 0; j < team; ++j) {
       int lo, hi;
       lane_range(j, team, n_inv[i], N, &lo, &hi);
@@ -864,7 +1221,44 @@ int host_cf(long long B, const double* w_re, const double* w_im,
       }
     }
     cplx f;
-    K::fin(P[0], n_inv[i], N, s, m, a[i], w, A, r, &f, &scale[i]);
+    finish(P[0], n_inv[i], N, a[i], w, r, &f, &scale[i]);
+    f_re[i] = f.re;
+    f_im[i] = f.im;
+  }
+  return 0;
+}
+
+// The double-double kernel's arithmetic with T = team x blocks segments
+// (any team and blocks >= 1): the card's blocks and teams combine by the
+// same pairwise tree over the T segments in order.
+int host_cf_dd(long long B, const double* w_re, const double* w_im,
+               const double* a, const double* A_re, const double* A_im,
+               const int* n_inv, int s, int m, int N, int team, int blocks,
+               double* f_re, double* f_im, double* scale) {
+  if (N < 1 || N > kMaxN || team < 1 || blocks < 1 ||
+      static_cast<long long>(team) * blocks > kMaxN)
+    return 1;
+  const int T = team * blocks;
+  std::vector<Mat2dd> P(T);
+  for (long long i = 0; i < B; ++i) {
+    const cplx w = mk(w_re[i], w_im[i]);
+    const RecDD r = leaver_rec_dd(s, m, a[i], w, mk(A_re[i], A_im[i]));
+    const BasisDD p = basis_dd(r);
+    for (int j = 0; j < T; ++j) {
+      int lo, hi;
+      lane_range(j, T, n_inv[i], N, &lo, &hi);
+      P[j] = segment(lo, hi, p);
+    }
+    for (int off = 1; off < T; off *= 2) {
+      for (int j = 0; j + off < T; j += 2 * off) {
+        P[j] = P[j] * P[j + off];
+        rescale(P[j]);
+      }
+    }
+    cplx f;
+    finish_dd(P[0],
+              TermsDD{up_dd(n_inv[i], r), tail_dd(n_inv[i], N, a[i], w, r)},
+              &f, &scale[i]);
     f_re[i] = f.re;
     f_im[i] = f.im;
   }
@@ -879,17 +1273,17 @@ extern "C" int qnm_leaver_cf_host(long long B, const double* w_re,
                                   const int* n_inv, int s, int m, int N,
                                   int team, double* f_re, double* f_im,
                                   double* scale) {
-  return host_cf<F64>(B, w_re, w_im, a, A_re, A_im, n_inv, s, m, N, team,
-                      f_re, f_im, scale);
+  return host_cf(B, w_re, w_im, a, A_re, A_im, n_inv, s, m, N, team, f_re,
+                 f_im, scale);
 }
 extern "C" int qnm_leaver_cf_dd_host(long long B, const double* w_re,
                                      const double* w_im, const double* a,
                                      const double* A_re, const double* A_im,
                                      const int* n_inv, int s, int m, int N,
-                                     int team, double* f_re, double* f_im,
-                                     double* scale) {
-  return host_cf<DD>(B, w_re, w_im, a, A_re, A_im, n_inv, s, m, N, team,
-                     f_re, f_im, scale);
+                                     int team, int blocks, double* f_re,
+                                     double* f_im, double* scale) {
+  return host_cf_dd(B, w_re, w_im, a, A_re, A_im, n_inv, s, m, N, team,
+                    blocks, f_re, f_im, scale);
 }
 
 #endif

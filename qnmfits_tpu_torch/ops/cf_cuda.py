@@ -29,8 +29,10 @@ shared library with a plain C interface under ``build/qnmfits_tpu_torch/``
 with ctypes, as ``ops/chol_cuda.py`` does; without contraction
 (``-fmad=false``): its hot loop writes its fused multiply-adds out, so the
 host build of the same source (``g++ -ffp-contract=off``, the CPU tests)
-rounds as the card does.  ``plan`` picks the team for a launch.  A failed
-build or launch raises; nothing falls back.
+rounds as the card does.  ``plan`` picks the team of an FP64 launch,
+``plan_dd`` the team and the blocks an element of a double-double one
+(its elements spread over many blocks, the near-extremal launches being a
+few elements deep).  A failed build or launch raises; nothing falls back.
 """
 
 from __future__ import annotations
@@ -50,9 +52,10 @@ import torch
 from . import dd
 from .chol_cuda import BUILD_DIR, NVCC_FLAGS, _nvcc
 
-__all__ = ["CHI_EXTENDED", "build", "cf_dd", "cf_parts", "dd_launches",
-           "last_plan", "leaver_cf", "leaver_coeffs", "launches", "plan",
-           "ptxas_report"]
+__all__ = ["CHI_EXTENDED", "PHASES", "build", "cf_dd", "cf_parts",
+           "dd_launches", "dd_plans", "last_dd_plan", "last_plan",
+           "leaver_cf", "leaver_coeffs", "launches", "phase_cycles", "plan",
+           "plan_dd", "ptxas_report"]
 
 SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "leaver_cf.cu"
 BUILD_LOG = BUILD_DIR / "leaver_cf_build.log"
@@ -76,13 +79,32 @@ MAX_N = 1 << 20
 # its shapes (--extended).
 THREADS_PER_SM = 240
 MIN_SEGMENT = 16
+# plan_dd(): the double-double variant's element spreads over T = team x
+# blocks segments, to the same THREADS_PER_SM, keeping this many steps a
+# segment (a tree level costs about one step), the blocks beyond one of
+# teams of DD_TEAM (up to DD_TEAM of them, then of 256); from
+# scripts/torch_cf_teams.py --extended's sweep of (team, blocks) on an
+# H100.
+DD_MIN_SEGMENT = 8
+DD_TEAM = 128
+MAX_BLOCKS = 256
+# The phases build (``phase_cycles``): its flag, and the counters its
+# phases are divided by (csrc/leaver_cf.cu's enum, in order).
+PHASE_FLAGS = ("-DQNM_CF_PHASES",)
+PHASES = (("coefficients", "segment blocks"), ("segments", "warps"),
+          ("in-block tree", "segment blocks"), ("arrival", "segment blocks"),
+          ("cross-block combine", "last blocks"), ("finish", "last blocks"),
+          ("terms", "terms"), ("block", "segment blocks"))
+_COUNTS = ("segment blocks", "warps", "last blocks", "terms")
 
 # Kernel launches since the last reset (callers set them to 0 and read
-# them), FP64 and double-double, and the (team, segment length) of the last
-# launch of either.
+# them), FP64 and double-double; the (team, segment length) of the last
+# FP64 launch and the (team, blocks, segment length) of the last
+# double-double one.
 launches = 0
 dd_launches = 0
 last_plan = None
+last_dd_plan = None
 
 
 # Depths whose recurrence coefficients are formed at once in the tail: the
@@ -417,24 +439,68 @@ def plan(B: int, N: int, sm_count: int) -> tuple[int, int]:
     return team, -(-N // team)
 
 
+def _dd_split(T: int) -> tuple[int, int]:
+    """(team, blocks) of T = team x blocks segments an element: one block
+    up to DD_TEAM, then blocks of DD_TEAM up to DD_TEAM of them, then of
+    256."""
+    if T <= DD_TEAM:
+        return T, 1
+    team = DD_TEAM if T <= DD_TEAM * DD_TEAM else TEAMS[-1]
+    return team, T // team
+
+
+def plan_dd(B: int, N: int, sm_count: int) -> tuple[int, int, int]:
+    """(team, blocks, segment length) of a double-double launch of B
+    elements at depth N on a card of sm_count SMs: the fewest segments T
+    (a power of two, split by ``_dd_split``) whose B x T threads give each
+    SM ``THREADS_PER_SM``, or the most that keep ``DD_MIN_SEGMENT`` steps
+    a thread where none does; the segment is ceil(N / T)."""
+    want = THREADS_PER_SM * sm_count
+    T = 1
+    while (B * T < want and T < TEAMS[-1] * MAX_BLOCKS
+           and -(-N // (2 * T)) >= DD_MIN_SEGMENT):
+        T *= 2
+    return (*_dd_split(T), -(-N // T))
+
+
+def dd_plans() -> list[tuple[int, int]]:
+    """Every (team, blocks) the double-double kernel takes: teams of
+    TEAMS in one block, and teams of 128 and 256 over up to ``team``
+    blocks (powers of two)."""
+    return [(team, blocks) for team in TEAMS
+            for blocks in (1 << k for k in range(9))
+            if blocks == 1 or team >= 128 and blocks <= team]
+
+
 @functools.lru_cache(maxsize=None)
 def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def build() -> Path:
-    """Compile the kernel library if this source has not been built yet;
-    returns its path.  ptxas's report is kept in ``BUILD_LOG``."""
+def _build_paths(phases: bool):
+    """(nvcc's flags, the library, its build log) of a build: the plain
+    build's log is ``BUILD_LOG``, the phases build's beside it."""
+    cf_flags = (*CF_FLAGS, *(PHASE_FLAGS if phases else ()))
     tag = hashlib.sha256(SOURCE.read_bytes()
-                         + " ".join(CF_FLAGS).encode()).hexdigest()[:16]
-    out = BUILD_DIR / f"libleaver_cf_{tag}.so"
+                         + " ".join(cf_flags).encode()).hexdigest()[:16]
+    log = (BUILD_LOG if cf_flags == CF_FLAGS
+           else BUILD_DIR / f"leaver_cf_build_{tag}.log")
+    return cf_flags, BUILD_DIR / f"libleaver_cf_{tag}.so", log
+
+
+def build(phases: bool = False) -> Path:
+    """Compile the kernel library (with ``phases``, the build that counts
+    the double-double kernel's cycles by phase, ``phase_cycles``) if this
+    source has not been built so yet; returns its path.  ptxas's report
+    is kept in its build log."""
+    cf_flags, out, log = _build_paths(phases)
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *CF_FLAGS, "-o", str(tmp), str(SOURCE)]
+    cmd = [_nvcc(), *cf_flags, "-o", str(tmp), str(SOURCE)]
     res = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
-    BUILD_LOG.write_text(" ".join(cmd) + "\n" + res.stdout + res.stderr)
+    log.write_text(" ".join(cmd) + "\n" + res.stdout + res.stderr)
     if res.returncode != 0:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(f"nvcc failed to build {SOURCE.name} "
@@ -444,38 +510,43 @@ def build() -> Path:
 
 
 def ptxas_report() -> dict:
-    """ptxas's report of the last build, per kernel of ``KERNELS``:
+    """ptxas's report of the build, per kernel of ``KERNELS``:
     dict(registers=, spill_stores=, spill_loads=), the spills in bytes.
     Raises when the log is not that of the library ``build()`` returns."""
     lib = build()
-    text = BUILD_LOG.read_text()
+    log = BUILD_LOG
+    text = log.read_text()
     if lib.stem not in text.splitlines()[0]:
-        raise RuntimeError(f"{BUILD_LOG} is not the build log of {lib.name}")
+        raise RuntimeError(f"{log} is not the build log of {lib.name}")
     report = {}
     # The template argument (the block) is mangled as ILi<n>E.
     for block in text.split("Compiling entry function")[1:]:
         threads = re.search(r"leaver_cf_(dd_)?kernelILi(\d+)E", block)
         if not threads:
-            raise RuntimeError(f"unknown kernel in {BUILD_LOG}")
+            raise RuntimeError(f"unknown kernel in {log}")
         spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                           block)
         regs = re.search(r"Used (\d+) registers", block)
         name = f"{'dd ' if threads[1] else ''}block<{threads[2]}>"
         report[name] = dict(registers=int(regs[1]),
-                                              spill_stores=int(spill[1]),
-                                              spill_loads=int(spill[2]))
+                            spill_stores=int(spill[1]),
+                            spill_loads=int(spill[2]))
     return report
 
 
 @functools.lru_cache(maxsize=None)
-def _lib():
-    lib = ctypes.CDLL(str(build()))
-    ptr = ctypes.c_void_p
+def _lib(phases: bool = False):
+    lib = ctypes.CDLL(str(build(phases)))
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    params = [ctypes.c_longlong, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32,
+              i32, ptr, ptr, ptr]
+    lib.qnm_leaver_cf.argtypes = [*params, i32, ptr]
+    lib.qnm_leaver_cf_dd.argtypes = [*params, i32, ptr, ptr, i32, ptr]
     for fn in (lib.qnm_leaver_cf, lib.qnm_leaver_cf_dd):
-        fn.argtypes = [ctypes.c_longlong, ptr, ptr, ptr, ptr, ptr, ptr,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                       ptr, ptr, ptr, ctypes.c_int, ptr]
         fn.restype = ctypes.c_int
+    if phases:
+        lib.qnm_cf_phases.argtypes = [ptr, i32]
+        lib.qnm_cf_phases.restype = ctypes.c_int
     return lib
 
 
@@ -558,21 +629,47 @@ def _fp64(omega, a, A, s, m, n_inv, N):
 def _dd(omega, a, A, s, m, n_inv, N):
     if not omega.is_cuda:
         return cf_dd(omega, a, A, s, m, n_inv, N)
-    team, _ = plan(omega.shape[0], N, _sm_count(_index(omega.device)))
-    return _launch(omega, a, A, s, m, n_inv, N, team, extended=True)
+    team, blocks, _ = plan_dd(omega.shape[0], N,
+                              _sm_count(_index(omega.device)))
+    return _launch(omega, a, A, s, m, n_inv, N, team, extended=True,
+                   blocks=blocks)
 
 
 def _index(dev) -> int:
     return torch.cuda.current_device() if dev.index is None else dev.index
 
 
-def _launch(omega, a, A, s, m, n_inv, N, team, extended=False):
+# The double-double kernel's arrival counters, by (device, stream): zeroed
+# once, and left zero by every launch, so launches on one stream reuse
+# them; another stream, which may run at the same time, has its own.  A
+# launch that fails drops its stream's.  Zeroing counters for each launch
+# instead adds a fill kernel: 0.0018-0.0024 ms a launch on the card at the
+# solver's shapes, on ~0.030 ms (PERF.md section 6,
+# scripts/torch_cf_teams.py --arrivals).
+_ARRIVALS = {}
+
+
+def _arrivals(dev, stream, B):
+    key = (_index(dev), stream.cuda_stream)
+    buf = _ARRIVALS.get(key)
+    if buf is None or buf.numel() < B:
+        with torch.cuda.stream(stream):
+            buf = torch.zeros(max(B, 64), dtype=torch.int32, device=dev)
+        _ARRIVALS[key] = buf
+    return buf
+
+
+def _launch(omega, a, A, s, m, n_inv, N, team, extended=False, blocks=1,
+            phases=False):
     """One launch of the kernel on a (B,) complex128 CUDA ``omega``, with
-    ``team`` threads an element, in FP64 or (``extended``) double-double:
-    (U - T, |U| + |T|).  ``leaver_cf`` passes ``plan``'s team; checks and
-    scripts force others.  Raises when the launch fails (the C entry
-    refuses a team that is not a power of two of 1..256)."""
-    global launches, dd_launches, last_plan
+    ``team`` threads an element, in FP64 or (``extended``) double-double
+    over ``blocks`` blocks an element (with a workspace and the stream's
+    arrival counters): (U - T, |U| + |T|).  ``leaver_cf`` passes
+    ``plan``'s team and ``plan_dd``'s (team, blocks); checks and scripts
+    force others or the phases build (``phases``).  Raises when the
+    launch fails (the C entries refuse a team that is not a power of two
+    of 1..256, and blocks beyond what ``dd_plans`` lists)."""
+    global launches, dd_launches, last_plan, last_dd_plan
     dev = omega.device
     B = omega.shape[0]
     w_ri = _split(omega)
@@ -582,18 +679,62 @@ def _launch(omega, a, A, s, m, n_inv, N, team, extended=False):
     out = torch.empty((3, B), dtype=torch.float64, device=dev)
     if B:
         index = _index(dev)
-        entry = _lib().qnm_leaver_cf_dd if extended else _lib().qnm_leaver_cf
-        err = entry(
-            B, *(t.data_ptr() for t in args), int(s), int(m), int(N),
-            int(team), out[0].data_ptr(), out[1].data_ptr(),
-            out[2].data_ptr(), index,
-            torch.cuda.current_stream(dev).cuda_stream)
+        stream = torch.cuda.current_stream(dev)
+        lib = _lib(phases)
+        common = (B, *(t.data_ptr() for t in args), int(s), int(m), int(N),
+                  int(team), out[0].data_ptr(), out[1].data_ptr(),
+                  out[2].data_ptr())
+        if extended:
+            ws = torch.empty(B * (16 * max(int(blocks), 1) + 14),
+                             dtype=torch.float64, device=dev)
+            err = lib.qnm_leaver_cf_dd(
+                *common, int(blocks), ws.data_ptr(),
+                _arrivals(dev, stream, B).data_ptr(), index,
+                stream.cuda_stream)
+        else:
+            err = lib.qnm_leaver_cf(*common, index, stream.cuda_stream)
         if err != 0:
+            if extended:
+                _ARRIVALS.pop((index, stream.cuda_stream), None)
             raise RuntimeError(f"leaver_cf{'_dd' if extended else ''} kernel "
                                f"launch failed: CUDA error {err}")
         if extended:
             dd_launches += 1
+            last_dd_plan = (int(team), int(blocks),
+                            -(-N // (int(team) * int(blocks))))
         else:
             launches += 1
-        last_plan = (int(team), -(-N // int(team)))
+            last_plan = (int(team), -(-N // int(team)))
     return torch.complex(out[0], out[1]), out[2]
+
+
+def phase_cycles(omega, a, A, s, m, n_inv, N, team=None, blocks=None):
+    """A double-double launch's clock64 cycles by phase (``PHASES``) from
+    the phases build, at ``plan_dd``'s plan unless team and blocks are
+    given: per segment block its coefficients, its tree (with the wait for
+    its slowest warp), its arrival and its whole span (from its thread 0),
+    per warp its segments, per last block the cross-block combine and the
+    finish, per element the terms; and the counts they are divided by.
+    The clock reads slow what they time."""
+    if team is None:
+        team, blocks, _ = plan_dd(omega.shape[0], N,
+                                  _sm_count(_index(omega.device)))
+    lib = _lib(True)
+
+    def run():
+        return _launch(omega, a, A, s, m, n_inv, N, team, extended=True,
+                       blocks=blocks, phases=True)
+
+    run()
+    out = (ctypes.c_ulonglong * 16)()
+    torch.cuda.synchronize(omega.device)
+    if lib.qnm_cf_phases(out, 1):
+        raise RuntimeError("leaver_cf: resetting the phase counters failed")
+    run()
+    torch.cuda.synchronize(omega.device)
+    if lib.qnm_cf_phases(out, 0):
+        raise RuntimeError("leaver_cf: reading the phase counters failed")
+    counts = dict(zip(_COUNTS, out[len(PHASES):len(PHASES) + len(_COUNTS)]))
+    per = {name: out[k] / max(counts[by], 1)
+           for k, (name, by) in enumerate(PHASES)}
+    return dict(team=team, blocks=blocks, cycles=per, counts=counts)

@@ -12,8 +12,8 @@ omega and A are the 80-bit roots (the (5,2,8) pins of
 table's row, which that solve baked) and the depth is the fine pass's tier
 there (``solver.track_mode``).  For the FP64 and the double-double CF (the
 kernel's host twins, built by g++ into ``build/cf_host/``, with ``--host``;
-the kernel itself on the card, each with ``cf_cuda.plan``'s team) it
-prints:
+the kernel itself on the card, each with ``cf_cuda.plan``'s team, or
+``plan_dd``'s team and blocks) it prints:
 
 * S = |U| + |T| and |f| at the root;
 * |f'| by the solver's quotient (h = 1e-8, A re-solved at omega + h by
@@ -65,9 +65,9 @@ def host_cfs():
     cf80.argtypes = ([ctypes.c_int] + [ptr] * 5 + [ctypes.c_int] * 2
                      + [ptr, ctypes.c_int, ptr, ptr])
 
-    def bind(fn):
-        fn.argtypes = ([ctypes.c_longlong] + [ptr] * 6 + [ctypes.c_int] * 4
-                       + [ptr] * 3)
+    def bind(fn, extended):
+        fn.argtypes = ([ctypes.c_longlong] + [ptr] * 6
+                       + [ctypes.c_int] * (5 if extended else 4) + [ptr] * 3)
 
         def run(w, a, A, s, m, n_inv, N):
             B = len(w)
@@ -75,8 +75,10 @@ def host_cfs():
                    for x in (w.real, w.imag, a, A.real, A.imag)]
             ni = np.full(B, n_inv, dtype=np.int32)
             out = np.empty((3, B))
+            plan = (cf_cuda.plan_dd(B, N, 132)[:2] if extended
+                    else cf_cuda.plan(B, N, 132)[:1])
             if fn(B, *(x.ctypes.data for x in ins), ni.ctypes.data, s, m, N,
-                  cf_cuda.plan(B, N, 132)[0], *(o.ctypes.data for o in out)):
+                  *plan, *(o.ctypes.data for o in out)):
                 raise RuntimeError(f"host twin refused N={N}")
             return out[0] + 1j * out[1], out[2]
         return run
@@ -91,8 +93,8 @@ def host_cfs():
              out[0].ctypes.data, out[1].ctypes.data)
         return out[0] + 1j * out[1], None
 
-    return dict(fp64=bind(twin.qnm_leaver_cf_host),
-                dd=bind(twin.qnm_leaver_cf_dd_host)), run80
+    return dict(fp64=bind(twin.qnm_leaver_cf_host, False),
+                dd=bind(twin.qnm_leaver_cf_dd_host, True)), run80
 
 
 def card_cfs():
@@ -105,12 +107,13 @@ def card_cfs():
     def bind(extended):
         def run(w, a, A, s, m, n_inv, N):
             B = len(w)
-            team = cf_cuda.plan(B, N, sms)[0]
+            team, blocks = (cf_cuda.plan_dd(B, N, sms)[:2] if extended
+                            else (cf_cuda.plan(B, N, sms)[0], 1))
             f, scale = cf_cuda._launch(
                 torch.as_tensor(w, device="cuda"),
                 torch.as_tensor(a, device="cuda"),
                 torch.as_tensor(A, device="cuda"), s, m, n_inv, N, team,
-                extended=extended)
+                extended=extended, blocks=blocks)
             return f.cpu().numpy(), scale.cpu().numpy()
         return run
 

@@ -2,6 +2,7 @@
 """The Leaver CF kernel at every team size, on one GPU: time and error.
 
     python3 scripts/torch_cf_teams.py [--extended] [--out FILE]
+    python3 scripts/torch_cf_teams.py --arrivals [--out FILE]
     python3 scripts/torch_cf_teams.py --host [--out FILE]
 
 Builds ``qnmfits_tpu_torch/csrc/leaver_cf.cu`` (nvcc, sm_90a) and prints
@@ -14,8 +15,18 @@ version on the same card relative to |U| + |T|, and the kernel's device
 time (torch.profiler, ``chip_smoke.kernel_ms``), marking the team that
 ``cf_cuda.plan`` picks.  With ``--extended`` the same for the double-double
 variant at SHAPES_DD, on S1-X's distribution (``chip_smoke.CF_DD_CHI``,
-spins beyond chi = 0.985), against its plain version ``cf_dd``.  The
-card's name and power limit head the output.  Needs CUDA and nvcc.
+spins beyond chi = 0.985), against its plain version ``cf_dd``, at every
+(team, blocks) of ``cf_cuda.dd_plans`` whose segment lies within
+DD_SEGMENTS, marking the one ``cf_cuda.plan_dd`` picks, and at that one
+a launch's cycles by phase (``cf_cuda.phase_cycles``).  With
+``--arrivals`` it times the double-double wrapper's launch at ``plan_dd``'s
+plan on the solver's launch shapes (SHAPES_ARRIVALS) with the stream's
+arrival counters kept zero from launch to launch (``cached``) and with
+counters zeroed for each launch (``zeroed``, one fill kernel more), in
+turns: the card's time a launch (CUDA events around LAUNCHES launches
+queued behind a sleep, so the card runs them back to back) and the
+host's.  The card's name and power limit head the output.  Needs CUDA
+and nvcc.
 
 With ``--host`` it measures accuracy on the CPU instead: it builds the
 kernel's host twin (the same source, ``g++ -ffp-contract=off``) and the
@@ -55,11 +66,18 @@ SHAPES = ((1, 2000), (2, 2000), (2, 8192), (17, 2000), (1, 32768),
           (4096, 32768))
 # --extended: the double-double variant's (B, N): the solver's
 # near-extremal tiers and their retries, and S1-X's corners.
-SHAPES_DD = ((1, 8192), (2, 16384), (24, 32768), (256, 8192), (2, 98304),
-             (2, 884736))
-# --extended: teams whose segment passes this many steps are not timed
-# (plan never picks them; a thread takes ~us a double-double step).
-MAX_DD_SEGMENT = 1 << 15
+SHAPES_DD = ((1, 8192), (2, 16384), (16, 8192), (6, 16384), (24, 32768),
+             (256, 8192), (2, 98304), (6, 294912), (2, 884736),
+             (256, 884736))
+# --extended: (team, blocks) whose segment lies outside these steps are not
+# timed (plan_dd picks none; a thread takes ~us a double-double step).
+DD_SEGMENTS = (2, 1 << 13)
+# --arrivals: F1's and a re-solved near-extremal row's double-double
+# launch shapes (8 to 13 steps a thread at plan_dd's plan on an H100), and
+# the launches timed at once.
+SHAPES_ARRIVALS = ((2, 2920), (2, 12650), (16, 8192), (6, 16384),
+                   (2, 32768))
+LAUNCHES = 100
 SEED = 14
 # --host: (depth, spin range as chi, batch, seeds); n_inv 0..20.
 HOST_CASES = [(N, (0.0, 0.999), 400, (1000, 1001, 1002, 1003))
@@ -88,8 +106,8 @@ def host_builds():
     ptr = ctypes.c_void_p
     lib = ctypes.CDLL(twin_so)
     twin, twin_dd = lib.qnm_leaver_cf_host, lib.qnm_leaver_cf_dd_host
-    for fn in (twin, twin_dd):
-        fn.argtypes = ([ctypes.c_longlong] + [ptr] * 6 + [ctypes.c_int] * 4
+    for fn, ints in ((twin, 4), (twin_dd, 5)):
+        fn.argtypes = ([ctypes.c_longlong] + [ptr] * 6 + [ctypes.c_int] * ints
                        + [ptr] * 3)
     cf80 = ctypes.CDLL(cf80_so).radial_cf_batch
     cf80.argtypes = ([ctypes.c_int] + [ptr] * 5 + [ctypes.c_int] * 2
@@ -101,8 +119,8 @@ def host_accuracy(twin, twin_dd, cf80):
     """Records of the host twin's and the plain version's largest error
     against the 80-bit CF at each case of HOST_CASES (the --host mode); at
     the near-extremal cases also those of the double-double variant (its
-    plain version ``cf_dd`` and its host twin at team 256), and the plain
-    double-double call's seconds."""
+    plain version ``cf_dd`` and its host twin at ``plan_dd``'s team and
+    blocks on 132 SMs), and the plain double-double call's seconds."""
     import numpy as np
     import torch
     from qnmfits_tpu_torch.ops import cf_cuda
@@ -141,11 +159,12 @@ def host_accuracy(twin, twin_dd, cf80):
                 dd_s.append(time.perf_counter() - t)
                 errs["plain dd"] = f_dd.numpy()
                 f = np.empty((3, B))
+                team, blocks, _ = cf_cuda.plan_dd(B, N, 132)
                 if twin_dd(B, *(x.ctypes.data for x in ins),
-                           n_inv.ctypes.data, -2, 2, N, 256,
+                           n_inv.ctypes.data, -2, 2, N, team, blocks,
                            *(o.ctypes.data for o in f)):
                     raise RuntimeError(f"host twin refused N={N}")
-                errs["dd team 256"] = f[0] + 1j * f[1]
+                errs[f"dd team {team} x {blocks} blocks"] = f[0] + 1j * f[1]
             for k, v in errs.items():
                 worst[k] = max(worst.get(k, 0.0),
                                float(np.max(np.abs(v - ref) / scale)))
@@ -208,9 +227,11 @@ def host_track(twin, twin_dd, cf80):
                     continue
                 sub = [np.ascontiguousarray(x[sel]) for x in ins + [ni]]
                 res = np.empty((3, int(sel.sum())))
+                plan = (cf_cuda.plan_dd(len(res[0]), N, 132)[:2]
+                        if fn is twin_dd
+                        else cf_cuda.plan(len(res[0]), N, 132)[:1])
                 if fn(len(res[0]), *(x.ctypes.data for x in sub), s, m, N,
-                      cf_cuda.plan(len(res[0]), N, 132)[0],
-                      *(o.ctypes.data for o in res)):
+                      *plan, *(o.ctypes.data for o in res)):
                     raise RuntimeError(f"host twin refused N={N}")
                 out[:, sel] = res
             return torch.complex(torch.as_tensor(out[0]),
@@ -253,6 +274,66 @@ def host_track(twin, twin_dd, cf80):
     return record
 
 
+def arrivals(rng, sms):
+    """--arrivals: the double-double wrapper's launch on SHAPES_ARRIVALS
+    with the counters ``cf_cuda._arrivals`` gives (``cached``: one zeroed
+    buffer a stream, left zero by every launch) and with counters zeroed
+    for each launch (``zeroed``), in turns cached, zeroed, zeroed,
+    cached.  The LAUNCHES launches are queued behind torch.cuda._sleep, so
+    the events between them time the card's work (the launch and the
+    fill kernel) and not the host's."""
+    import torch
+    import chip_smoke
+    from qnmfits_tpu_torch.ops import cf_cuda
+    cached = cf_cuda._arrivals
+
+    def zeroed(dev, stream, B):
+        with torch.cuda.stream(stream):
+            return torch.zeros(B, dtype=torch.int32, device=dev)
+
+    records = []
+    for B, N in SHAPES_ARRIVALS:
+        inputs = chip_smoke.cf_inputs(rng, B, N, "cuda", chip_smoke.CF_DD_CHI)
+        team, blocks, _ = cf_cuda.plan_dd(B, N, sms)
+        ref, scale = cf_cuda.cf_dd(*inputs)
+        for name, fn in (("cached", cached), ("zeroed", zeroed),
+                         ("zeroed", zeroed), ("cached", cached)):
+            cf_cuda._arrivals = fn
+            try:
+                def call():
+                    return cf_cuda._launch(*inputs, team, extended=True,
+                                           blocks=blocks)
+                for _ in range(5):
+                    f, _ = call()
+                err = float(((f - ref).abs() / scale).max())
+                es, e0, e1 = (torch.cuda.Event(enable_timing=True)
+                              for _ in range(3))
+                torch.cuda.synchronize()
+                es.record()
+                torch.cuda._sleep(100_000_000)
+                e0.record()
+                t = time.perf_counter()
+                for _ in range(LAUNCHES):
+                    call()
+                host_ms = 1e3 * (time.perf_counter() - t) / LAUNCHES
+                e1.record()
+                torch.cuda.synchronize()
+                ms = e0.elapsed_time(e1) / LAUNCHES
+            finally:
+                cf_cuda._arrivals = cached
+            # The card ran the launches back to back only if the host had
+            # queued them all before the sleep ended.
+            ahead = LAUNCHES * host_ms < es.elapsed_time(e0)
+            records.append(dict(counters=name, batch=B, N=N, team=team,
+                                blocks=blocks, ms=ms, host_ms=host_ms,
+                                queued_ahead=ahead, rel_err=err))
+            print(f"{name} B={B:3d} N={N:6d} ({team} x {blocks}): card "
+                  f"{ms:.5f} ms a launch, host {host_ms:.4f} ms "
+                  f"(queued ahead: {ahead}), {err:.2e} of |U| + |T|",
+                  flush=True)
+    return records
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write the records (JSON lines) here")
@@ -260,6 +341,9 @@ def main():
                     help="measure the host twin's accuracy on the CPU")
     ap.add_argument("--extended", action="store_true",
                     help="the double-double variant on the card")
+    ap.add_argument("--arrivals", action="store_true",
+                    help="the double-double launch with cached against "
+                         "per-launch zeroed arrival counters")
     args = ap.parse_args()
 
     import numpy as np
@@ -287,6 +371,11 @@ def main():
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     rng = np.random.default_rng(SEED)
     ext = args.extended
+    if args.arrivals:
+        records = arrivals(rng, sms)
+        if args.out:
+            _write(args.out, records)
+        return 0
     records = []
     for B, N in SHAPES_DD if ext else SHAPES:
         inputs = chip_smoke.cf_inputs(rng, B, N, "cuda",
@@ -294,32 +383,42 @@ def main():
         w, a, A, s, m, n_inv, _ = inputs
         if ext:
             ref, ref_scale = cf_cuda.cf_dd(*inputs)
+            chosen = cf_cuda.plan_dd(B, N, sms)[:2]
+            plans = [p for p in cf_cuda.dd_plans()
+                     if DD_SEGMENTS[0] <= -(-N // (p[0] * p[1]))
+                     <= DD_SEGMENTS[1] or p == chosen]
         else:
             U, T = cf_cuda.cf_parts(*inputs)
             ref, ref_scale = U - T, U.abs() + T.abs()
-        chosen = cf_cuda.plan(B, N, sms)[0]
+            chosen = (cf_cuda.plan(B, N, sms)[0], 1)
+            plans = [(team, 1) for team in cf_cuda.TEAMS]
         bound, _ = chip_smoke.cf_bound_ms(B, N, ext)
-        for team in cf_cuda.TEAMS:
-            if ext and -(-N // team) > MAX_DD_SEGMENT:
-                continue
-            f, scale = cf_cuda._launch(*inputs, team, extended=ext)
+        for team, blocks in plans:
+            def call():
+                return cf_cuda._launch(*inputs, team, extended=ext,
+                                       blocks=blocks)
+            f, scale = call()
             err = float(((f - ref).abs() / ref_scale).max())
             err_scale = float(((scale - ref_scale).abs() / ref_scale).max())
-            ms = chip_smoke.kernel_ms(
-                lambda: cf_cuda._launch(*inputs, team, extended=ext),
-                reps=20 if -(-N // team) < 4096 else 3,
-                kernel=chip_smoke._kernel_name(ext))
-            rec = dict(extended=ext, batch=B, N=N, team=team,
-                       segment=-(-N // team),
-                       planned=team == chosen, rel_err=err,
-                       scale_err=err_scale, ms=ms, bound_ms=bound,
-                       bound_share=bound / ms)
+            segment = -(-N // (team * blocks))
+            ms = chip_smoke.kernel_ms(call, reps=20 if segment < 4096 else 3,
+                                      kernel=chip_smoke._kernel_name(ext))
+            rec = dict(extended=ext, batch=B, N=N, team=team, blocks=blocks,
+                       segment=segment, planned=(team, blocks) == chosen,
+                       rel_err=err, scale_err=err_scale, ms=ms,
+                       bound_ms=bound, bound_share=bound / ms)
             records.append(rec)
-            mark = "*" if team == chosen else " "
-            print(f"B={B:5d} N={N:6d} team {team:5d}{mark}"
-                  f" segment {rec['segment']:5d}: {err:.3e} of |U| + |T| "
+            mark = "*" if rec["planned"] else " "
+            print(f"B={B:5d} N={N:6d} team {team:5d} x {blocks:3d}{mark}"
+                  f" segment {segment:5d}: {err:.3e} of |U| + |T| "
                   f"(scale {err_scale:.3e}), {ms:.5f} ms, bound share "
                   f"{rec['bound_share']:.3f}", flush=True)
+            if ext and rec["planned"]:
+                rec["phases"] = cf_cuda.phase_cycles(*inputs, team, blocks)
+                print("  cycles by phase: " + ", ".join(
+                    f"{k} {v:.0f}" for k, v in
+                    rec["phases"]["cycles"].items())
+                    + f"; counts {rec['phases']['counts']}", flush=True)
     worst = {}
     for r in records:
         worst[r["segment"]] = max(worst.get(r["segment"], 0.0), r["rel_err"])

@@ -496,10 +496,11 @@ def _cf_inputs(B, seed, n_inv_max=8, chi=(0.0, 0.999)):
                                  (50, 777), (3, 3001)])
 def test_cf_kernel_matches_plain(cuda, B, N):
     """The Leaver CF kernel against its plain version on the same card,
-    relative to |U| + |T| (U - T cancels near a root), with the team the
-    wrapper reports the one its plan picks: the FP64 elements against
-    ``cf_parts``, those beyond CHI_EXTENDED (launched after them) against
-    the double-double ``cf_dd``."""
+    relative to |U| + |T| (U - T cancels near a root), with the plan the
+    wrapper reports the one it picks (``plan`` for FP64, ``plan_dd`` for
+    double-double): the FP64 elements against ``cf_parts``, those beyond
+    CHI_EXTENDED (launched after them) against the double-double
+    ``cf_dd``."""
     from qnmfits_tpu_torch.ops import cf_cuda
     w, a, A, n_inv = (torch.as_tensor(x, device=cuda)
                       for x in _cf_inputs(B, seed=B + N))
@@ -510,9 +511,14 @@ def test_cf_kernel_matches_plain(cuda, B, N):
     assert cf_cuda.launches == before[0] + (n_ext < B)
     assert cf_cuda.dd_launches == before[1] + (n_ext > 0)
     sms = torch.cuda.get_device_properties(cuda).multi_processor_count
-    team, segment = cf_cuda.last_plan
-    assert (team, segment) == cf_cuda.plan(n_ext or B, N, sms)
-    assert team in cf_cuda.TEAMS and segment == -(-N // team)
+    if n_ext < B:
+        team, segment = cf_cuda.last_plan
+        assert (team, segment) == cf_cuda.plan(B - n_ext, N, sms)
+        assert team in cf_cuda.TEAMS and segment == -(-N // team)
+    if n_ext:
+        team, blocks, segment = cf_cuda.last_dd_plan
+        assert (team, blocks, segment) == cf_cuda.plan_dd(n_ext, N, sms)
+        assert (team, blocks) in cf_cuda.dd_plans()
     if n_ext < B:
         U, T = cf_cuda.cf_parts(w[~ext], a[~ext], A[~ext], -2, 2,
                                 n_inv[~ext], N)
@@ -562,6 +568,8 @@ def test_cf_dd_kernel_matches_plain(cuda, B, N):
     f, scale = cf_cuda.leaver_cf(w, a, A, -2, 2, n_inv, N, with_scale=True)
     assert (cf_cuda.launches, cf_cuda.dd_launches) == (before[0],
                                                        before[1] + 1)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert cf_cuda.last_dd_plan == cf_cuda.plan_dd(B, N, sms)
     g, g_scale = cf_cuda.cf_dd(w, a, A, -2, 2, n_inv, N)
     torch.cuda.synchronize()
     assert float(((f - g).abs() / g_scale).max()) <= 1e-17
@@ -569,15 +577,134 @@ def test_cf_dd_kernel_matches_plain(cuda, B, N):
 
 
 def test_cf_dd_kernel_every_team_agrees(cuda):
+    """Every (team, blocks) the double-double kernel takes, on a depth no
+    segment count divides, against its plain version."""
     from qnmfits_tpu_torch.ops import cf_cuda
     w, a, A, n_inv = (torch.as_tensor(x, device=cuda) for x in _cf_inputs(
         24, seed=257, n_inv_max=20, chi=(0.985, 0.9995)))
     g, g_scale = cf_cuda.cf_dd(w, a, A, -2, 2, n_inv, 3001)
-    for team in cf_cuda.TEAMS:
+    for team, blocks in cf_cuda.dd_plans():
         f, _ = cf_cuda._launch(w, a, A, -2, 2, n_inv, 3001, team,
-                               extended=True)
-        assert cf_cuda.last_plan == (team, -(-3001 // team))
-        assert float(((f - g).abs() / g_scale).max()) <= 1e-17, team
+                               extended=True, blocks=blocks)
+        assert cf_cuda.last_dd_plan == (team, blocks,
+                                        -(-3001 // (team * blocks)))
+        assert float(((f - g).abs() / g_scale).max()) <= 1e-17, (team,
+                                                                  blocks)
+
+
+@pytest.mark.parametrize("B,N,plans", [
+    (2, 98304, ((128, 1), (128, 16), (128, 128), (256, 256))),
+    (6, 294912, ((128, 64), (256, 32))),
+    (16, 8192, ((64, 1), (128, 8), (256, 4)))])
+def test_cf_dd_kernel_spread_over_blocks_agrees(cuda, B, N, plans):
+    """An element over many blocks, at the near-extremal retries' depths
+    and F1's largest launch: within 1e-17 of the plain version at each
+    (team, blocks)."""
+    from qnmfits_tpu_torch.ops import cf_cuda
+    w, a, A, n_inv = (torch.as_tensor(x, device=cuda) for x in _cf_inputs(
+        B, seed=B + N, n_inv_max=20, chi=(0.985, 0.9995)))
+    g, g_scale = cf_cuda.cf_dd(w, a, A, -2, 2, n_inv, N)
+    for team, blocks in plans:
+        f, scale = cf_cuda._launch(w, a, A, -2, 2, n_inv, N, team,
+                                   extended=True, blocks=blocks)
+        assert float(((f - g).abs() / g_scale).max()) <= 1e-17, (team,
+                                                                  blocks)
+        assert float(((scale - g_scale).abs() / g_scale).max()) <= 1e-17
+
+
+def test_cf_dd_kernel_is_its_host_twin_bit_for_bit(cuda, tmp_path):
+    """The card's double-double arithmetic is its host twin's (the same
+    source built by g++ -ffp-contract=off on this machine, with T = team x
+    blocks segments), bit for bit, whichever block of an element comes
+    last: the row-split tree products, the fused sums, the
+    terms and the finish."""
+    import ctypes
+    import shutil
+    import subprocess
+    from qnmfits_tpu_torch.ops import cf_cuda
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("needs g++ to build the kernel's host twin")
+    lib = tmp_path / "libleaver_cf_host.so"
+    subprocess.run([gxx, "-x", "c++", "-std=c++17", "-ffp-contract=off",
+                    "-O2", "-shared", "-fPIC", "-o", str(lib),
+                    str(cf_cuda.SOURCE)], check=True, timeout=300)
+    fn = ctypes.CDLL(str(lib)).qnm_leaver_cf_dd_host
+    fn.argtypes = ([ctypes.c_longlong] + [ctypes.c_void_p] * 6
+                   + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 3)
+    for B, N, plans in ((5, 3001, ((1, 1), (8, 1), (128, 4), (256, 256))),
+                        (4, 40, ((128, 2), (128, 128))),
+                        (2, 98304, ((128, 64), (256, 32)))):
+        w, a, A, n_inv = _cf_inputs(B, seed=B + N, n_inv_max=20,
+                                    chi=(0.985, 0.9995))
+        if N == 40:
+            n_inv[:3] = (N, N + 3, N - 1)
+        ins = [np.ascontiguousarray(x, dtype=np.float64)
+               for x in (w.real, w.imag, a, A.real, A.imag)]
+        ni = np.ascontiguousarray(n_inv, dtype=np.int32)
+        for team, blocks in plans:
+            out = np.empty((3, B))
+            assert fn(B, *(x.ctypes.data for x in ins), ni.ctypes.data, -2,
+                      2, N, team, blocks, *(o.ctypes.data for o in out)) == 0
+            f, scale = cf_cuda._launch(
+                *(torch.as_tensor(x, device=cuda) for x in (w, a, A)), -2, 2,
+                torch.as_tensor(n_inv, device=cuda), N, team, extended=True,
+                blocks=blocks)
+            assert np.array_equal(f.cpu().numpy(), out[0] + 1j * out[1]), \
+                (B, N, team, blocks)
+            assert np.array_equal(scale.cpu().numpy(), out[2])
+
+
+def test_cf_dd_arrival_counters_reset(cuda):
+    """The workspace's arrival counters: back-to-back launches on one
+    stream, and launches on two streams at once (each with its own
+    counters), give the same bits as a lone launch, and leave every
+    counter 0; a refused launch drops its stream's counters, and the next
+    launch there gives the same bits."""
+    from qnmfits_tpu_torch.ops import cf_cuda
+    w, a, A, n_inv = (torch.as_tensor(x, device=cuda) for x in _cf_inputs(
+        6, seed=6, n_inv_max=20, chi=(0.985, 0.9995)))
+
+    def run():
+        return cf_cuda._launch(w, a, A, -2, 2, n_inv, 16384, 128,
+                               extended=True, blocks=16)[0]
+
+    first = run()
+    again = [run() for _ in range(5)]
+    streams = [torch.cuda.Stream(cuda) for _ in range(2)]
+    torch.cuda.synchronize(cuda)
+    both = []
+    for st in streams:
+        with torch.cuda.stream(st):
+            both.append([run() for _ in range(3)])
+    torch.cuda.synchronize(cuda)
+    for f in again + [f for fs in both for f in fs]:
+        assert torch.equal(f, first)
+    keys = {(cf_cuda._index(w.device), st.cuda_stream) for st in streams}
+    assert keys <= set(cf_cuda._ARRIVALS)
+    for buf in cf_cuda._ARRIVALS.values():
+        assert int(buf.abs().sum()) == 0
+    key = (cf_cuda._index(w.device),
+           torch.cuda.current_stream(cuda).cuda_stream)
+    assert key in cf_cuda._ARRIVALS
+    with pytest.raises(RuntimeError):
+        cf_cuda._launch(w, a, A, -2, 2, n_inv, 16384, 128, extended=True,
+                        blocks=3)
+    assert key not in cf_cuda._ARRIVALS
+    assert torch.equal(run(), first)
+
+
+def test_cf_dd_phase_cycles(cuda):
+    """The phases build on a spread launch: every segment block, warp,
+    element's terms and (the segments being longer than the terms) every
+    element's last block counted, each phase's cycles positive."""
+    from qnmfits_tpu_torch.ops import cf_cuda
+    w, a, A, n_inv = (torch.as_tensor(x, device=cuda) for x in _cf_inputs(
+        2, seed=2, n_inv_max=20, chi=(0.985, 0.9995)))
+    rec = cf_cuda.phase_cycles(w, a, A, -2, 2, n_inv, 98304, 128, 4)
+    assert rec["counts"] == {"segment blocks": 8, "warps": 32,
+                             "last blocks": 2, "terms": 4}
+    assert all(v > 0 for v in rec["cycles"].values()), rec
 
 
 def test_cf_mixed_batch_keeps_fp64_bit_for_bit(cuda):
@@ -657,6 +784,10 @@ def test_cf_kernel_rejects_bad_input(cuda):
     w = w.to(torch.complex128)
     with pytest.raises(RuntimeError, match="launch failed"):
         cf_cuda._launch(w, 0.1, 4.0, -2, 2, 0, 100, 48)
+    for team, blocks in ((128, 3), (64, 2), (128, 256), (256, 512)):
+        with pytest.raises(RuntimeError, match="launch failed"):
+            cf_cuda._launch(w, 0.499, 4.0, -2, 2, 0, 100, team,
+                            extended=True, blocks=blocks)
     with pytest.raises(ValueError, match="depths"):
         cf_cuda.leaver_cf(w, 0.1, 4.0, -2, 2, 0, cf_cuda.MAX_N + 1)
 

@@ -97,22 +97,23 @@ def cf_80(tmp_path_factory):
 
 @pytest.fixture(scope="module")
 def twin_dd(tmp_path_factory):
-    """The kernel's double-double host twin as f(w, a, A, n_inv, N, team)
-    -> (U - T, |U| + |T|) for s = -2, m = 2."""
+    """The kernel's double-double host twin as f(w, a, A, n_inv, N, team,
+    blocks=1) -> (U - T, |U| + |T|) for s = -2, m = 2: T = team x blocks
+    segments."""
     lib = _build(tmp_path_factory, cf_cuda.SOURCE, "libleaver_cf_host.so",
                  "-x", "c++", "-std=c++17", "-ffp-contract=off")
     fn = lib.qnm_leaver_cf_dd_host
     fn.argtypes = ([ctypes.c_longlong] + [ctypes.c_void_p] * 6
-                   + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 3)
+                   + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 3)
     fn.restype = ctypes.c_int
 
-    def run(w, a, A, n_inv, N, team):
+    def run(w, a, A, n_inv, N, team, blocks=1):
         ins = [np.ascontiguousarray(x, dtype=np.float64)
                for x in (w.real, w.imag, a, A.real, A.imag)]
         ni = np.ascontiguousarray(n_inv, dtype=np.int32)
         out = np.empty((3, len(w)))
         assert fn(len(w), *(x.ctypes.data for x in ins), ni.ctypes.data, -2,
-                  2, N, team, *(o.ctypes.data for o in out)) == 0
+                  2, N, team, blocks, *(o.ctypes.data for o in out)) == 0
         return out[0] + 1j * out[1], out[2]
 
     return run
